@@ -1,0 +1,178 @@
+"""The fleet LWW merge: a hand-written CUDA kernel and its plain version.
+
+`lww_merge(state, ops, noinc=False, fresh=False)` merges one OpBatch into
+the fleet's [N, K+1] int32 grids IN PLACE and returns the number of
+valid lanes as an int32 tensor. It is the port of the TPU kernel
+automerge_tpu/fleet/pallas_merge.py (`_pallas_apply_op_batch_impl`), and
+computes the same function as automerge_tpu/fleet/apply.py's scatter
+form:
+
+- winners  = max(old winner, packed ids of the valid set lanes);
+- values   = value of the lane whose packed id is the new winner;
+- counters = sum of the valid inc deltas, plus the old counter only
+  where the winner did not change (skipped entirely with noinc);
+- fresh: the grids start from zero (fused into the kernel).
+
+A valid lane whose key lies outside [0, K] is dropped.
+
+Routing is by the tensors' device: CUDA tensors launch the kernel in
+csrc/lww_merge.cu (built with nvcc for sm_90a on first use into the
+package's git-ignored build directory, bound through ctypes); CPU
+tensors run `lww_merge_plain`, the same function in torch ops. There is
+no fallback between the two: a build or launch failure raises.
+`LAUNCHES['lww_merge']` counts kernel launches (plain runs do not count).
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(_HERE, 'csrc', 'lww_merge.cu')
+_BUILD_DIR = os.path.join(os.path.dirname(_HERE), '_build')
+NVCC_FLAGS = ('-gencode=arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '-shared', '-Xcompiler', '-fPIC')
+
+LAUNCHES = {'lww_merge': 0}
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def reset_launches():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc():
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    cuda = os.path.join(os.environ.get('CUDA_HOME', '/usr/local/cuda'),
+                        'bin', 'nvcc')
+    if os.path.exists(cuda):
+        return cuda
+    raise RuntimeError('nvcc not found: the CUDA merge kernel cannot be '
+                       'built (set CUDA_HOME or put nvcc on PATH)')
+
+
+def build():
+    """Compile csrc/lww_merge.cu (once per source content) and load it.
+    Returns the ctypes library. Concurrent builders publish atomically
+    (temporary name + os.replace under a lock on the build directory)."""
+    global _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        import fcntl
+        with open(_SRC, 'rb') as f:
+            digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode()
+                                    ).hexdigest()[:12]
+        path = os.path.join(_BUILD_DIR, f'liblww_merge_{digest}.so')
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        with open(os.path.join(_BUILD_DIR, '.lww_merge.lock'), 'w') as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not os.path.exists(path):
+                tmp = f'{path}.{os.getpid()}.tmp'
+                proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', tmp, _SRC],
+                                      capture_output=True, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f'nvcc failed building {_SRC}:\n{proc.stderr}')
+                os.replace(tmp, path)
+        lib = ctypes.CDLL(path)
+        fn = lib.lww_merge_launch
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int64] * 3 + \
+            [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _lib = lib
+        return lib
+
+
+def _check(ops, state):
+    n, k1 = state.winners.shape
+    dev = state.winners.device
+    for name, t in (('winners', state.winners), ('values', state.values),
+                    ('counters', state.counters)):
+        if t.dtype != torch.int32 or t.shape != (n, k1) or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError(f'{name}: expected a contiguous int32 [{n}, '
+                             f'{k1}] tensor on {dev}, got {t.dtype} '
+                             f'{tuple(t.shape)} on {t.device}')
+    p = ops.key_id.shape[1] if ops.key_id.dim() == 2 else -1
+    for name, want in (('key_id', torch.int32), ('packed', torch.int32),
+                       ('value', torch.int32), ('is_set', torch.bool),
+                       ('is_inc', torch.bool), ('valid', torch.bool)):
+        t = getattr(ops, name)
+        if t.dtype != want or t.shape != (n, p) or t.device != dev or \
+                not t.is_contiguous():
+            raise ValueError(f'ops.{name}: expected a contiguous {want} '
+                             f'[{n}, P] tensor on {dev}, got {t.dtype} '
+                             f'{tuple(t.shape)} on {t.device}')
+
+
+def lww_merge(state, ops, noinc=False, fresh=False):
+    """Merge `ops` into `state` in place (see the module docstring);
+    returns the valid-lane count as a 0-d int32 tensor."""
+    _check(ops, state)
+    dev = state.winners.device
+    if dev.type == 'cpu':
+        return lww_merge_plain(state, ops, noinc=noinc, fresh=fresh)
+    if dev.type != 'cuda':
+        raise ValueError(f'lww_merge: unsupported device {dev}')
+    lib = build()
+    n, k1 = state.winners.shape
+    p = ops.key_id.shape[1]
+    stats = torch.zeros(1, dtype=torch.int32, device=dev)
+    old_w = None if noinc else torch.empty((n, p), dtype=torch.int32,
+                                           device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.lww_merge_launch(
+            ops.key_id.data_ptr(), ops.packed.data_ptr(),
+            ops.value.data_ptr(), ops.is_set.data_ptr(),
+            ops.is_inc.data_ptr(), ops.valid.data_ptr(),
+            state.winners.data_ptr(), state.values.data_ptr(),
+            state.counters.data_ptr(),
+            old_w.data_ptr() if old_w is not None else None,
+            stats.data_ptr(), n, p, k1, int(bool(noinc)), int(bool(fresh)),
+            stream)
+    if err != 0:
+        raise RuntimeError(f'lww_merge kernel launch failed: CUDA error '
+                           f'{err}')
+    if n > 0:
+        LAUNCHES['lww_merge'] += 1
+    return stats[0]
+
+
+def lww_merge_plain(state, ops, noinc=False, fresh=False):
+    """The same merge in torch ops (scatter-max / scatter / where /
+    scatter-add, following automerge_tpu/fleet/apply.py). In place."""
+    winners, values, counters = state.tensors()
+    if fresh:
+        for t in (winners, values, counters):
+            t.zero_()
+    k1 = winners.shape[1]
+    scratch = k1 - 1
+    key = ops.key_id.long()
+    in_range = (key >= 0) & (key < k1)
+    set_mask = ops.is_set & ops.valid & in_range
+    set_key = torch.where(set_mask, key, scratch)
+    old = None if noinc else winners.clone()
+    winners.scatter_reduce_(1, set_key,
+                            torch.where(set_mask, ops.packed, 0), 'amax')
+    won = set_mask & (ops.packed == winners.gather(1, set_key))
+    win_key = torch.where(won, key, scratch)
+    values.scatter_(1, win_key, torch.where(won, ops.value, 0))
+    if not noinc:
+        counters.masked_fill_(winners != old, 0)
+        inc_mask = ops.is_inc & ops.valid & in_range
+        counters.scatter_add_(1, torch.where(inc_mask, key, scratch),
+                              torch.where(inc_mask, ops.value, 0))
+    return ops.valid.sum(dtype=torch.int32)
+

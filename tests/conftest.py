@@ -30,6 +30,10 @@ def pytest_configure(config):
         'markers',
         'slow: long-running (full crash/chaos matrices); tier-1 runs '
         "-m 'not slow'")
+    config.addinivalue_line(
+        'markers',
+        'cuda: needs an NVIDIA GPU (the port\'s CUDA kernels); skips '
+        'without one')
 
 
 # ---------------------------------------------------------------------------

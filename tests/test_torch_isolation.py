@@ -1,0 +1,68 @@
+"""The torch port stands alone: importing it pulls in neither jax nor
+the JAX package, no source file of the port (or chip_smoke.py) imports
+them, and a fleet built without a device on a CUDA-less machine raises
+instead of running on the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, 'automerge_tpu_torch')
+
+
+def _sources():
+    out = [os.path.join(ROOT, 'chip_smoke.py')]
+    for dirpath, _dirs, files in os.walk(PORT):
+        out += [os.path.join(dirpath, f) for f in files if f.endswith('.py')]
+    return sorted(out)
+
+
+def _forbidden(module):
+    top = module.split('.')[0]
+    return top in ('jax', 'jaxlib') or top == 'automerge_tpu'
+
+
+def test_import_leaves_jax_and_reference_out():
+    code = ('import sys\n'
+            'import automerge_tpu_torch, automerge_tpu_torch.fleet.backend\n'
+            'bad = [m for m in sys.modules if m.split(".")[0] in '
+            '("jax", "jaxlib", "automerge_tpu")]\n'
+            'assert not bad, bad\n'
+            'print("ISOLATED")\n')
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert 'ISOLATED' in proc.stdout
+
+
+@pytest.mark.parametrize('path', _sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_source_imports_jax_or_reference(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or '']
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f'{path}:{node.lineno} imports {bad}'
+
+
+def test_default_device_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present')
+    from automerge_tpu_torch.fleet.backend import DocFleet, default_fleet
+    with pytest.raises(RuntimeError, match='CUDA'):
+        DocFleet()
+    with pytest.raises(RuntimeError, match='CUDA'):
+        default_fleet()
+    assert DocFleet(device='cpu').device == torch.device('cpu')
