@@ -21,8 +21,22 @@ package's git-ignored build directory, bound through ctypes); CPU
 tensors run `lww_merge_plain`, the same function in torch ops. There is
 no fallback between the two: a build or launch failure raises.
 `LAUNCHES['lww_merge']` counts kernel launches (plain runs do not count).
+
+One launch per call, along the route `_launch_plan` picks from the
+shapes (csrc/lww_merge.cu says what bounds each route and why):
+
+- 'warp': in place with P <= 32 lanes per doc (every batch of a
+  long-lived fleet at the seam's widths): one warp per doc, the lanes
+  grouped by key inside the warp, one writer per cell;
+- 'cta': in place with P > 32: one CTA per doc in four barrier-separated
+  phases, with an [N, P] old-winner scratch array;
+- 'fresh': a fresh fleet's first batch, any P: each CTA builds D whole
+  rows (or one key chunk of a row too wide for the shared-memory
+  budget) in shared memory and writes every cell once with 16-byte
+  streaming stores.
 """
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -38,15 +52,65 @@ _BUILD_DIR = os.path.join(os.path.dirname(_HERE), '_build')
 NVCC_FLAGS = ('-gencode=arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC')
 
+WARP_DOCS = 8            # docs (one warp each) per CTA of the warp route
+CTA_THREADS = 128        # threads of the cta route's CTA (one doc)
+FRESH_THREADS = 256
+# Dynamic shared memory of one fresh CTA. Smaller tiles measured faster
+# on an H100 (more CTAs per SM overlap one CTA's lane loads with
+# another's stores); this one holds two 1,025-key rows of each grid.
+FRESH_SMEM_BUDGET = 36 * 1024
+_ROUTES = {'warp': 0, 'cta': 1, 'fresh': 2}
+
 LAUNCHES = {'lww_merge': 0}
+
+Plan = collections.namedtuple('Plan', (
+    'route',          # 'warp', 'cta' or 'fresh'
+    'grid',           # CTAs in the launch
+    'threads',        # threads per CTA (the warp route: 32 per doc)
+    'docs_per_cta',   # docs a CTA owns (D)
+    'key_chunk',      # keys of a row a fresh CTA owns (K+1 = whole rows)
+    'smem_cells'))    # int32 cells of shared memory per grid (fresh; the
+                      # CTA's dynamic shared memory is 3 x smem_cells x 4 B)
 
 _lib = None
 _lib_lock = threading.Lock()
+_set_up = set()          # devices where lww_merge_setup has run
 
 
 def reset_launches():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def _launch_plan(n, p, k1, fresh):
+    """The launch of an [n, k1] merge of P = p lanes per doc: route, CTA
+    count and size, and for 'fresh' the tile of cells a CTA builds in
+    shared memory (D whole rows, or one key chunk of one row)."""
+    if fresh:
+        # one grid's cells per CTA, less the 3 cells of alignment slack
+        room = FRESH_SMEM_BUDGET // (3 * 4) // 4 * 4 - 4
+        if k1 <= room:
+            docs, chunk = max(1, min(n, room // k1)), k1
+        else:
+            docs, chunk = 1, room
+        cells = (docs * chunk + 3 + 3) // 4 * 4
+        grid = -(-n // docs) * -(-k1 // chunk)
+        return Plan('fresh', grid, FRESH_THREADS, docs, chunk, cells)
+    if p <= 32:
+        return Plan('warp', -(-n // WARP_DOCS), 32 * WARP_DOCS, WARP_DOCS,
+                    k1, 0)
+    return Plan('cta', n, CTA_THREADS, 1, k1, 0)
+
+
+def _fresh_tile(plan, n, k1, block):
+    """The cells CTA `block` of a fresh launch owns: docs [d0, d1) x keys
+    [c0, c1), as lww_merge_fresh computes them from blockIdx. One flat
+    range of a grid, since d1 - d0 == 1 or [c0, c1) is the whole row."""
+    chunks = -(-k1 // plan.key_chunk)
+    d0 = (block // chunks) * plan.docs_per_cta
+    c0 = (block % chunks) * plan.key_chunk
+    return (d0, min(d0 + plan.docs_per_cta, n), c0,
+            min(c0 + plan.key_chunk, k1))
 
 
 def _nvcc():
@@ -88,8 +152,11 @@ def build():
         lib = ctypes.CDLL(path)
         fn = lib.lww_merge_launch
         fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int64] * 3 + \
-            [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            [ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int] + \
+            [ctypes.c_int64] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.lww_merge_setup.argtypes = [ctypes.c_int]
+        lib.lww_merge_setup.restype = ctypes.c_int
         _lib = lib
         return lib
 
@@ -125,14 +192,36 @@ def lww_merge(state, ops, noinc=False, fresh=False):
         return lww_merge_plain(state, ops, noinc=noinc, fresh=fresh)
     if dev.type != 'cuda':
         raise ValueError(f'lww_merge: unsupported device {dev}')
-    lib = build()
+    n, k1 = state.winners.shape
+    plan = _launch_plan(n, ops.key_id.shape[1], k1, fresh)
+    stats = torch.zeros(1, dtype=torch.int32, device=dev)
+    _launch(state, ops, plan, noinc, stats)
+    return stats[0]
+
+
+def _launch(state, ops, plan, noinc, stats):
+    """One launch of the kernel along `plan` on CUDA tensors that passed
+    `_check`; adds the valid-lane count to the int32 tensor `stats`."""
     n, k1 = state.winners.shape
     p = ops.key_id.shape[1]
-    stats = torch.zeros(1, dtype=torch.int32, device=dev)
-    old_w = None if noinc else torch.empty((n, p), dtype=torch.int32,
-                                           device=dev)
+    if plan.route == 'warp' and p > 32:
+        raise ValueError(f'lww_merge: plan {plan} does not fit P = {p}')
+    if state.winners.device.type != 'cuda':
+        raise ValueError('lww_merge: the kernel takes CUDA tensors only')
+    lib = build()
+    dev = state.winners.device
+    old_w = None
+    if plan.route == 'cta' and not noinc:
+        old_w = torch.empty((n, p), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        index = torch.cuda.current_device()
+        if plan.route == 'fresh' and index not in _set_up:
+            err = lib.lww_merge_setup(FRESH_SMEM_BUDGET)
+            if err != 0:
+                raise RuntimeError(f'lww_merge: setting the fresh route\'s '
+                                   f'shared memory failed: CUDA error {err}')
+            _set_up.add(index)
+        stream = torch.cuda.current_stream().cuda_stream
         err = lib.lww_merge_launch(
             ops.key_id.data_ptr(), ops.packed.data_ptr(),
             ops.value.data_ptr(), ops.is_set.data_ptr(),
@@ -140,14 +229,14 @@ def lww_merge(state, ops, noinc=False, fresh=False):
             state.winners.data_ptr(), state.values.data_ptr(),
             state.counters.data_ptr(),
             old_w.data_ptr() if old_w is not None else None,
-            stats.data_ptr(), n, p, k1, int(bool(noinc)), int(bool(fresh)),
-            stream)
+            stats.data_ptr(), n, p, k1, int(bool(noinc)),
+            _ROUTES[plan.route], plan.grid, plan.threads,
+            plan.docs_per_cta, plan.key_chunk, plan.smem_cells, stream)
     if err != 0:
-        raise RuntimeError(f'lww_merge kernel launch failed: CUDA error '
-                           f'{err}')
+        raise RuntimeError(f'lww_merge kernel launch failed ({plan.route} '
+                           f'route): CUDA error {err}')
     if n > 0:
         LAUNCHES['lww_merge'] += 1
-    return stats[0]
 
 
 def lww_merge_plain(state, ops, noinc=False, fresh=False):
@@ -175,4 +264,3 @@ def lww_merge_plain(state, ops, noinc=False, fresh=False):
         counters.scatter_add_(1, torch.where(inc_mask, key, scratch),
                               torch.where(inc_mask, ops.value, 0))
     return ops.valid.sum(dtype=torch.int32)
-

@@ -8,10 +8,16 @@ Phases (any failure exits non-zero):
 1. build: the native codec (g++) and the CUDA LWW merge kernel (nvcc,
    sm_90a) are compiled from this checkout's sources, both at once;
 2. kernel vs plain: seeded batches go through the CUDA kernel and its
-   plain torch version on the card — general, noinc, fresh, kills
-   pre-pass + merge, duplicate delivery with counter keep/reset over 3
-   rounds, more than 1024 lanes in one doc, and the full seam shape —
-   and must agree exactly (int32 equality on the real key columns);
+   plain torch version on the card and must agree exactly (int32
+   equality on the real key columns, and the valid-lane count): every
+   variant (general, noinc, fresh, noinc+fresh) at P = 0, 1, 20, 31,
+   32, 33 and 40 lanes, on both sides of the warp / cta route split; the
+   cta route forced at P = 20 and 32; full key collision, duplicate
+   packed ids with a re-delivered standing winner, and negative incs on
+   the warp, cta and fresh routes; fresh rows wider than a shared-memory
+   tile (key chunks); kills pre-pass + merge on both in-place routes;
+   duplicate delivery with counter keep/reset over 3 rounds; P = 3000;
+   and the full seam shape;
 3. main path: the fleet backend seam at full size (10,000 docs x 1,000
    keys x 20 changes per doc, one set op per change, two actors on one
    shared chain): DocFleet(device='cuda') -> init_docs ->
@@ -19,15 +25,29 @@ Phases (any failure exits non-zero):
    the last writer per key, the host OpSet engine and a save() round
    trip, with one merge dispatch per batch and the kernel's launch
    count read around the run;
-4. numbers: seam changes/s (median of 5 warm reps), the kernel's time
-   from CUDA events beside its plain version's and its bound, the grid
-   bytes, and the card's name and power limit.
+4. numbers: seam changes/s (median of 5 warm reps); the kernel's device
+   time from CUDA events, with the host's launches queued behind a sleep
+   kernel, with L2 warm and flushed: noinc+fresh (fresh route) beside
+   the zero_() floor of the same bytes, and general (warp route, on
+   batches whose packed ids rise, so every launch moves winners) beside
+   the CTA-per-doc schedule (the cta route at P = 20), an empty grid
+   (P = 0) and a batch that touches no cell; the public wrapper timed
+   both ways (queued, and issued call by call from the host); each
+   beside its plain version and its bound; the grid bytes, and the
+   card's name and power limit.
+
+    python3 chip_smoke.py --baseline DIR
+
+also builds the merge kernel of another checkout (e.g. the parent
+commit, unpacked with `git archive`) and times its wrapper in phase 4
+beside this one's, by the same methods.
 
 The last stdout line is {"ok": true, "device": {...}}. Without a CUDA
 device, or without the repository beside it, the script exits non-zero
 and prints no result.
 """
 
+import argparse
 import json
 import os
 import statistics
@@ -67,7 +87,7 @@ def card_line():
 
 # ---- phase 1 ---------------------------------------------------------------
 
-def build_all():
+def build_all(baseline=None):
     from automerge_tpu_torch import native
     from automerge_tpu_torch.fleet import merge_kernel
     times, errors = {}, []
@@ -82,9 +102,12 @@ def build_all():
             errors.append(f'{name}: {exc}')
         times[name] = time.perf_counter() - t0
 
-    threads = [threading.Thread(target=run, args=a) for a in (
-        ('native_codec', native.available),
-        ('lww_merge', lambda: merge_kernel.build() is not None))]
+    jobs = [('native_codec', native.available),
+            ('lww_merge', lambda: merge_kernel.build() is not None)]
+    if baseline is not None:
+        jobs.append(('baseline lww_merge',
+                     lambda: baseline.build() is not None))
+    threads = [threading.Thread(target=run, args=a) for a in jobs]
     for t in threads:
         t.start()
     for t in threads:
@@ -97,23 +120,15 @@ def build_all():
 
 # ---- phase 2 ---------------------------------------------------------------
 
-def random_cols(rng, n_docs, n_keys, lanes, ctr0=1, inc=True):
-    import numpy as np
-    shape = (n_docs, lanes)
-    key_id = rng.integers(0, n_keys, shape, dtype=np.int32)
-    actor = rng.integers(0, 4, shape, dtype=np.int32)
-    ctrs = ctr0 + np.broadcast_to(np.arange(lanes, dtype=np.int32), shape)
-    packed = (ctrs.astype(np.int32) << 8) | actor
-    value = rng.integers(-50, 1000, shape, dtype=np.int32)
-    is_set = rng.random(shape) < 0.7 if inc else np.ones(shape, bool)
-    valid = rng.random(shape) < 0.9
-    return [key_id, packed, value, is_set, ~is_set, valid]
-
-
 def kernel_vs_plain():
     import numpy as np
     import torch
-    from automerge_tpu_torch.fleet import apply
+    from automerge_tpu_torch.fleet import apply, merge_kernel
+    from automerge_tpu_torch.fleet.merge_cases import (CORNERS, clone,
+                                                       corner_cols,
+                                                       launch_along,
+                                                       random_cols)
+    from automerge_tpu_torch.fleet.merge_cases import seeded as seeded_on
     from automerge_tpu_torch.fleet.merge_kernel import (lww_merge,
                                                         lww_merge_plain)
     from automerge_tpu_torch.fleet.tensor_doc import (FleetState, OpBatch,
@@ -122,20 +137,18 @@ def kernel_vs_plain():
     max_err = 0
 
     def seeded(rng, n, k):
-        st = FleetState.empty(n, k, dev)
-        lww_merge_plain(st, OpBatch(*random_cols(rng, n, k, 6)).to(dev))
-        return st
+        return seeded_on(rng, n, k, dev)
 
-    def clone(st):
-        return FleetState(*(t.clone() for t in st.tensors()))
-
-    def compare(name, ref, got, n_keys):
+    def compare(name, ref, got, n_keys, s_ref=None, s_got=None):
         nonlocal max_err
         torch.cuda.synchronize()
+        if s_ref is not None and int(s_ref) != int(s_got):
+            fail(f'stats differ on {name}: {int(s_got)} vs {int(s_ref)}')
         for grid, a, b in zip(('winners', 'values', 'counters'),
                               state_to_numpy(ref), state_to_numpy(got)):
             diff = int(np.abs(a[:, :n_keys].astype(np.int64) -
-                              b[:, :n_keys].astype(np.int64)).max())
+                              b[:, :n_keys].astype(np.int64)).max(
+                                  initial=0))
             max_err = max(max_err, diff)
             if diff:
                 fail(f'kernel != plain: {name} {grid} (max abs err {diff})')
@@ -144,41 +157,76 @@ def kernel_vs_plain():
     rng = np.random.default_rng(0)
     n, k = 300, 257
     base = seeded(rng, n, k)
-    for name, noinc, fresh in (('general', False, False),
-                               ('noinc', True, False),
-                               ('fresh', False, True),
-                               ('noinc+fresh', True, True)):
-        cols = random_cols(rng, n, k, 40, ctr0=7, inc=not noinc)
-        ops = OpBatch(*cols).to(dev)
-        ref, got = clone(base), clone(base)
-        s_ref = lww_merge_plain(ref, ops, noinc=noinc, fresh=fresh)
-        s_got = lww_merge(got, ops, noinc=noinc, fresh=fresh)
-        if int(s_ref) != int(s_got):
-            fail(f'stats differ on {name}')
-        compare(name, ref, got, k)
+    variants = (('general', False, False), ('noinc', True, False),
+                ('fresh', False, True), ('noinc+fresh', True, True))
+    for lanes in (0, 1, 20, 31, 32, 33, 40):
+        for name, noinc, fresh in variants:
+            cols = random_cols(rng, n, k, lanes, ctr0=7, inc=not noinc)
+            ops = OpBatch(*cols).to(dev)
+            route = merge_kernel._launch_plan(n, lanes, k + 1, fresh).route
+            ref, got = clone(base), clone(base)
+            s_ref = lww_merge_plain(ref, ops, noinc=noinc, fresh=fresh)
+            s_got = lww_merge(got, ops, noinc=noinc, fresh=fresh)
+            compare(f'{name} P = {lanes} ({route} route)', ref, got, k,
+                    s_ref, s_got)
+    for lanes in (20, 32):          # the cta route at warp widths
+        for name, noinc, _ in variants[:2]:
+            ops = OpBatch(*random_cols(rng, n, k, lanes, ctr0=7,
+                                       inc=not noinc)).to(dev)
+            ref, got = clone(base), clone(base)
+            s_ref = lww_merge_plain(ref, ops, noinc=noinc)
+            s_got = launch_along('cta', got, ops, noinc)
+            compare(f'{name} P = {lanes} (cta route)', ref, got, k, s_ref,
+                    s_got[0])
+    for case in CORNERS:
+        kc = 3 if case == 'collision' else 40
+        cbase = seeded(rng, 96, kc)
+        ops = OpBatch(*corner_cols(case, rng, cbase, kc, 32)).to(dev)
+        for route in ('warp', 'cta', 'fresh'):
+            ref, got = clone(cbase), clone(cbase)
+            s_ref = lww_merge_plain(ref, ops, fresh=route == 'fresh')
+            s_got = launch_along(route, got, ops)
+            compare(f'{case} P = 32 ({route} route)', ref, got, kc, s_ref,
+                    s_got[0])
 
-    # kills pre-pass + merge
-    cols = random_cols(rng, n, k, 40, ctr0=7)
-    w = base.winners.cpu().numpy()
-    kk = np.zeros((n, 8), np.int32)
-    kp = np.zeros((n, 8), np.int32)
-    for d in range(n):
-        sets = np.flatnonzero(cols[3][d] & cols[5][d])
-        live = np.flatnonzero(w[d, :k])
-        for j in range(8):
-            if j % 3 == 0 and len(sets):
-                lane = sets[rng.integers(0, len(sets))]
-                kk[d, j], kp[d, j] = cols[0][d, lane], cols[1][d, lane]
-            elif j % 3 == 1 and len(live):
-                key = live[rng.integers(0, len(live))]
-                kk[d, j], kp[d, j] = key, w[d, key]
+    # fresh rows wider than a shared-memory tile: key-chunked
+    n3, k3, p3 = 37, 20_000, 48
+    plan = merge_kernel._launch_plan(n3, p3, k3 + 1, True)
+    cols = random_cols(rng, n3, k3 + 1, p3)
+    edges = np.arange(plan.key_chunk, k3 + 1, plan.key_chunk)
+    near = np.concatenate([edges - 1, edges, [0, k3 - 1, k3]])
+    cols[0][:, :len(near)] = near
     ops = OpBatch(*cols).to(dev)
-    kk_t, kp_t = (torch.from_numpy(a).to(dev) for a in (kk, kp))
-    ref = clone(base)
-    apply.clear_killed(ref, kk_t, kp_t)
-    lww_merge_plain(ref, apply.mask_killed_sets(ops, kp_t))
-    got, _ = apply.apply_op_batch_kills(base, ops, kk_t, kp_t)
-    compare('kills pre-pass + merge', ref, got, k)
+    ref = FleetState.empty(n3, k3, dev)
+    got = FleetState(*(torch.full_like(t, 7) for t in ref.tensors()))
+    s_ref = lww_merge_plain(ref, ops, fresh=True)
+    s_got = lww_merge(got, ops, fresh=True)
+    compare(f'fresh K+1 = {k3 + 1} in key chunks of {plan.key_chunk}',
+            ref, got, k3, s_ref, s_got)
+
+    # kills pre-pass + merge, on each in-place route
+    for lanes in (24, 40):
+        cols = random_cols(rng, n, k, lanes, ctr0=7)
+        w = base.winners.cpu().numpy()
+        kk = np.zeros((n, 8), np.int32)
+        kp = np.zeros((n, 8), np.int32)
+        for d in range(n):
+            sets = np.flatnonzero(cols[3][d] & cols[5][d])
+            live = np.flatnonzero(w[d, :k])
+            for j in range(8):
+                if j % 3 == 0 and len(sets):
+                    lane = sets[rng.integers(0, len(sets))]
+                    kk[d, j], kp[d, j] = cols[0][d, lane], cols[1][d, lane]
+                elif j % 3 == 1 and len(live):
+                    key = live[rng.integers(0, len(live))]
+                    kk[d, j], kp[d, j] = key, w[d, key]
+        ops = OpBatch(*cols).to(dev)
+        kk_t, kp_t = (torch.from_numpy(a).to(dev) for a in (kk, kp))
+        ref = clone(base)
+        apply.clear_killed(ref, kk_t, kp_t)
+        lww_merge_plain(ref, apply.mask_killed_sets(ops, kp_t))
+        got, _ = apply.apply_op_batch_kills(base, ops, kk_t, kp_t)
+        compare(f'kills pre-pass + merge, P = {lanes}', ref, got, k)
 
     # duplicate delivery and counter keep/reset across 3 rounds
     ref, got = clone(base), clone(base)
@@ -202,21 +250,24 @@ def kernel_vs_plain():
     n2, k2 = 64, 129
     base2 = seeded(rng, n2, k2)
     ops = OpBatch(*random_cols(rng, n2, k2, 3000, ctr0=7)).to(dev)
-    ref, got = clone(base2), clone(base2)
-    lww_merge_plain(ref, ops)
-    lww_merge(got, ops)
-    compare('P = 3000 lanes per doc', ref, got, k2)
+    for fresh in (False, True):
+        ref, got = clone(base2), clone(base2)
+        lww_merge_plain(ref, ops, fresh=fresh)
+        lww_merge(got, ops, fresh=fresh)
+        compare(f'P = 3000 lanes per doc{" (fresh)" if fresh else ""}',
+                ref, got, k2)
 
     # the full seam shape
     rng2 = np.random.default_rng(1)
     seam = seeded(rng2, SEAM_DOCS, SEAM_COLS - 1)
     ops = OpBatch(*random_cols(rng2, SEAM_DOCS, SEAM_COLS - 1, N_CHANGES,
                                ctr0=7)).to(dev)
-    ref, got = clone(seam), clone(seam)
-    lww_merge_plain(ref, ops)
-    lww_merge(got, ops)
-    compare(f'seam shape {SEAM_DOCS} x {SEAM_COLS}', ref, got,
-            SEAM_COLS - 1)
+    for fresh in (False, True):
+        ref, got = clone(seam), clone(seam)
+        lww_merge_plain(ref, ops, fresh=fresh)
+        lww_merge(got, ops, fresh=fresh)
+        compare(f'seam shape {SEAM_DOCS} x {SEAM_COLS}'
+                f'{" (fresh)" if fresh else ""}', ref, got, SEAM_COLS - 1)
     return max_err
 
 
@@ -365,7 +416,43 @@ def breakdown(per_doc):
 
 # ---- phase 4 ---------------------------------------------------------------
 
-def time_ms(fn, reps=50):
+SLEEP_CYCLES = 40_000_000      # ~20 ms: the host queues every timed call
+FLUSH_BYTES = 256 << 20        # > the H100's 50 MB L2
+
+
+def time_ms(fn, reps=50, flush=None):
+    """Device ms per call of `fn`. The calls are queued behind a sleep
+    kernel, so the host's launch cost is off the clock. With `flush` (an
+    int32 buffer of FLUSH_BYTES), each call follows a write of the whole
+    buffer, which evicts the L2, and only the call is timed (median of
+    the calls)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+             for _ in range(reps if flush is not None else 1)]
+    torch.cuda._sleep(SLEEP_CYCLES)
+    if flush is None:
+        pairs[0][0].record()
+        for _ in range(reps):
+            fn()
+        pairs[0][1].record()
+    else:
+        for start, end in pairs:
+            flush.fill_(1)
+            start.record()
+            fn()
+            end.record()
+    torch.cuda.synchronize()
+    if flush is None:
+        return pairs[0][0].elapsed_time(pairs[0][1]) / reps
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def call_ms(fn, reps=50):
+    """Ms per call of `fn` back to back with the host issuing each call
+    (the host's launch cost included where it is the longer)."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -379,33 +466,116 @@ def time_ms(fn, reps=50):
     return start.elapsed_time(end) / reps
 
 
-def kernel_numbers(grid_shape):
+REPS = 50
+
+
+def rising(ops, count):
+    """`count` batches equal to `ops` but for their packed ids, which rise
+    from one batch to the next above every id before them. Applied in
+    turn to one grid, every batch moves the winner of each cell it sets,
+    as the later batches of a long-lived fleet do (the same batch applied
+    again would move none after its first time)."""
+    from automerge_tpu_torch.fleet.tensor_doc import ACTOR_BITS, OpBatch
+    span = (int(ops.packed.max()) >> ACTOR_BITS) + 1
+    return [OpBatch(ops.key_id, ops.packed + ((r * span) << ACTOR_BITS),
+                    ops.value, ops.is_set, ops.is_inc, ops.valid)
+            for r in range(count)]
+
+
+def timed(timer, merge, seed, batches, **kw):
+    """`timer` (time_ms or call_ms) of `merge(state, batch)` on a fresh
+    copy of the grid `seed`, with the next of `batches` in each call."""
+    from automerge_tpu_torch.fleet.merge_cases import clone
+    state = clone(seed)
+    it = iter(batches)
+    return timer(lambda: merge(state, next(it)), **kw)
+
+
+def kernel_numbers(grid_shape, baseline=None):
     """The merge at the main path's shapes: the fresh-fleet set-only
-    variant the seam's first batch takes (noinc + fresh), and the
-    general in-place variant a later batch takes."""
+    variant the seam's first batch takes (noinc + fresh, fresh route)
+    and the general in-place variant a later batch takes (warp route),
+    each with L2 warm and flushed. In-place batches rise (`rising`), so
+    every timed launch moves winners. Beside them: the CTA-per-doc
+    schedule (the cta route the wrapper keeps for P > 32, forced at
+    P = 20); the public wrapper `lww_merge`, whose per-call int32 stats
+    allocation adds one fill (`fill_ms`), queued behind a sleep (`api_ms`)
+    and issued call by call from the host (`call_ms`), and the same for
+    `baseline` (another checkout's merge_kernel module, e.g. the parent
+    commit: `base_*`); the plain version; the bound; and floors: the
+    three grids' zero_() and one zero_() of as many bytes (the card's
+    write rate); the warp route at P = 0 (launch and CTA scheduling of
+    the same grid with no lanes) and with every key out of range (the
+    lanes loaded and grouped, no cell touched)."""
     import numpy as np
     import torch
+    from automerge_tpu_torch.fleet.merge_cases import (clone, launch_along,
+                                                       random_cols, seeded)
     from automerge_tpu_torch.fleet.merge_kernel import (lww_merge,
                                                         lww_merge_plain)
-    from automerge_tpu_torch.fleet.tensor_doc import FleetState, OpBatch
+    from automerge_tpu_torch.fleet.tensor_doc import OpBatch
     dev = torch.device(DEVICE)
     n, k1 = grid_shape
     rng = np.random.default_rng(2)
+    stats = torch.zeros(1, dtype=torch.int32, device=dev)
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    seed = seeded(rng, n, k1 - 1, dev)
     out = {}
     lane_bytes = 3 * 4 + 3 * 1        # key/packed/value int32 + 3 bools
     for variant, noinc, fresh in (('noinc_fresh', True, True),
                                   ('general', False, False)):
-        cols = random_cols(rng, n, N_KEYS, N_CHANGES, inc=not noinc)
+        cols = random_cols(rng, n, N_KEYS, N_CHANGES, ctr0=7,
+                           inc=not noinc)
         cols[5][:] = True
         if noinc:
             cols[4][:] = False
         ops = OpBatch(*cols).to(dev)
-        st = FleetState.empty(n, k1 - 1, dev)
-        lww_merge_plain(st, OpBatch(*random_cols(rng, n, N_KEYS, 6)).to(dev))
-        ms = time_ms(lambda: lww_merge(st, ops, noinc=noinc, fresh=fresh))
-        plain_ms = time_ms(
-            lambda: lww_merge_plain(st, ops, noinc=noinc, fresh=fresh),
-            reps=10)
+        # a fresh launch zeroes the grids first: the same batch again is
+        # the same work
+        batches = [ops] * (REPS + 1) if fresh else rising(ops, REPS + 1)
+        route = 'fresh' if fresh else 'warp'
+
+        def kernel(along):
+            return lambda st, b: launch_along(along, st, b, noinc, stats)
+
+        def api(wrapper):
+            return lambda st, b: wrapper(st, b, noinc=noinc, fresh=fresh)
+
+        nums = {'ms': timed(time_ms, kernel(route), seed, batches),
+                'cold_ms': timed(time_ms, kernel(route), seed, batches,
+                                 reps=20, flush=flush)}
+        if not fresh:
+            nums['cta_ms'] = timed(time_ms, kernel('cta'), seed, batches)
+            nums['cta_cold_ms'] = timed(time_ms, kernel('cta'), seed,
+                                        batches, reps=20, flush=flush)
+        wrappers = [('', lww_merge)]
+        if baseline is not None:
+            wrappers.append(('base_', baseline.lww_merge))
+        for tag, wrapper in wrappers:
+            nums[f'{tag}api_ms'] = timed(time_ms, api(wrapper), seed,
+                                         batches)
+            nums[f'{tag}api_cold_ms'] = timed(time_ms, api(wrapper), seed,
+                                              batches, reps=20, flush=flush)
+            nums[f'{tag}call_ms'] = timed(call_ms, api(wrapper), seed,
+                                          batches)
+        nums['plain_ms'] = timed(time_ms, api(lww_merge_plain), seed,
+                                 batches, reps=10)
+        if fresh:
+            st = clone(seed)
+            nums['zero_floor_ms'] = time_ms(
+                lambda: [t.zero_() for t in st.tensors()])
+            flat = torch.empty(n * k1 * 3, dtype=torch.int32, device=dev)
+            nums['zero_one_ms'] = time_ms(flat.zero_)
+            del flat
+            nums['fill_ms'] = time_ms(
+                lambda: torch.zeros(1, dtype=torch.int32, device=dev))
+        else:
+            empty = OpBatch(*(c[:, :0] for c in cols)).to(dev)
+            nums['empty_grid_ms'] = timed(time_ms, kernel('warp'), seed,
+                                          [empty] * (REPS + 1))
+            dropped = OpBatch(np.full_like(cols[0], k1), *cols[1:]).to(dev)
+            nums['no_cells_ms'] = timed(time_ms, kernel('warp'), seed,
+                                        [dropped] * (REPS + 1))
         touched = len(np.unique(np.arange(n)[:, None] * k1 + cols[0]))
         grids = 2 if noinc else 3
         if fresh:
@@ -416,15 +586,31 @@ def kernel_numbers(grid_shape):
         n_ops = n * N_CHANGES * 8
         bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
         ops_ms = n_ops / INT_OPS_PER_S * 1e3
-        out[variant] = {
-            'ms': ms, 'plain_ms': plain_ms,
-            'bound_ms': max(bytes_ms, ops_ms),
-            'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations',
-            'bytes': n_bytes}
-        log(f'lww_merge {variant} at {n} x {k1}, {N_CHANGES} lanes: '
-            f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
-            f'{max(bytes_ms, ops_ms):.4f} ms ({n_bytes} B)')
+        nums.update(bound_ms=max(bytes_ms, ops_ms),
+                    bound_by='bytes' if bytes_ms >= ops_ms else 'operations',
+                    bytes=n_bytes, route=route)
+        out[variant] = nums
+        log(f'lww_merge {variant} at {n} x {k1}, {N_CHANGES} lanes: ' +
+            ', '.join(f'{key} {val:.4f}' if isinstance(val, float) else
+                      f'{key} {val}' for key, val in nums.items()))
     return out
+
+
+def load_baseline(path):
+    """The merge wrapper of another checkout of this repository (e.g. the
+    parent commit, unpacked with `git archive`), loaded under a module
+    name of its own: it builds its own kernel source into that
+    checkout."""
+    import importlib.util
+    src = os.path.join(path, 'automerge_tpu_torch', 'fleet',
+                       'merge_kernel.py')
+    if not os.path.exists(src):
+        fail(f'--baseline: {src} not found')
+    spec = importlib.util.spec_from_file_location('baseline_merge_kernel',
+                                                  src)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def main():
@@ -437,13 +623,20 @@ def main():
     if not os.path.isdir(os.path.join(ROOT, 'automerge_tpu_torch')):
         fail('automerge_tpu_torch/ not found beside chip_smoke.py')
     sys.path.insert(0, ROOT)
+    args = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    args.add_argument('--baseline', metavar='DIR',
+                      help='another checkout of this repository (e.g. the '
+                      'parent commit) whose merge wrapper phase 4 times '
+                      'beside this one, by the same method')
+    args = args.parse_args()
+    baseline = load_baseline(args.baseline) if args.baseline else None
     t_start = time.perf_counter()
     log(f'torch {torch.__version__} cuda {torch.version.cuda} '
         f'python {sys.version.split()[0]}')
-    build_all()
+    build_all(baseline)
     max_err = kernel_vs_plain()
     launches, grid_bytes, grid_shape, per_doc = main_path()
-    nums = kernel_numbers(grid_shape)
+    nums = kernel_numbers(grid_shape, baseline)
     breakdown(per_doc)
     log(f'grid bytes: {grid_bytes}')
     log(f'wall: {time.perf_counter() - t_start:.1f} s')

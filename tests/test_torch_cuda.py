@@ -15,11 +15,14 @@ import torch
 
 from automerge_tpu_torch.columnar import decode_change_meta, encode_change
 from automerge_tpu_torch.fleet import apply
-from automerge_tpu_torch.fleet import backend
+from automerge_tpu_torch.fleet import backend, merge_kernel
+from automerge_tpu_torch.fleet.merge_cases import (CORNERS, clone,
+                                                   corner_cols, launch_along,
+                                                   random_cols, seeded)
 from automerge_tpu_torch.fleet.merge_kernel import (LAUNCHES, lww_merge,
                                                     lww_merge_plain)
-from automerge_tpu_torch.fleet.tensor_doc import (ACTOR_BITS, FleetState,
-                                                  OpBatch, state_to_numpy)
+from automerge_tpu_torch.fleet.tensor_doc import (FleetState, OpBatch,
+                                                  state_to_numpy)
 
 pytestmark = pytest.mark.cuda
 
@@ -29,29 +32,6 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
     return torch.device('cuda')
-
-
-def random_cols(rng, n_docs, n_keys, lanes, ctr0=1, inc=True):
-    shape = (n_docs, lanes)
-    key_id = rng.integers(0, n_keys, shape, dtype=np.int32)
-    actor = rng.integers(0, 4, shape, dtype=np.int32)
-    ctrs = ctr0 + np.broadcast_to(np.arange(lanes, dtype=np.int32), shape)
-    packed = (ctrs.astype(np.int32) << ACTOR_BITS) | actor
-    value = rng.integers(-50, 1000, shape, dtype=np.int32)
-    is_set = rng.random(shape) < 0.7 if inc else np.ones(shape, bool)
-    valid = rng.random(shape) < 0.9
-    return [key_id, packed, value, is_set, ~is_set, valid]
-
-
-def seeded(rng, n_docs, n_keys, device):
-    state = FleetState.empty(n_docs, n_keys, device)
-    lww_merge_plain(state, OpBatch(*random_cols(rng, n_docs, n_keys, 6))
-                    .to(device))
-    return state
-
-
-def clone(state):
-    return FleetState(*(t.clone() for t in state.tensors()))
 
 
 def assert_grids_equal(ref, got, n_keys):
@@ -81,11 +61,11 @@ def test_kernel_matches_plain_version(cuda, noinc, fresh):
     assert_grids_equal(ref, got, n_keys)
 
 
-def test_kills_kernel_matches_plain_version(cuda):
-    rng = np.random.default_rng(37)
+def _kills_case(device, p, seed):
+    rng = np.random.default_rng(seed)
     n_docs, n_keys = 64, 40
-    base = seeded(rng, n_docs, n_keys, cuda)
-    cols = random_cols(rng, n_docs, n_keys, 24, ctr0=7)
+    base = seeded(rng, n_docs, n_keys, device)
+    cols = random_cols(rng, n_docs, n_keys, p, ctr0=7)
     winners = base.winners.cpu().numpy()
     kk = np.zeros((n_docs, 4), np.int32)
     kp = np.zeros((n_docs, 4), np.int32)
@@ -98,12 +78,109 @@ def test_kills_kernel_matches_plain_version(cuda):
         if len(live):
             key = live[rng.integers(0, len(live))]
             kk[d, 1], kp[d, 1] = key, winners[d, key]
-    ops = OpBatch(*cols).to(cuda)
-    kk_t, kp_t = torch.from_numpy(kk).to(cuda), torch.from_numpy(kp).to(cuda)
+    ops = OpBatch(*cols).to(device)
+    kk_t = torch.from_numpy(kk).to(device)
+    kp_t = torch.from_numpy(kp).to(device)
     ref = clone(base)
     apply.clear_killed(ref, kk_t, kp_t)
     lww_merge_plain(ref, apply.mask_killed_sets(ops, kp_t))
+    before = LAUNCHES['lww_merge']
     got, _ = apply.apply_op_batch_kills(base, ops, kk_t, kp_t)
+    assert LAUNCHES['lww_merge'] == before + 1
+    assert_grids_equal(ref, got, n_keys)
+
+
+def test_kills_kernel_matches_plain_version(cuda):
+    _kills_case(cuda, 24, seed=37)
+
+
+def test_wide_kills_kernel_matches_plain_version(cuda):
+    """Kills pre-pass + the cta route (P > 32)."""
+    _kills_case(cuda, 40, seed=39)
+
+
+VARIANTS = [(False, False), (True, False), (False, True), (True, True)]
+
+
+@pytest.mark.parametrize('p', [0, 1, 20, 31, 32, 33, 1500])
+@pytest.mark.parametrize('noinc,fresh', VARIANTS)
+def test_routes_match_plain_version(cuda, noinc, fresh, p):
+    """Every variant on each side of the warp/cta split; fresh batches
+    take the fresh route at any P."""
+    rng = np.random.default_rng(43 + p)
+    n_docs, n_keys = 300, 257
+    base = seeded(rng, n_docs, n_keys, cuda)
+    ops = OpBatch(*random_cols(rng, n_docs, n_keys, p, ctr0=7,
+                               inc=not noinc)).to(cuda)
+    plan = merge_kernel._launch_plan(n_docs, p, n_keys + 1, fresh)
+    assert plan.route == ('fresh' if fresh else 'warp' if p <= 32 else 'cta')
+    ref, got = clone(base), clone(base)
+    before = LAUNCHES['lww_merge']
+    rs = lww_merge_plain(ref, ops, noinc=noinc, fresh=fresh)
+    gs = lww_merge(got, ops, noinc=noinc, fresh=fresh)
+    assert LAUNCHES['lww_merge'] == before + 1
+    assert int(rs) == int(gs)
+    assert_grids_equal(ref, got, n_keys)
+
+
+def _launch_along(route, state, ops, noinc=False):
+    """One kernel launch along `route` whatever the batch's P; returns
+    the valid-lane count."""
+    before = LAUNCHES['lww_merge']
+    stats = launch_along(route, state, ops, noinc)
+    assert LAUNCHES['lww_merge'] == before + 1
+    return int(stats)
+
+
+@pytest.mark.parametrize('p', [20, 32])
+@pytest.mark.parametrize('noinc', [False, True])
+def test_cta_route_at_warp_widths(cuda, noinc, p):
+    rng = np.random.default_rng(47 + p)
+    n_docs, n_keys = 300, 257
+    base = seeded(rng, n_docs, n_keys, cuda)
+    ops = OpBatch(*random_cols(rng, n_docs, n_keys, p, ctr0=7,
+                               inc=not noinc)).to(cuda)
+    ref, got = clone(base), clone(base)
+    rs = lww_merge_plain(ref, ops, noinc=noinc)
+    assert _launch_along('cta', got, ops, noinc) == int(rs)
+    assert_grids_equal(ref, got, n_keys)
+
+
+@pytest.mark.parametrize('route', ['warp', 'cta', 'fresh'])
+@pytest.mark.parametrize('case', CORNERS)
+def test_corner_inputs_match_plain_version(cuda, case, route):
+    rng = np.random.default_rng(53)
+    n_docs, p = 96, 32
+    n_keys = 3 if case == 'collision' else 40
+    base = seeded(rng, n_docs, n_keys, cuda)
+    ops = OpBatch(*corner_cols(case, rng, base, n_keys, p)).to(cuda)
+    ref, got = clone(base), clone(base)
+    rs = lww_merge_plain(ref, ops, fresh=route == 'fresh')
+    assert _launch_along(route, got, ops) == int(rs)
+    assert_grids_equal(ref, got, n_keys)
+
+
+@pytest.mark.parametrize('noinc', [False, True])
+def test_fresh_rows_wider_than_a_tile_match_plain_version(cuda, noinc):
+    """K+1 = 20,001: the fresh route walks each row in key chunks."""
+    rng = np.random.default_rng(59)
+    n_docs, n_keys, p = 37, 20_000, 48
+    plan = merge_kernel._launch_plan(n_docs, p, n_keys + 1, True)
+    assert plan.key_chunk < n_keys + 1
+    cols = random_cols(rng, n_docs, n_keys + 1, p, inc=not noinc)
+    edges = np.arange(plan.key_chunk, n_keys + 1, plan.key_chunk)
+    near = np.concatenate([edges - 1, edges, [0, n_keys - 1, n_keys]])
+    for c, x in zip(cols, (near, None, None, True, False, True)):
+        if x is not None:
+            c[:, :len(near)] = x
+    ops = OpBatch(*cols).to(cuda)
+    ref = FleetState.empty(n_docs, n_keys, cuda)
+    got = FleetState(*(torch.full_like(t, 7) for t in ref.tensors()))
+    before = LAUNCHES['lww_merge']
+    rs = lww_merge_plain(ref, ops, noinc=noinc, fresh=True)
+    gs = lww_merge(got, ops, noinc=noinc, fresh=True)
+    assert LAUNCHES['lww_merge'] == before + 1
+    assert int(rs) == int(gs)
     assert_grids_equal(ref, got, n_keys)
 
 

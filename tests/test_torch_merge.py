@@ -17,6 +17,7 @@ from automerge_tpu.fleet.tensor_doc import ACTOR_BITS
 from automerge_tpu.fleet.tensor_doc import FleetState as JaxState
 from automerge_tpu.fleet.tensor_doc import OpBatch as JaxOps
 from automerge_tpu_torch.fleet import apply as torch_apply
+from automerge_tpu_torch.fleet import merge_kernel
 from automerge_tpu_torch.fleet.merge_kernel import LAUNCHES, lww_merge
 from automerge_tpu_torch.fleet.tensor_doc import OpBatch as TorchOps
 from automerge_tpu_torch.fleet.tensor_doc import (state_from_numpy,
@@ -67,9 +68,12 @@ def assert_match(jstate, tstate, n_keys):
 
 
 SHAPES = [(8, 17, 12), (16, 40, 200), (200, 300, 16)]
+# P where the CUDA kernel's routes split (the warp route takes up to 32
+# lanes per doc, the cta route more), and batches of no lane or one
+EDGE_SHAPES = [(16, 40, p) for p in (0, 1, 31, 32, 33)]
 
 
-@pytest.mark.parametrize('n_docs,n_keys,p', SHAPES)
+@pytest.mark.parametrize('n_docs,n_keys,p', SHAPES + EDGE_SHAPES)
 def test_apply_op_batch_matches_reference(n_docs, n_keys, p):
     rng = np.random.default_rng(n_docs + n_keys)
     jstate, tstate = seeded_states(rng, n_docs, n_keys)
@@ -99,7 +103,7 @@ def test_donated_multi_round_carry():
     assert_match(jstate, tstate, n_keys)
 
 
-@pytest.mark.parametrize('n_docs,n_keys,p', SHAPES[:2])
+@pytest.mark.parametrize('n_docs,n_keys,p', SHAPES[:2] + EDGE_SHAPES)
 def test_noinc_donated_matches_reference(n_docs, n_keys, p):
     rng = np.random.default_rng(3 + n_docs)
     jstate, tstate = seeded_states(rng, n_docs, n_keys, counters=False)
@@ -111,7 +115,7 @@ def test_noinc_donated_matches_reference(n_docs, n_keys, p):
     assert_match(want, got, n_keys)
 
 
-@pytest.mark.parametrize('n_docs,n_keys,p', SHAPES[:2])
+@pytest.mark.parametrize('n_docs,n_keys,p', SHAPES[:2] + EDGE_SHAPES)
 def test_fresh_matches_reference(n_docs, n_keys, p):
     rng = np.random.default_rng(11 + p)
     jops, tops = both_ops(random_cols(rng, n_docs, n_keys, p))
@@ -121,7 +125,7 @@ def test_fresh_matches_reference(n_docs, n_keys, p):
     assert_match(want, got, n_keys)
 
 
-@pytest.mark.parametrize('n_docs,n_keys,p', SHAPES[:2])
+@pytest.mark.parametrize('n_docs,n_keys,p', SHAPES[:2] + EDGE_SHAPES)
 def test_noinc_fresh_matches_reference(n_docs, n_keys, p):
     rng = np.random.default_rng(13 + p)
     jops, tops = both_ops(random_cols(rng, n_docs, n_keys, p, inc=False))
@@ -256,9 +260,9 @@ def test_counter_keep_reset_and_negative_incs():
     assert seen == [0, -4, -4, 2, 0, -7]
 
 
-def _pallas_case(variant):
+def _pallas_case(variant, p=12):
     rng = np.random.default_rng(5)
-    n_docs, n_keys, p = 8, 17, 12
+    n_docs, n_keys = 8, 17
     jstate, tstate = seeded_states(rng, n_docs, n_keys)
     cols = random_cols(rng, n_docs, n_keys, p, ctr0=4)
     jops, tops = both_ops(cols)
@@ -275,6 +279,123 @@ def test_matches_pallas_dense_interpret():
 
 def test_matches_pallas_loop_interpret():
     _pallas_case('loop')
+
+
+def test_warp_route_shape_matches_pallas_interpret():
+    """P = 32 lanes, the widest batch of the CUDA kernel's warp route."""
+    _pallas_case('dense', p=32)
+
+
+# ---- inputs that stress a warp's key groups, and key-chunked fresh rows ----
+
+def _fresh_case(cols, n_docs, n_keys, noinc):
+    jops, tops = both_ops(cols)
+    if noinc:
+        want, ws = jax_apply.apply_op_batch_noinc_fresh(jops, n_docs, n_keys)
+        got, gs = torch_apply.apply_op_batch_noinc_fresh(tops, n_docs,
+                                                         n_keys)
+    else:
+        want, ws = jax_apply.apply_op_batch_fresh(jops, n_docs, n_keys)
+        got, gs = torch_apply.apply_op_batch_fresh(tops, n_docs, n_keys)
+    assert int(gs) == int(ws)
+    assert_match(want, got, n_keys)
+    return got
+
+
+@pytest.mark.parametrize('fresh', [False, True])
+def test_full_key_collision(fresh):
+    """K = 3 with 32 lanes per doc: every warp's lanes fall into at most
+    four key groups (key K included, the scratch column)."""
+    rng = np.random.default_rng(7 + fresh)
+    n_docs, n_keys, p = 24, 3, 32
+    cols = list(random_cols(rng, n_docs, n_keys + 1, p, ctr0=9))
+    cols[0][:4] = 1                       # four docs: all lanes on key 1
+    if fresh:
+        _fresh_case(cols, n_docs, n_keys, noinc=False)
+        return
+    jstate, tstate = seeded_states(rng, n_docs, n_keys)
+    jops, tops = both_ops(cols)
+    want, ws = jax_apply.apply_op_batch(jstate, jops)
+    got, gs = torch_apply.apply_op_batch(tstate, tops)
+    assert int(gs) == int(ws)
+    assert_match(want, got, n_keys)
+
+
+def test_duplicate_packed_ids_within_a_warp():
+    """Re-delivered lanes inside one warp's 32 (same packed id, same
+    value), including re-deliveries of the standing winner, which keep
+    the counter's base."""
+    rng = np.random.default_rng(11)
+    n_docs, n_keys, p = 20, 9, 32
+    jstate, tstate = seeded_states(rng, n_docs, n_keys)
+    cols = np.stack([c.astype(np.int32) for c in
+                     random_cols(rng, n_docs, n_keys, p, ctr0=30)])
+    src = rng.integers(0, 16, 12)
+    dst = 16 + rng.permutation(16)[:12]
+    cols[:, :, dst] = cols[:, :, src]
+    winners = np.asarray(jstate.winners)
+    values = np.asarray(jstate.values)
+    for d in range(n_docs):             # lane 31 re-delivers a standing winner
+        key = int(rng.integers(0, n_keys))
+        cols[:, d, 31] = (key, winners[d, key], values[d, key], 1, 0, 1)
+    dup = (cols[0], cols[1], cols[2], cols[3] != 0, cols[4] != 0,
+           cols[5] != 0)
+    jops, tops = both_ops(dup)
+    want, ws = jax_apply.apply_op_batch(jstate, jops)
+    got, gs = torch_apply.apply_op_batch(tstate, tops)
+    assert int(gs) == int(ws)
+    assert_match(want, got, n_keys)
+
+
+def test_negative_incs_with_reset():
+    """One warp: key 0 gets a newer set and negative incs (the counter
+    restarts from the incs alone), key 1 only negative incs (they add to
+    the standing counter)."""
+    n_docs, n_keys, p = 2, 4, 32
+
+    def batch(lanes):
+        cols = [np.zeros((n_docs, p), t) for t in
+                (np.int32, np.int32, np.int32, bool, bool, bool)]
+        for j, (key, ctr, value, is_set) in enumerate(lanes):
+            for c, x in zip(cols, (key, ctr << ACTOR_BITS, value, is_set,
+                                   not is_set, True)):
+                c[:, j] = x
+        return cols
+
+    first = batch([(0, 1, 10, True), (0, 2, -3, False), (1, 3, 20, True),
+                   (1, 4, 5, False)])
+    second = batch([(0, 6, 77, True)] +
+                   [(0, 7 + i, -2, False) for i in range(15)] +
+                   [(1, 30 + i, -1, False) for i in range(16)])
+    jstate = JaxState.empty(n_docs, n_keys)
+    tstate = state_from_numpy(*(np.asarray(a) for a in (
+        jstate.winners, jstate.values, jstate.counters)), device=CPU)
+    for cols in (first, second):
+        jops, tops = both_ops(cols)
+        jstate, _ = jax_apply.apply_op_batch(jstate, jops)
+        tstate, _ = torch_apply.apply_op_batch(tstate, tops)
+        assert_match(jstate, tstate, n_keys)
+    counters = np.asarray(jstate.counters)
+    assert counters[0, 0] == -30 and counters[0, 1] == 5 - 16
+
+
+@pytest.mark.parametrize('noinc', [False, True])
+def test_fresh_rows_wider_than_a_shared_memory_tile(noinc):
+    """K+1 = 20,001 is wider than one fresh CTA's tile of the CUDA kernel,
+    so that route walks each row in key chunks; lanes sit on both sides
+    of every chunk edge and on key K."""
+    n_docs, n_keys, p = 3, 20_000, 48
+    plan = merge_kernel._launch_plan(n_docs, p, n_keys + 1, fresh=True)
+    assert plan.key_chunk < n_keys + 1
+    rng = np.random.default_rng(13 + noinc)
+    cols = list(random_cols(rng, n_docs, n_keys + 1, p, inc=not noinc))
+    edges = np.arange(plan.key_chunk, n_keys + 1, plan.key_chunk)
+    near = np.concatenate([edges - 1, edges, [0, n_keys - 1, n_keys]])
+    for c, x in zip(cols, (near, None, None, True, False, True)):
+        if x is not None:
+            c[:, :len(near)] = x
+    got = _fresh_case(cols, n_docs, n_keys, noinc=noinc)
+    assert (got.winners[:, edges] != 0).all()
 
 
 def test_cpu_merge_runs_plain_version_and_counts_no_launch():
