@@ -7,8 +7,9 @@ exchanges Bloom filters over the changes added since then. Wire format is
 byte-compatible with the reference (message type 0x42, peer state 0x43,
 explicit Bloom parameters).
 
-The batched fleet-scale Bloom build/probe lives in automerge_tpu.fleet.bloom;
-this module is the host-side protocol driver.
+The batched fleet-scale Bloom build/probe lives in
+automerge_tpu_torch.fleet.bloom; this module is the host-side protocol
+driver.
 """
 
 from ..encoding import (Encoder, Decoder, hex_string_to_bytes,

@@ -1,18 +1,28 @@
 """The fleet engine on torch: batched CRDT computation over document
-fleets, with the LWW merge as a hand-written CUDA kernel.
+fleets, with the LWW merge and the sync plane's Bloom and hash-index
+kernels as hand-written CUDA kernels.
 
-This slice of the port carries the LWW grid and the turbo apply seam
-(`backend.apply_changes_docs`); sequences, exact-device registers, the
-sync plane, storage and multi-device sharding are later slices
-(ROADMAP.md Queue 1).
+This slice of the port carries the LWW grid, the turbo apply seam
+(`backend.apply_changes_docs`, and its pipelined form) and the batched
+sync plane (`sync_driver`, over `bloom` and `hashindex`); sequences,
+exact-device registers, storage and multi-device sharding are later
+slices (ROADMAP.md Queue 1).
 """
 
 from .tensor_doc import (FleetState, OpBatch, TOMBSTONE, pack_op_id,
                          state_from_numpy, state_to_numpy, unpack_op_id)
 from .apply import apply_op_batch
+from .bloom import build_bloom_filters, probe_bloom_filters, bloom_filter_bytes
+from .sync_driver import (generate_sync_messages_docs,
+                          receive_sync_messages_docs)
+from .hashindex import (HashIndex, FleetFrontierIndex, frontier_compare,
+                        hashes_to_rows)
 
 __all__ = [
+    'HashIndex', 'FleetFrontierIndex', 'frontier_compare', 'hashes_to_rows',
     'FleetState', 'OpBatch', 'TOMBSTONE', 'pack_op_id', 'unpack_op_id',
     'state_from_numpy', 'state_to_numpy',
     'apply_op_batch',
+    'build_bloom_filters', 'probe_bloom_filters', 'bloom_filter_bytes',
+    'generate_sync_messages_docs', 'receive_sync_messages_docs',
 ]

@@ -7,8 +7,8 @@ merge kernel (fleet/merge_kernel.py). The module is a copy of the
 reference with the device calls swapped; paths that belong to later
 slices of the port (ROADMAP.md "Queue 1") raise NotImplementedError
 naming their item: sharded meshes, exact-device registers, Text/list
-sequences, the sync frontier index, durability journals, the storage
-tier (park/load/rebuild), and the pipelined seam.
+sequences, durability journals and the storage tier
+(park/load/rebuild).
 
 The reference's description follows.
 
@@ -75,16 +75,14 @@ _live_fleets = weakref.WeakSet()
 from ..backend.op_set import OpSet
 from ..columnar import decode_change, OBJECT_TYPE
 from .tensor_doc import (ACTOR_BITS, CTR_LIMIT, FleetState, MAX_ACTORS,
-                         TOMBSTONE, pack_op_id)
+                         TOMBSTONE, pack_op_id, resolve_device)
 from .ingest import KeyInterner
 
 # Later slices of the port (ROADMAP.md Queue 1): their paths raise
 _MULTI_DEVICE = 'multi-device (fleet/sharding.py, fleet/exchange.py)'
 _EXACT_DEVICE = 'exact-device mode (fleet/registers.py)'
 _SEQUENCE = 'Text/list sequences (fleet/sequence.py)'
-_SYNC_PLANE = 'sync plane (fleet/hashindex.py, fleet/bloom.py)'
 _STORAGE = 'storage and durability (fleet/loader.py, fleet/durability.py)'
-_PIPELINED = 'pipelined seam (apply_changes_docs_pipelined)'
 
 
 def _later(item):
@@ -92,18 +90,6 @@ def _later(item):
         f'{item} is not ported to automerge_tpu_torch yet '
         f'(ROADMAP.md Queue 1)')
 
-
-def _resolve_device(device):
-    """The fleet's torch device: CUDA unless the caller asks otherwise.
-    A fleet built without a device on a machine with no CUDA raises —
-    it never carries on silently on the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                'DocFleet: no CUDA device available; pass device="cpu" '
-                'to run the fleet on the CPU')
-        return torch.device('cuda')
-    return torch.device(device)
 
 _FLAT_ACTIONS = ('set', 'del', 'inc')
 _SEQ_MAKE = ('makeText', 'makeList')
@@ -300,7 +286,7 @@ class DocFleet:
         if exact_device:
             raise _later(_EXACT_DEVICE)
         # The torch device every grid lives on (CUDA unless asked)
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.mesh = None
         self.keys = KeyInterner()
         self.actors = _SortedActorTable()
@@ -415,9 +401,13 @@ class DocFleet:
         self._hash_index = None
 
     def frontier_index(self, create=True, **kwargs):
-        """The fleet's frontier index belongs to the sync-plane slice."""
-        if create:
-            raise _later(_SYNC_PLANE)
+        """The fleet's FleetFrontierIndex (fleet/hashindex.py), created
+        on first use. The commit seams stage every accepted change hash
+        into it host-side once it exists; sync rounds flush + probe in
+        one dispatch each."""
+        if self._hash_index is None and create:
+            from .hashindex import FleetFrontierIndex
+            self._hash_index = FleetFrontierIndex(self, **kwargs)
         return self._hash_index
 
     def _cap_docs(self, n_docs):
@@ -1815,10 +1805,18 @@ class _FlatEngine(HashGraph):
             ix.stage_one(self.slot, change['hash'])
 
     def probe_hashes(self, hashes):
-        """Frontier-index membership flags; the index belongs to the
-        sync-plane slice of the port, so the caller's dict path always
-        serves (None)."""
-        return None
+        """Exact membership flags for `hashes` from the fleet's frontier
+        index, or None when this doc has no WARM index space (the
+        single-doc protocol path must not pay a surprise history
+        backfill — the batched driver registers; until then the caller's
+        dict path serves) or routing is disabled
+        (AUTOMERGE_TPU_FRONTIER_INDEX=0 must pin the classic path on
+        EVERY consumer, not just the batched driver)."""
+        from .hashindex import frontier_enabled
+        ix = self.fleet._hash_index
+        if ix is None or not ix.registered(self) or not frontier_enabled():
+            return None
+        return ix.probe_pairs([self] * len(hashes), list(hashes))
 
     def apply_changes(self, change_buffers, is_local=False):
         self.fleet.metrics.exact_calls += 1
@@ -2434,8 +2432,86 @@ def apply_changes_docs(handles, per_doc_changes, mirror=True,
 
 def apply_changes_docs_pipelined(handles, per_doc_changes, sub_batches=4,
                                  mirror=False):
-    """Pipelined turbo apply: the next seam item of the port."""
-    raise _later(_PIPELINED)
+    """Pipelined turbo apply: split every document's change run into
+    `sub_batches` consecutive sub-runs and overlap the NATIVE PARSE of
+    sub-run k+1 with the host gate/commit and (async) device dispatch of
+    sub-run k. The parse runs on a background Python thread, but the
+    native codec releases the GIL across the whole batch and fans the
+    chunks over its thread pool, so the overlap is real CPU concurrency,
+    not just dispatch asynchrony — the span rig shows `parse_chunk` /
+    `native_parse` spans tiling under the previous sub-batch's
+    `turbo_commit`/`turbo_dispatch` phases (bench.py's seam section
+    measures the overlap from the exported trace).
+
+    Committed state is byte-identical to `sub_batches` sequential
+    apply_changes_docs calls over the same splits (the prefetched parse
+    is a pure function of the bytes). Only the turbo path pipelines; a
+    sub-batch that falls back to the exact path simply ignores its
+    prefetched parse. mirror=True (exact path) has no native parse to
+    overlap, so it routes to the plain call."""
+    if mirror or sub_batches <= 1:
+        return apply_changes_docs(handles, per_doc_changes, mirror=mirror)
+    work = [c if isinstance(c, (list, tuple)) else list(c)
+            for c in per_doc_changes]
+    subs = []
+    for s in range(int(sub_batches)):
+        sub = [None] * len(work)
+        any_changes = False
+        for d, changes in enumerate(work):
+            step = -(-len(changes) // int(sub_batches))   # ceil
+            run = changes[s * step:(s + 1) * step] if step else []
+            sub[d] = run
+            any_changes = any_changes or bool(run)
+        if any_changes:
+            subs.append(sub)
+    if not subs:
+        return apply_changes_docs(handles, per_doc_changes, mirror=False)
+
+    # Producer thread streams parses AHEAD of the consumer (bounded at 2
+    # in flight so a long run never accumulates every parsed sub-batch in
+    # memory): while the main thread gates/commits/dispatches sub-batch
+    # k, the producer is already parsing k+1 — and, once that lands, k+2.
+    # The native parse releases the GIL, so this is core-level overlap.
+    results = queue.Queue(maxsize=2)
+    stop = []
+
+    def producer():
+        for sub in subs:
+            if stop:
+                break
+            try:
+                flat = [b if type(b) is bytes else bytes(b)
+                        for changes in sub for b in changes]
+                parsed = (len(flat), native.ingest_changes(
+                    flat, None, with_meta=True, with_seq=True))
+            except BaseException as exc:
+                # the consumer's blocking get() must never wait on a dead
+                # producer: ship the failure and let the main thread raise
+                results.put(exc)
+                return
+            results.put(parsed)
+
+    worker = threading.Thread(target=producer, daemon=True)
+    worker.start()
+    patches = [None] * len(handles)
+    try:
+        for sub in subs:
+            parsed = results.get()
+            if isinstance(parsed, BaseException):
+                raise parsed
+            handles, patches = apply_changes_docs(handles, sub, mirror=False,
+                                                  _parsed=parsed)
+    finally:
+        # On an exception mid-pipeline the producer may be blocked on a
+        # full queue: signal it and drain so join() cannot hang.
+        stop.append(True)
+        try:
+            while True:
+                results.get_nowait()
+        except queue.Empty:
+            pass
+        worker.join()
+    return handles, patches
 
 
 def _apply_changes_docs_impl(handles, per_doc_changes, mirror, on_error,

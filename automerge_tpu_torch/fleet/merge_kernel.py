@@ -17,9 +17,10 @@ A valid lane whose key lies outside [0, K] is dropped.
 
 Routing is by the tensors' device: CUDA tensors launch the kernel in
 csrc/lww_merge.cu (built with nvcc for sm_90a on first use into the
-package's git-ignored build directory, bound through ctypes); CPU
-tensors run `lww_merge_plain`, the same function in torch ops. There is
-no fallback between the two: a build or launch failure raises.
+package's git-ignored build directory, bound through ctypes: see
+cuda_build.py); CPU tensors run `lww_merge_plain`, the same function in
+torch ops. There is no fallback between the two: a build or launch
+failure raises.
 `LAUNCHES['lww_merge']` counts kernel launches (plain runs do not count).
 
 One launch per call, along the route `_launch_plan` picks from the
@@ -38,19 +39,10 @@ shapes (csrc/lww_merge.cu says what bounds each route and why):
 
 import collections
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 
 import torch
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(_HERE, 'csrc', 'lww_merge.cu')
-_BUILD_DIR = os.path.join(os.path.dirname(_HERE), '_build')
-NVCC_FLAGS = ('-gencode=arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC')
+from . import cuda_build
 
 WARP_DOCS = 8            # docs (one warp each) per CTA of the warp route
 CTA_THREADS = 128        # threads of the cta route's CTA (one doc)
@@ -72,8 +64,6 @@ Plan = collections.namedtuple('Plan', (
     'smem_cells'))    # int32 cells of shared memory per grid (fresh; the
                       # CTA's dynamic shared memory is 3 x smem_cells x 4 B)
 
-_lib = None
-_lib_lock = threading.Lock()
 _set_up = set()          # devices where lww_merge_setup has run
 
 
@@ -113,52 +103,20 @@ def _fresh_tile(plan, n, k1, block):
             min(c0 + plan.key_chunk, k1))
 
 
-def _nvcc():
-    found = shutil.which('nvcc')
-    if found:
-        return found
-    cuda = os.path.join(os.environ.get('CUDA_HOME', '/usr/local/cuda'),
-                        'bin', 'nvcc')
-    if os.path.exists(cuda):
-        return cuda
-    raise RuntimeError('nvcc not found: the CUDA merge kernel cannot be '
-                       'built (set CUDA_HOME or put nvcc on PATH)')
+def _declare(lib):
+    fn = lib.lww_merge_launch
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int64] * 3 + \
+        [ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int] + \
+        [ctypes.c_int64] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.lww_merge_setup.argtypes = [ctypes.c_int]
+    lib.lww_merge_setup.restype = ctypes.c_int
 
 
 def build():
     """Compile csrc/lww_merge.cu (once per source content) and load it.
-    Returns the ctypes library. Concurrent builders publish atomically
-    (temporary name + os.replace under a lock on the build directory)."""
-    global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        import fcntl
-        with open(_SRC, 'rb') as f:
-            digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode()
-                                    ).hexdigest()[:12]
-        path = os.path.join(_BUILD_DIR, f'liblww_merge_{digest}.so')
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        with open(os.path.join(_BUILD_DIR, '.lww_merge.lock'), 'w') as lock:
-            fcntl.flock(lock, fcntl.LOCK_EX)
-            if not os.path.exists(path):
-                tmp = f'{path}.{os.getpid()}.tmp'
-                proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', tmp, _SRC],
-                                      capture_output=True, text=True)
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f'nvcc failed building {_SRC}:\n{proc.stderr}')
-                os.replace(tmp, path)
-        lib = ctypes.CDLL(path)
-        fn = lib.lww_merge_launch
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int64] * 3 + \
-            [ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int] + \
-            [ctypes.c_int64] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.lww_merge_setup.argtypes = [ctypes.c_int]
-        lib.lww_merge_setup.restype = ctypes.c_int
-        _lib = lib
-        return lib
+    Returns the ctypes library."""
+    return cuda_build.load('lww_merge', _declare)
 
 
 def _check(ops, state):

@@ -1,0 +1,183 @@
+"""Seeded inputs for holding the sync plane's CUDA kernels to their plain
+versions (fleet/sync_kernels.py), shared by the card tests
+(tests/test_torch_cuda.py) and chip_smoke.py.
+
+- `index_case(name, rng, device)`: a hash-index insert at one corner:
+  'collide' (every key starts its walk at one slot), 'wrap' (the same,
+  at slot cap - 1, so the chain wraps), 'dups' (in-batch duplicates and
+  keys already in the table), 'load' (a quarter-full table filled to
+  the 0.6 load bound), 'spaces' (many spaces, keys shared across them).
+- `index_both(case)`: the case's insert, then a probe, through the
+  kernels and through the plain versions; returns the disagreements.
+- `members(tkey, tspace)` / `same_members(...)`: a table's (space, key)
+  rows, sorted: the kernel's slot layout may differ from the plain
+  version's where rows race for a slot, its membership may not.
+- `bloom_both(rng, counts, device)`: filters for hash lists of the given
+  entry counts (skewed sizes, empty rows) built and probed through the
+  kernels and through the plain versions; returns the disagreements.
+"""
+
+import numpy as np
+import torch
+
+from . import bloom, sync_kernels
+
+LOAD_MAX = 0.6
+_M32 = 0xFFFFFFFF
+
+
+def random_words(rng, n):
+    """[n, 8] uint32 key words (32-byte hashes)."""
+    return rng.integers(0, 1 << 32, (n, 8), dtype=np.uint64) \
+        .astype(np.uint32)
+
+
+def colliding_words(rng, n, cap, pos, space):
+    """[n, 8] distinct keys that all start their walk at slot `pos` of a
+    cap-slot table in `space`."""
+    words = random_words(rng, n)
+    mix = (space * sync_kernels.GOLD) & _M32
+    first = (pos + cap * np.arange(1, n + 1, dtype=np.uint64)) & _M32
+    words[:, 0] = (first ^ mix).astype(np.uint32)
+    return words
+
+
+def empty_table(cap, device):
+    return (torch.zeros((cap, 8), dtype=torch.int32, device=device),
+            torch.full((cap,), -1, dtype=torch.int32, device=device))
+
+
+def _tensors(words, spaces, valid, device):
+    return (torch.from_numpy(np.ascontiguousarray(words).view(np.int32))
+            .to(device),
+            torch.from_numpy(np.asarray(spaces, dtype=np.int32)).to(device),
+            torch.from_numpy(np.asarray(valid, dtype=bool)).to(device))
+
+
+INDEX_CASES = ('collide', 'wrap', 'dups', 'load', 'spaces')
+
+
+def index_case(name, rng, device):
+    """dict(tkey, tspace, keys, spaces, valid, occupied): a starting
+    table (`occupied` slots in use) and a batch to insert into it."""
+    cap = {'collide': 1024, 'wrap': 1024, 'dups': 4096, 'load': 1 << 16,
+           'spaces': 1 << 14}[name]
+    tkey, tspace = empty_table(cap, device)
+    occupied = 0
+    if name in ('collide', 'wrap'):
+        n = int(LOAD_MAX * cap)
+        pos = 17 if name == 'collide' else cap - 1
+        words = colliding_words(rng, n, cap, pos, 3)
+        spaces = np.full(n, 3, np.int32)
+    elif name == 'dups':
+        # a quarter of the keys already present; every key 4 times over
+        base = random_words(rng, 400)
+        pre = _tensors(base[:100], np.ones(100, np.int32), np.ones(100, bool),
+                       device)
+        sync_kernels.hashindex_insert_plain(tkey, tspace, *pre)
+        occupied = 100
+        pick = rng.integers(0, 400, 1600)
+        words, spaces = base[pick], np.ones(1600, np.int32)
+    elif name == 'load':
+        quarter = cap // 4
+        pre = _tensors(random_words(rng, quarter),
+                       rng.integers(0, 8, quarter), np.ones(quarter, bool),
+                       device)
+        sync_kernels.hashindex_insert_plain(tkey, tspace, *pre)
+        occupied = quarter
+        n = int(LOAD_MAX * cap) - quarter
+        words, spaces = random_words(rng, n), rng.integers(0, 8, n)
+    else:
+        n = int(0.5 * cap)
+        shared = random_words(rng, n // 16)
+        words = shared[rng.integers(0, len(shared), n)]
+        spaces = rng.integers(0, 4096, n)
+    valid = np.ones(len(words), bool)
+    valid[::97] = False                      # a few invalid rows
+    keys, spaces_t, valid_t = _tensors(words, spaces, valid, device)
+    return dict(tkey=tkey, tspace=tspace, keys=keys, spaces=spaces_t,
+                valid=valid_t, occupied=occupied)
+
+
+def index_both(case):
+    """The case's insert, then a probe of its keys and as many absent ones
+    (a bit of each key flipped), by the kernels and by the plain versions,
+    each on its own copy of the table. Returns the kernels' new-key count
+    and the disagreements, each 0 when the kernels hold: 'insert' (the
+    new-key counts or the memberships differ), 'probe' (rows whose
+    answers differ) and 'wrong' (rows the kernel's probe answers wrongly:
+    an inserted key not found, an absent key found)."""
+    absent = case['keys'].clone()
+    absent[:, 5] ^= 1
+    probe = (torch.cat([case['keys'], absent]),
+             torch.cat([case['spaces'], case['spaces']]),
+             torch.cat([case['valid'], torch.ones_like(case['valid'])]))
+    insert = (case['keys'], case['spaces'], case['valid'])
+    kt, ks = case['tkey'].clone(), case['tspace'].clone()
+    kn = int(sync_kernels.hashindex_insert(
+        kt, ks, *insert, case['occupied'] + int(case['valid'].sum()),
+        LOAD_MAX))
+    hit = sync_kernels.hashindex_probe(kt, ks, *probe)
+    pt, ps = case['tkey'].clone(), case['tspace'].clone()
+    pn = int(sync_kernels.hashindex_insert_plain(pt, ps, *insert))
+    plain_hit = sync_kernels.hashindex_probe_plain(pt, ps, *probe)
+    expect = torch.cat([case['valid'], torch.zeros_like(case['valid'])])
+    return dict(n_new=kn,
+                insert=int(kn != pn or not same_members(kt, ks, pt, ps)),
+                probe=int((hit != plain_hit).sum()),
+                wrong=int((hit != expect).sum()))
+
+
+def members(tkey, tspace):
+    """[m, 9] int64: the table's (space, key words) rows, sorted."""
+    occ = tspace >= 0
+    rows = torch.cat([tspace[occ].view(-1, 1).long(),
+                      tkey[occ].long() & _M32], dim=1).cpu().numpy()
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def same_members(tkey_a, tspace_a, tkey_b, tspace_b):
+    a, b = members(tkey_a, tspace_a), members(tkey_b, tspace_b)
+    return a.shape == b.shape and bool((a == b).all())
+
+
+BLOOM_COUNTS = {
+    'skewed': [1, 300, 7, 0, 42, 0, 0, 150, 3, 64, 9, 0, 1, 2, 255, 1000],
+    'uniform': [8] * 5000,
+}
+
+
+def bloom_both(rng, counts, device):
+    """Filters for random hash lists of the given entry counts, built,
+    then probed with each row's members and as many strangers, by the
+    kernels and by the plain versions. Returns the filter count and
+    bytes, and the disagreements, each 0 when the kernels hold: 'build'
+    (the largest difference of a packed byte), 'probe' (lanes whose
+    answers differ) and 'missed' (members the kernel's probe did not
+    find)."""
+    lists = [[rng.bytes(32).hex() for _ in range(c)] for c in counts]
+    words, valid, row_bits, bit_off, total_bits, byte_off = \
+        bloom.flat_build_lanes(lists)
+    words, valid, row_bits, bit_off = bloom.lanes_to(words, valid, row_bits,
+                                                     bit_off, device)
+    lists = [row for row in lists if row]
+    got = sync_kernels.bloom_build(words, valid, row_bits, bit_off,
+                                   total_bits)
+    want = sync_kernels.bloom_build_plain(words, valid, row_bits, bit_off,
+                                          total_bits)
+    probe_lists = [row + [rng.bytes(32).hex() for _ in row] for row in lists]
+    filters = [want[off:off + bloom.num_filter_bits(len(row)) // 8]
+               .cpu().numpy() for off, row in zip(byte_off, lists)]
+    flat, words, valid, row_bits, byte_off = bloom.flat_probe_lanes(
+        filters, probe_lists)
+    words, valid, row_bits, byte_off = bloom.lanes_to(words, valid, row_bits,
+                                                      byte_off, device)
+    flat = torch.from_numpy(flat).to(device)
+    hit = sync_kernels.bloom_probe(flat, row_bits, byte_off, words, valid)
+    plain_hit = sync_kernels.bloom_probe_plain(flat, row_bits, byte_off,
+                                               words, valid)
+    missed = sum(int((~hit[k, :len(row)]).sum())
+                 for k, row in enumerate(lists))
+    return dict(filters=len(lists), bytes=total_bits // 8,
+                build=int((got.int() - want.int()).abs().max()),
+                probe=int((hit != plain_hit).sum()), missed=missed)

@@ -35,6 +35,18 @@ CTR_LIMIT = 1 << (31 - ACTOR_BITS)
 TOMBSTONE = -1               # value-table index marking a deleted key
 
 
+def resolve_device(device):
+    """The torch device of the port's entry points: CUDA unless the
+    caller asks otherwise. Without a device on a machine with no CUDA it
+    raises: nothing carries on silently on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError('no CUDA device available; pass '
+                               'device="cpu" to run on the CPU')
+        return torch.device('cuda')
+    return torch.device(device)
+
+
 def pack_op_id(counter, actor_num):
     """Pack (counter, actorNum) into one int32 preserving Lamport order."""
     if isinstance(counter, (int, np.integer)):

@@ -5,36 +5,64 @@
 
 Phases (any failure exits non-zero):
 
-1. build: the native codec (g++) and the CUDA LWW merge kernel (nvcc,
-   sm_90a) are compiled from this checkout's sources, both at once;
-2. kernel vs plain: seeded batches go through the CUDA kernel and its
-   plain torch version on the card and must agree exactly (int32
-   equality on the real key columns, and the valid-lane count): every
-   variant (general, noinc, fresh, noinc+fresh) at P = 0, 1, 20, 31,
-   32, 33 and 40 lanes, on both sides of the warp / cta route split; the
-   cta route forced at P = 20 and 32; full key collision, duplicate
+1. build: the native codec (g++) and the three CUDA sources (nvcc,
+   sm_90a: the LWW merge, the Bloom pair, the hash-index pair) are
+   compiled from this checkout's sources, all at once;
+2. kernel vs plain: seeded inputs go through each CUDA kernel and its
+   plain torch version on the card and must agree exactly. The merge:
+   int32 equality on the real key columns and the valid-lane count,
+   every variant (general, noinc, fresh, noinc+fresh) at P = 0, 1, 20,
+   31, 32, 33 and 40 lanes, on both sides of the warp / cta route split;
+   the cta route forced at P = 20 and 32; full key collision, duplicate
    packed ids with a re-delivered standing winner, and negative incs on
    the warp, cta and fresh routes; fresh rows wider than a shared-memory
    tile (key chunks); kills pre-pass + merge on both in-place routes;
    duplicate delivery with counter keep/reset over 3 rounds; P = 3000;
-   and the full seam shape;
-3. main path: the fleet backend seam at full size (10,000 docs x 1,000
-   keys x 20 changes per doc, one set op per change, two actors on one
-   shared chain): DocFleet(device='cuda') -> init_docs ->
-   apply_changes_docs(mirror=False) -> materialize_docs, checked against
-   the last writer per key, the host OpSet engine and a save() round
-   trip, with one merge dispatch per batch and the kernel's launch
-   count read around the run;
-4. numbers: seam changes/s (median of 5 warm reps); the kernel's device
-   time from CUDA events, with the host's launches queued behind a sleep
-   kernel, with L2 warm and flushed: noinc+fresh (fresh route) beside
-   the zero_() floor of the same bytes, and general (warp route, on
+   and the full seam shape. The sync kernels (fleet/sync_cases.py): the
+   hash-index insert and probe with every key at one start slot, a chain
+   wrapping at cap - 1, in-batch duplicates, the 0.6 load bound and many
+   spaces (equal membership and new-key counts: the insert's slot layout
+   may differ where rows race); the Bloom build and probe over skewed
+   filter sizes (equal bytes and answers);
+3. main paths, each with every launch count set to 0 just before it and
+   read just after:
+   - seam: the fleet backend seam at full size (10,000 docs x 1,000 keys
+     x 20 changes per doc, one set op per change, two actors on one
+     shared chain): DocFleet(device='cuda') -> init_docs ->
+     apply_changes_docs(mirror=False) -> materialize_docs, checked
+     against the last writer per key, the host OpSet engine and a save()
+     round trip, with one merge dispatch per batch;
+   - pipelined seam: the same batch through
+     apply_changes_docs_pipelined(sub_batches=4), whose grids and save()
+     must equal four sequential apply_changes_docs calls over the same
+     splits (and whose save() equals the one-call seam's), one dispatch
+     per sub-batch; changes/s beside apply_changes_docs's, in turns;
+   - sync: a hub of 4 docs (chains of depth 8) serving 100,000 peer
+     links (bench.py's fabric sweep, top leg) with its frontier index at
+     2^21 slots: a cold round, a round that lands the staged sent sets,
+     then 3 timed steady rounds, each peer soliciting a full resend;
+     each steady round must cost exactly 1 hash-index and 1 Bloom
+     dispatch, and 512 sampled links' messages must equal the per-link
+     host protocol's over host backends (cold and steady); then a fresh
+     10,000-doc fleet receives the cold round through
+     receive_sync_messages_docs (its materialize_docs and save() must
+     equal the hub's docs), each replica makes a local edit and replies,
+     probing the hub's filter (64 sampled replies equal the host
+     protocol's); every sync kernel and the merge must have launched;
+4. numbers: seam changes/s (median of 5 warm reps); the merge kernel's
+   device time from CUDA events, with the host's launches queued behind a
+   sleep kernel, with L2 warm and flushed: noinc+fresh (fresh route)
+   beside the zero_() floor of the same bytes, and general (warp route, on
    batches whose packed ids rise, so every launch moves winners) beside
    the CTA-per-doc schedule (the cta route at P = 20), an empty grid
    (P = 0) and a batch that touches no cell; the public wrapper timed
    both ways (queued, and issued call by call from the host); each
-   beside its plain version and its bound; the grid bytes, and the
-   card's name and power limit.
+   beside its plain version and its bound; then each sync kernel on the
+   largest inputs the sync path handed it (recorded during the path),
+   held to its plain version there, timed beside its plain version and
+   its bound; traced breakdowns of the seam, the pipelined seam and one
+   steady sync round; the grid bytes, and the card's name and power
+   limit.
 
     python3 chip_smoke.py --baseline DIR
 
@@ -89,7 +117,7 @@ def card_line():
 
 def build_all(baseline=None):
     from automerge_tpu_torch import native
-    from automerge_tpu_torch.fleet import merge_kernel
+    from automerge_tpu_torch.fleet import merge_kernel, sync_kernels
     times, errors = {}, []
 
     def run(name, fn):
@@ -103,7 +131,9 @@ def build_all(baseline=None):
         times[name] = time.perf_counter() - t0
 
     jobs = [('native_codec', native.available),
-            ('lww_merge', lambda: merge_kernel.build() is not None)]
+            ('lww_merge', lambda: merge_kernel.build() is not None),
+            ('bloom', lambda: sync_kernels.build_bloom() is not None),
+            ('hashindex', lambda: sync_kernels.build_hashindex() is not None)]
     if baseline is not None:
         jobs.append(('baseline lww_merge',
                      lambda: baseline.build() is not None))
@@ -271,6 +301,30 @@ def kernel_vs_plain():
     return max_err
 
 
+def sync_kernel_vs_plain():
+    """The sync kernels against their plain versions on the corner
+    inputs of fleet/sync_cases.py; any disagreement fails."""
+    import numpy as np
+    import torch
+    from automerge_tpu_torch.fleet import sync_cases
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(40)
+    for name in sync_cases.INDEX_CASES:
+        case = sync_cases.index_case(name, rng, dev)
+        got = sync_cases.index_both(case)
+        if got['insert'] or got['probe'] or got['wrong']:
+            fail(f'hash-index kernels != plain on {name}: {got}')
+        log(f'kernel == plain: hashindex insert + probe, {name} '
+            f'({len(case["keys"])} rows into {len(case["tspace"])} slots, '
+            f'{got["n_new"]} new)')
+    for counts in sorted(sync_cases.BLOOM_COUNTS):
+        got = sync_cases.bloom_both(rng, sync_cases.BLOOM_COUNTS[counts], dev)
+        if got['build'] or got['probe'] or got['missed']:
+            fail(f'Bloom kernels != plain on {counts} sizes: {got}')
+        log(f'kernel == plain: bloom build + probe, {counts} sizes '
+            f'({got["filters"]} filters, {got["bytes"]} B)')
+
+
 # ---- phase 3 ---------------------------------------------------------------
 
 def seam_workload(seed=0):
@@ -297,20 +351,37 @@ def seam_workload(seed=0):
     return changes, heads, last
 
 
-def run_seam(per_doc, split=None):
-    """One seam run on a fresh fleet; `split` (a dict) receives the
-    seconds of fleet + init_docs and of the apply up to its sync."""
+SUB_BATCHES = 4
+
+
+def run_seam(per_doc, split=None, mode='plain'):
+    """One seam run on a fresh fleet: `mode` 'plain' is one
+    apply_changes_docs call, 'pipelined' one apply_changes_docs_pipelined
+    call of SUB_BATCHES sub-batches, 'sequential' SUB_BATCHES
+    apply_changes_docs calls over the pipelined call's splits. `split`
+    (a dict) receives the seconds of fleet + init_docs and of the apply
+    up to its sync."""
     import torch
-    from automerge_tpu_torch.fleet.backend import (DocFleet,
-                                                   apply_changes_docs,
-                                                   init_docs)
+    from automerge_tpu_torch.fleet.backend import (
+        DocFleet, apply_changes_docs, apply_changes_docs_pipelined,
+        init_docs)
     t0 = time.perf_counter()
     fleet = DocFleet(doc_capacity=N_DOCS, key_capacity=N_KEYS + 1,
                      device=DEVICE)
     handles = init_docs(N_DOCS, fleet)
     t1 = time.perf_counter()
     d0 = fleet.metrics.dispatches
-    handles, _ = apply_changes_docs(handles, per_doc, mirror=False)
+    if mode == 'plain':
+        handles, _ = apply_changes_docs(handles, per_doc, mirror=False)
+    elif mode == 'pipelined':
+        handles, _ = apply_changes_docs_pipelined(
+            handles, per_doc, sub_batches=SUB_BATCHES)
+    else:
+        steps = [-(-len(c) // SUB_BATCHES) for c in per_doc]
+        for b in range(SUB_BATCHES):
+            handles, _ = apply_changes_docs(
+                handles, [c[b * k:(b + 1) * k] for c, k in zip(per_doc, steps)],
+                mirror=False)
     torch.cuda.synchronize()
     if split is not None:
         split['init_s'] = t1 - t0
@@ -364,38 +435,37 @@ def main_path():
         rates.append(N_DOCS * N_CHANGES / (time.perf_counter() - t0))
     log(f'seam changes/s (median of 5 warm reps): '
         f'{statistics.median(rates):.1f}  reps {[round(r) for r in rates]}')
-    return launches, fleet.state.nbytes(), tuple(w.shape), per_doc
+    return launches, fleet.state.nbytes(), tuple(w.shape), per_doc, handles
 
 
-def breakdown(per_doc):
-    """One more seam run with the host-phase spans on and torch.profiler
-    tracing CPU + CUDA: seconds per seam phase, and the device's busy
-    time (sum of CUDA kernel + copy time) against the run's wall time.
-    The traced run is slower than an untraced one; read the shares."""
+def traced(run):
+    """`run()` once with the host-phase spans on and torch.profiler
+    tracing CPU + CUDA. Returns the wall seconds, the seconds per span
+    name (summed; `@main` names the main thread's share), and the
+    device-side rows (kernels, copies) as (ms, name, count), longest
+    first. The traced run is slower than an untraced one; read the
+    shares."""
+    import threading as _threading
     import torch
     from automerge_tpu_torch import observability
     from automerge_tpu_torch.observability import spans
-    observability.enable(span_capacity=1 << 16)
+    observability.enable(span_capacity=1 << 18)
     spans.clear()
-    split = {}
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        run_seam(per_doc, split)
+        run()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     observability.disable()
+    main_tid = _threading.get_ident()
     phases = {}
     for rec in spans.iter_spans():
-        phases[rec['name']] = phases.get(rec['name'], 0) + rec['dur_ns']
-    order = ('turbo_setup', 'turbo_parse', 'turbo_gate', 'turbo_commit',
-             'turbo_stage', 'turbo_dispatch', 'dispatch_grid')
-    log(f'breakdown (traced run, wall {wall * 1e3:.1f} ms): init_docs '
-        f'{split["init_s"] * 1e3:.1f} ms, apply {split["apply_s"] * 1e3:.1f}'
-        f' ms; ' + ', '.join(f'{name} {phases.get(name, 0) / 1e6:.1f} ms'
-                             for name in order))
-    busy_us = 0.0
-    top = []
+        for name in (rec['name'], rec['name'] + '@main') \
+                if rec['tid'] == main_tid else (rec['name'],):
+            phases[name] = phases.get(name, 0) + rec['dur_ns'] / 1e9
+    rows = []
     for evt in prof.key_averages():
         # device-side rows only (kernels, copies): host ops such as
         # aten::copy_ also report their children's device time
@@ -405,13 +475,332 @@ def breakdown(per_doc):
         if dev_us is None:
             dev_us = getattr(evt, 'self_cuda_time_total', 0)
         if dev_us:
-            busy_us += dev_us
-            top.append((dev_us, evt.key, evt.count))
-    top.sort(reverse=True)
-    log(f'device busy {busy_us / 1e3:.3f} ms of {wall * 1e3:.1f} ms wall '
-        f'(idle share {1 - busy_us / 1e6 / wall:.4f}); top: ' +
-        '; '.join(f'{key} x{cnt} {us / 1e3:.3f} ms'
-                  for us, key, cnt in top[:6]))
+            rows.append((dev_us / 1e3, evt.key, evt.count))
+    rows.sort(reverse=True)
+    return wall, phases, rows
+
+
+def device_line(wall, rows):
+    busy = sum(ms for ms, _, _ in rows)
+    copies = sum(ms for ms, key, _ in rows if 'Memcpy' in key)
+    log(f'device busy {busy:.3f} ms of {wall * 1e3:.1f} ms wall (idle share '
+        f'{1 - busy / 1e3 / wall:.4f}; copies {copies:.3f} ms); top: ' +
+        '; '.join(f'{key} x{cnt} {ms:.3f} ms' for ms, key, cnt in rows[:6]))
+
+
+def breakdown(per_doc, mode='plain'):
+    """One traced seam run (`mode` as run_seam's): seconds per seam
+    phase, and the device's busy time against the run's wall time. For
+    the pipelined seam, `turbo_parse@main` is the main thread's wait on
+    the producer and `native_parse` the producer's parse."""
+    split = {}
+    wall, phases, rows = traced(lambda: run_seam(per_doc, split, mode))
+    order = ('turbo_setup', 'turbo_parse', 'turbo_parse@main',
+             'native_parse', 'turbo_gate', 'turbo_commit', 'turbo_stage',
+             'turbo_dispatch', 'dispatch_grid')
+    log(f'breakdown, {mode} seam (traced run, wall {wall * 1e3:.1f} ms): '
+        f'init_docs {split["init_s"] * 1e3:.1f} ms, apply '
+        f'{split["apply_s"] * 1e3:.1f} ms; ' +
+        ', '.join(f'{name} {phases.get(name, 0) * 1e3:.1f} ms'
+                  for name in order))
+    device_line(wall, rows)
+
+
+def pipelined_path(per_doc, seam_handles):
+    """The pipelined seam at the seam's shape: grids and save() equal
+    the sequential sub-batch seam's, save() equals the one-call seam's,
+    one dispatch per sub-batch; then changes/s of both in turns."""
+    import numpy as np
+    from automerge_tpu_torch.fleet import merge_kernel
+    from automerge_tpu_torch.fleet.tensor_doc import state_to_numpy
+    merge_kernel.reset_launches()
+    fleet, handles, dispatches = run_seam(per_doc, mode='pipelined')
+    launches = dict(merge_kernel.LAUNCHES)
+    if dispatches != SUB_BATCHES or fleet.metrics.turbo_calls != SUB_BATCHES:
+        fail(f'pipelined seam: {dispatches} dispatches, '
+             f'{fleet.metrics.turbo_calls} turbo calls (want {SUB_BATCHES})')
+    if launches['lww_merge'] < 1:
+        fail('the pipelined seam never launched lww_merge')
+    seq_fleet, seq_handles, _ = run_seam(per_doc, mode='sequential')
+    for name, a, b in zip(('winners', 'values', 'counters'),
+                          state_to_numpy(seq_fleet.state),
+                          state_to_numpy(fleet.state)):
+        if a.shape != b.shape or not np.array_equal(a[:, :-1], b[:, :-1]):
+            fail(f'pipelined seam {name} grid != the sequential seam\'s')
+    saves = [bytes(h['state'].save()) for h in handles]
+    if saves != [bytes(h['state'].save()) for h in seq_handles] or \
+            saves != [bytes(h['state'].save()) for h in seam_handles]:
+        fail('pipelined seam save() != the sequential / one-call seam\'s')
+    log(f'pipelined seam: {N_DOCS} docs x {N_CHANGES} changes in '
+        f'{SUB_BATCHES} sub-batches, {dispatches} dispatches, lww_merge '
+        f'launches {launches["lww_merge"]}; grids == sequential sub-batch '
+        f'seam, all {N_DOCS} save() == sequential and one-call seam')
+    rates = {'plain': [], 'pipelined': []}
+    for mode in ('plain', 'pipelined', 'pipelined', 'plain') * 3:
+        t0 = time.perf_counter()
+        run_seam(per_doc, mode=mode)
+        rates[mode].append(N_DOCS * N_CHANGES / (time.perf_counter() - t0))
+    for mode, reps in rates.items():
+        log(f'{mode} seam changes/s (median of {len(reps)}, in turns): '
+            f'{statistics.median(reps):.1f}  reps {[round(r) for r in reps]}')
+
+
+# ---- the sync plane's main path --------------------------------------------
+
+LINKS, HUB_DOCS, DEPTH = 100_000, 4, 8
+WARM_ROUNDS = 3
+SAMPLE_LINKS = 512
+REPLICAS = 10_000
+SAMPLE_REPLIES = 64
+
+
+def hub_chain(actor, n):
+    """bench.py's fabric chain: n single-set changes by one actor."""
+    from automerge_tpu_torch.columnar import decode_change_meta, encode_change
+    bufs, deps = [], []
+    for i in range(n):
+        buf = encode_change({
+            'actor': actor, 'seq': i + 1, 'startOp': i + 1, 'time': 0,
+            'message': '', 'deps': deps,
+            'ops': [{'action': 'set', 'obj': '_root', 'key': f'k{i % 5}',
+                     'value': i, 'datatype': 'int', 'pred': []}]})
+        deps = [decode_change_meta(buf, True)['hash']]
+        bufs.append(buf)
+    return bufs
+
+
+def solicit(states):
+    """Every peer asks for a full resend (empty filter), as bench.py's
+    fabric sweep does: the worst-case steady state."""
+    for s in states:
+        s['theirHeads'] = []
+        s['theirHave'] = [{'lastSync': [], 'bloom': b''}]
+        s['theirNeed'] = []
+
+
+class Recorder:
+    """While on, keeps a copy of the inputs of the largest call each sync
+    kernel wrapper gets (the table before the call, for the insert), so
+    phase 4 can hold and time the kernels on the main path's own inputs.
+    The wrappers still count their launches as before."""
+
+    SIZE = {'bloom_build': lambda a: a[0].shape[0] * a[0].shape[1],
+            'bloom_probe': lambda a: a[3].shape[0] * a[3].shape[1],
+            'hashindex_insert': lambda a: a[2].shape[0],
+            'hashindex_probe': lambda a: a[2].shape[0]}
+
+    def __init__(self):
+        self.saved = {}
+        self._real = {}
+
+    def __enter__(self):
+        from automerge_tpu_torch.fleet import sync_kernels
+        for name in self.SIZE:
+            real = getattr(sync_kernels, name)
+            self._real[name] = real
+            setattr(sync_kernels, name, self._wrap(name, real))
+        return self
+
+    def __exit__(self, *exc):
+        from automerge_tpu_torch.fleet import sync_kernels
+        for name, real in self._real.items():
+            setattr(sync_kernels, name, real)
+
+    def _wrap(self, name, real):
+        import torch
+
+        def call(*args, **kwargs):
+            size = self.SIZE[name](args)
+            if size >= self.saved.get(name, (-1,))[0]:
+                self.saved[name] = (size, [
+                    a.clone() if isinstance(a, torch.Tensor) else a
+                    for a in args], dict(kwargs))
+            return real(*args, **kwargs)
+        return call
+
+
+def sync_path():
+    """The hub, the receive leg and the replies (see the module
+    docstring). Returns its numbers and the recorded kernel inputs."""
+    import torch
+    from automerge_tpu_torch import backend as host
+    from automerge_tpu_torch.columnar import decode_change_meta, encode_change
+    from automerge_tpu_torch.fleet import (bloom, hashindex, merge_kernel,
+                                           sync_driver, sync_kernels)
+    from automerge_tpu_torch.fleet.backend import (DocFleet,
+                                                   apply_changes_docs,
+                                                   init_docs,
+                                                   materialize_docs)
+    rows = [hub_chain(f'{0xe0 + d:02x}' * 16, DEPTH) for d in range(HUB_DOCS)]
+    hashes = [[decode_change_meta(b, True)['hash'] for b in row]
+              for row in rows]
+    fleet = DocFleet(device=DEVICE)
+    hub = init_docs(HUB_DOCS, fleet)
+    hub, _ = apply_changes_docs(hub, rows, mirror=False)
+    fidx = fleet.frontier_index(device_min=1, capacity=2 * LINKS * DEPTH)
+    links = [hub[i % HUB_DOCS] for i in range(LINKS)]
+    states = [host.init_sync_state() for _ in range(LINKS)]
+    generate = sync_driver.generate_sync_messages_docs
+    out = {}
+    merge_kernel.reset_launches()
+    sync_kernels.reset_launches()
+    rec = Recorder()
+    with rec:
+        solicit(states)
+        t0 = time.perf_counter()
+        states, cold = generate(links, states)
+        torch.cuda.synchronize()
+        out['cold_ms'] = (time.perf_counter() - t0) * 1e3
+        if any(m is None for m in cold) or not all(
+                isinstance(s['sentHashes'], hashindex.PeerSentSet)
+                for s in states):
+            fail('sync: the cold round left a link without a message or '
+                 'a peer-space')
+        solicit(states)         # lands every link's staged sent set
+        t0 = time.perf_counter()
+        states, _ = generate(links, states)
+        torch.cuda.synchronize()
+        out['land_ms'] = (time.perf_counter() - t0) * 1e3
+    times, disp = [], set()
+    for _ in range(WARM_ROUNDS):
+        solicit(states)
+        h0, b0 = hashindex.dispatch_count(), bloom.dispatch_count()
+        t0 = time.perf_counter()
+        states, warm = generate(links, states)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        disp.add((hashindex.dispatch_count() - h0,
+                  bloom.dispatch_count() - b0))
+    if disp != {(1, 1)} or any(m is None for m in warm):
+        fail(f'sync: steady rounds cost {disp} (hash-index, Bloom) '
+             f'dispatches, want (1, 1)')
+    table = fidx.table
+    out.update(round_ms=[t * 1e3 for t in times],
+               p50_ms=statistics.median(times) * 1e3,
+               links_per_s=LINKS / statistics.median(times),
+               table=(table.cap, table.occupancy, table.resident_bytes()))
+    # the per-link host protocol over host backends of the same bytes
+    host_docs = [host.apply_changes(host.init(), row)[0] for row in rows]
+    step = LINKS // SAMPLE_LINKS
+    for i in range(0, LINKS, step)[:SAMPLE_LINKS]:
+        d = i % HUB_DOCS
+        st = host.init_sync_state()
+        solicit([st])
+        _st, want = host.generate_sync_message(host_docs[d], st)
+        if bytes(want) != bytes(cold[i]):
+            fail(f'sync: cold message of link {i} != the host protocol\'s')
+        st = dict(host.init_sync_state(), sentHashes=set(hashes[d]),
+                  lastSentHeads=list(host.get_heads(host_docs[d])))
+        solicit([st])
+        _st, want = host.generate_sync_message(host_docs[d], st)
+        if bytes(want) != bytes(warm[i]):
+            fail(f'sync: steady message of link {i} != the host '
+                 f'protocol\'s')
+    log(f'sync hub: {LINKS} links over {HUB_DOCS} docs of depth {DEPTH}, '
+        f'table {table.cap} slots ({table.occupancy} keys, '
+        f'{table.resident_bytes()} B); cold round {out["cold_ms"]:.1f} ms, '
+        f'landing round {out["land_ms"]:.1f} ms, steady rounds ' +
+        ', '.join(f'{t:.1f}' for t in out['round_ms']) +
+        f' ms (p50 {out["p50_ms"]:.1f} ms, {out["links_per_s"]:.1f} '
+        f'links/s), 1 hash-index + 1 Bloom dispatch each; '
+        f'{SAMPLE_LINKS} sampled links == host protocol (cold, steady)')
+
+    # the receive leg: a fresh fleet of replicas takes the cold round
+    with rec:
+        replica = DocFleet(doc_capacity=REPLICAS, key_capacity=16,
+                           device=DEVICE)
+        replica.frontier_index(device_min=1,
+                               capacity=2 * REPLICAS * (DEPTH + 1))
+        peers = init_docs(REPLICAS, replica)
+        peer_states = [host.init_sync_state() for _ in range(REPLICAS)]
+        t0 = time.perf_counter()
+        peers, peer_states, _ = sync_driver.receive_sync_messages_docs(
+            peers, peer_states, cold[:REPLICAS])
+        torch.cuda.synchronize()
+        out['receive_ms'] = (time.perf_counter() - t0) * 1e3
+        hub_docs = materialize_docs(hub)
+        hub_saves = [bytes(h['state'].save()) for h in hub]
+        got = materialize_docs(peers)
+        for i, (doc, p) in enumerate(zip(got, peers)):
+            if doc != hub_docs[i % HUB_DOCS] or \
+                    bytes(p['state'].save()) != hub_saves[i % HUB_DOCS]:
+                fail(f'sync: replica {i} != hub doc {i % HUB_DOCS}')
+        edits = [[encode_change({
+            'actor': 'cc' * 16, 'seq': 1, 'startOp': DEPTH + 1, 'time': 0,
+            'message': '', 'deps': list(p['heads']),
+            'ops': [{'action': 'set', 'obj': '_root', 'key': 'local',
+                     'value': i, 'datatype': 'int', 'pred': []}]})]
+            for i, p in enumerate(peers)]
+        t0 = time.perf_counter()
+        peers, _ = apply_changes_docs(peers, edits, mirror=False)
+        peer_states, replies = generate(peers, peer_states)
+        torch.cuda.synchronize()
+        out['reply_ms'] = (time.perf_counter() - t0) * 1e3
+    out['launches'] = dict(sync_kernels.LAUNCHES,
+                           lww_merge=merge_kernel.LAUNCHES['lww_merge'])
+    for i in range(0, REPLICAS, REPLICAS // SAMPLE_REPLIES):
+        hb, hs = host.init(), host.init_sync_state()
+        hb, hs, _ = host.receive_sync_message(hb, hs, cold[i])
+        hb = host.apply_changes(hb, edits[i])[0]
+        _hs, want = host.generate_sync_message(hb, hs)
+        if replies[i] is None or bytes(want) != bytes(replies[i]):
+            fail(f'sync: reply of replica {i} != the host protocol\'s')
+    missing = [k for k, v in out['launches'].items() if v < 1]
+    if missing:
+        fail(f'sync path never launched {missing}')
+    log(f'sync receive leg: {REPLICAS} replicas received the cold round in '
+        f'{out["receive_ms"]:.1f} ms, materialize_docs and save() == the '
+        f'hub\'s; local edits + replies in {out["reply_ms"]:.1f} ms, '
+        f'{SAMPLE_REPLIES} sampled replies == host protocol; launches '
+        f'{out["launches"]}')
+    out['inputs'] = {name: saved[1:] for name, saved in rec.saved.items()}
+    out['links'], out['states'] = links, states
+    return out
+
+
+HOST_PHASES = ('get_change_hashes', 'changes_to_send_prescan',
+               'changes_to_send_finish', '_fused_sent_filter',
+               'probe_peer_sets', 'flush_peer_sets', 'hashes_to_rows',
+               'build_bloom_filters_batch_begin',
+               'build_bloom_filters_batch_finish',
+               'probe_bloom_filters_batch_begin', 'encode_sync_message',
+               'hashes_to_words')
+
+
+def sync_breakdown(sync):
+    """One more steady round at 100,000 links, traced and profiled on
+    the host (cProfile): seconds per sync span, the cumulative seconds
+    of the sync driver's host phases and the functions with the most self
+    time, and the device's busy time against the round's wall time. The
+    profiler slows the host; read the shares."""
+    import cProfile
+    import pstats
+    from automerge_tpu_torch.fleet.sync_driver import \
+        generate_sync_messages_docs
+    links, states = sync['links'], sync['states']
+    solicit(states)
+    host = cProfile.Profile()
+    wall, phases, rows = traced(
+        lambda: host.runcall(generate_sync_messages_docs, links, states))
+    order = ('sync_generate', 'bloom_build', 'bloom_build_wait',
+             'bloom_probe', 'bloom_probe_wait', 'sync_encode')
+    log(f'breakdown, steady sync round (traced and profiled, wall '
+        f'{wall * 1e3:.1f} ms): ' +
+        ', '.join(f'{name} {phases.get(name, 0) * 1e3:.1f} ms'
+                  for name in order))
+    stats = pstats.Stats(host).stats
+    cum = {}
+    for (path, line, func), (_cc, nc, _tt, ct, _callers) in stats.items():
+        if func in HOST_PHASES and 'automerge_tpu_torch' in path:
+            cum[func] = cum.get(func, 0) + ct
+    log('host phases (cumulative s): ' + ', '.join(
+        f'{name} {sec:.3f}' for name, sec in
+        sorted(cum.items(), key=lambda kv: -kv[1])))
+    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:10]
+    log('host self time (s): ' + '; '.join(
+        f'{func} ({os.path.basename(path)}:{line}) {tt:.3f} x{nc}'
+        for (path, line, func), (_cc, nc, tt, _ct, _c) in top))
+    device_line(wall, rows)
 
 
 # ---- phase 4 ---------------------------------------------------------------
@@ -596,21 +985,184 @@ def kernel_numbers(grid_shape, baseline=None):
     return out
 
 
+def time_restored(fn, restore, reps=20):
+    """Device ms of `fn()` (median of `reps` calls), each call on the
+    state `restore()` puts back first, off the clock: for a kernel that
+    changes its inputs, as the hash-index insert does."""
+    import torch
+    restore()
+    fn()
+    pairs = []
+    for _ in range(reps):
+        restore()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def bound_of(n_bytes, n_ops):
+    """The least time the card could take: bytes over the memory rate or
+    integer operations over the issue rate, whichever is longer."""
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / INT_OPS_PER_S * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms), bytes=n_bytes, ops=n_ops,
+                bound_by='bytes' if bytes_ms >= ops_ms else 'operations')
+
+
+SYNC_KERNELS = {
+    'bloom_build': ('automerge_tpu_torch/fleet/csrc/bloom.cu',
+                    'automerge_tpu/fleet/bloom.py:187'),
+    'bloom_probe': ('automerge_tpu_torch/fleet/csrc/bloom.cu',
+                    'automerge_tpu/fleet/bloom.py:201'),
+    'hashindex_insert': ('automerge_tpu_torch/fleet/csrc/hashindex.cu',
+                         'automerge_tpu/fleet/hashindex.py:221'),
+    'hashindex_probe': ('automerge_tpu_torch/fleet/csrc/hashindex.cu',
+                        'automerge_tpu/fleet/hashindex.py:264'),
+}
+
+
+def sync_kernel_numbers(inputs):
+    """Each sync kernel on the largest inputs the sync path handed its
+    wrapper: held to its plain version there, and timed (device ms;
+    queued behind a sleep, or per call on a restored table for the
+    insert) beside its plain version and its bound. The bounds count
+    what this run's data needs: the valid flag (and the probes' output
+    byte) of every lane, the words or key and space of valid lanes only,
+    the per-row int64s of rows that hold a valid lane only, and the
+    output once. The index's scattered slot accesses move 32-byte
+    sectors: the distinct sectors of the valid rows' start spaces (read),
+    a key sector per new key (written) or per distinct found key (read),
+    and the distinct sectors of the new keys' spaces (written).
+    Operations: ~22 integer operations per valid Bloom lane (15 modulo
+    steps, 7 bit sets or tests), ~16 per valid index row. No single
+    PyTorch call computes any of them (library_ms null)."""
+    import torch
+    from automerge_tpu_torch.fleet import sync_cases
+    from automerge_tpu_torch.fleet import sync_kernels as sk
+    out = {}
+
+    def space_sectors(slots):
+        return int(torch.unique(slots // 8).numel()) * 32
+
+    (words, valid, row_bits, bit_off, total_bits), _kw = inputs['bloom_build']
+    got = sk.bloom_build(words, valid, row_bits, bit_off, total_bits)
+    want = sk.bloom_build_plain(words, valid, row_bits, bit_off, total_bits)
+    r, h = words.shape[:2]
+    v = int(valid.sum())
+    live = int(valid.any(dim=1).sum())
+    out['bloom_build'] = dict(
+        shape=f'{r} rows x {h} lanes ({v} valid) -> {total_bits // 8} B',
+        max_abs_err=int((got.int() - want.int()).abs().max()),
+        ms=time_ms(lambda: sk.bloom_build(words, valid, row_bits, bit_off,
+                                          total_bits)),
+        plain_ms=time_ms(lambda: sk.bloom_build_plain(
+            words, valid, row_bits, bit_off, total_bits), reps=5),
+        **bound_of(r * h + v * 12 + live * 16 + total_bits // 8, v * 22))
+
+    (flat, row_bits, byte_off, words, valid), _kw = inputs['bloom_probe']
+    got = sk.bloom_probe(flat, row_bits, byte_off, words, valid)
+    want = sk.bloom_probe_plain(flat, row_bits, byte_off, words, valid)
+    r, h = words.shape[:2]
+    v = int(valid.sum())
+    live_rows = valid.any(dim=1)
+    live = int(live_rows.sum())
+    filter_bytes = int(row_bits[live_rows].sum()) // 8
+    out['bloom_probe'] = dict(
+        shape=f'{r} rows x {h} lanes ({v} valid) over {flat.numel()} B',
+        max_abs_err=int((got != want).sum()),
+        ms=time_ms(lambda: sk.bloom_probe(flat, row_bits, byte_off, words,
+                                          valid)),
+        plain_ms=time_ms(lambda: sk.bloom_probe_plain(
+            flat, row_bits, byte_off, words, valid), reps=5),
+        **bound_of(r * h * 2 + v * 12 + live * 16 + filter_bytes, v * 22))
+
+    (tkey0, tspace0, keys, spaces, valid), kw = inputs['hashindex_insert']
+    tkey, tspace = tkey0.clone(), tspace0.clone()
+
+    def restore():
+        tkey.copy_(tkey0)
+        tspace.copy_(tspace0)
+
+    n_new = int(sk.hashindex_insert(tkey, tspace, keys, spaces, valid, **kw))
+    p_tkey, p_tspace = tkey0.clone(), tspace0.clone()
+    p_new = int(sk.hashindex_insert_plain(p_tkey, p_tspace, keys, spaces,
+                                          valid))
+    same = n_new == p_new and sync_cases.same_members(tkey, tspace, p_tkey,
+                                                      p_tspace)
+    del p_tkey, p_tspace
+    n = len(keys)
+    v = int(valid.sum())
+    cap = len(tspace)
+    starts = sk.start_pos(keys[valid], spaces[valid], cap)
+    new_slots = torch.nonzero((tspace >= 0) & (tspace0 < 0)).flatten()
+    n_bytes = (n + v * 36 + space_sectors(starts) + n_new * 32 +
+               space_sectors(new_slots))
+    del starts, new_slots
+    out['hashindex_insert'] = dict(
+        shape=f'{n} rows ({v} valid, {n_new} new) into {len(tspace)} slots '
+              f'({int((tspace0 >= 0).sum())} in use)',
+        max_abs_err=abs(n_new - p_new) + (0 if same else 1),
+        ms=time_restored(lambda: sk.hashindex_insert(
+            tkey, tspace, keys, spaces, valid, **kw), restore),
+        plain_ms=time_restored(lambda: sk.hashindex_insert_plain(
+            tkey, tspace, keys, spaces, valid), restore, reps=3),
+        **bound_of(n_bytes, v * 16))
+
+    (tkey, tspace, keys, spaces, valid), kw = inputs['hashindex_probe']
+    got = sk.hashindex_probe(tkey, tspace, keys, spaces, valid, **kw)
+    want = sk.hashindex_probe_plain(tkey, tspace, keys, spaces, valid, **kw)
+    n = len(keys)
+    v = int(valid.sum())
+    found = int(got.sum())
+    starts = sk.start_pos(keys[valid], spaces[valid], len(tspace))
+    found_keys = len(torch.unique(
+        torch.cat([spaces[got].view(-1, 1), keys[got]], dim=1), dim=0))
+    n_bytes = n * 2 + v * 36 + space_sectors(starts) + found_keys * 32
+    del starts
+    out['hashindex_probe'] = dict(
+        shape=f'{n} rows ({v} valid, {found} found) in {len(tspace)} slots '
+              f'({int((tspace >= 0).sum())} in use)',
+        max_abs_err=int((got != want).sum()),
+        ms=time_ms(lambda: sk.hashindex_probe(tkey, tspace, keys, spaces,
+                                              valid, **kw)),
+        plain_ms=time_ms(lambda: sk.hashindex_probe_plain(
+            tkey, tspace, keys, spaces, valid, **kw), reps=3),
+        **bound_of(n_bytes, v * 16))
+
+    for name, nums in out.items():
+        log(f'{name} at the sync path\'s shape, {nums["shape"]}: ' +
+            ', '.join(f'{key} {val:.4f}' if isinstance(val, float) else
+                      f'{key} {val}' for key, val in nums.items()
+                      if key != 'shape'))
+        if nums['max_abs_err']:
+            fail(f'{name} != plain at the sync path\'s shape '
+                 f'(max abs err {nums["max_abs_err"]})')
+    return out
+
+
 def load_baseline(path):
     """The merge wrapper of another checkout of this repository (e.g. the
-    parent commit, unpacked with `git archive`), loaded under a module
-    name of its own: it builds its own kernel source into that
-    checkout."""
+    parent commit, unpacked with `git archive`). Its package is loaded
+    under a name of its own (`baseline_port`), so its imports resolve
+    inside that checkout, and it builds its own kernel source there."""
+    import importlib
     import importlib.util
-    src = os.path.join(path, 'automerge_tpu_torch', 'fleet',
-                       'merge_kernel.py')
-    if not os.path.exists(src):
-        fail(f'--baseline: {src} not found')
-    spec = importlib.util.spec_from_file_location('baseline_merge_kernel',
-                                                  src)
+    pkg = os.path.join(path, 'automerge_tpu_torch')
+    if not os.path.exists(os.path.join(pkg, 'fleet', 'merge_kernel.py')):
+        fail(f'--baseline: no automerge_tpu_torch/fleet/merge_kernel.py '
+             f'under {path}')
+    spec = importlib.util.spec_from_file_location(
+        'baseline_port', os.path.join(pkg, '__init__.py'),
+        submodule_search_locations=[pkg])
     mod = importlib.util.module_from_spec(spec)
+    sys.modules['baseline_port'] = mod
     spec.loader.exec_module(mod)
-    return mod
+    return importlib.import_module('baseline_port.fleet.merge_kernel')
 
 
 def main():
@@ -635,14 +1187,21 @@ def main():
         f'python {sys.version.split()[0]}')
     build_all(baseline)
     max_err = kernel_vs_plain()
-    launches, grid_bytes, grid_shape, per_doc = main_path()
+    sync_kernel_vs_plain()
+    launches, grid_bytes, grid_shape, per_doc, seam_handles = main_path()
+    pipelined_path(per_doc, seam_handles)
+    del seam_handles
+    sync = sync_path()
     nums = kernel_numbers(grid_shape, baseline)
+    sync_nums = sync_kernel_numbers(sync.pop('inputs'))
     breakdown(per_doc)
+    breakdown(per_doc, 'pipelined')
+    sync_breakdown(sync)
     log(f'grid bytes: {grid_bytes}')
     log(f'wall: {time.perf_counter() - t_start:.1f} s')
     log(card_line())
     main_nums = nums['noinc_fresh']
-    print(json.dumps({'kernels': [{
+    kernels = [{
         'name': 'lww_merge', 'route': 'cuda',
         'source': 'automerge_tpu_torch/fleet/csrc/lww_merge.cu',
         'replaces': 'automerge_tpu/fleet/pallas_merge.py:198',
@@ -651,7 +1210,17 @@ def main():
         'ms': main_nums['ms'], 'plain_ms': main_nums['plain_ms'],
         'bound_ms': main_nums['bound_ms'],
         'bound_by': main_nums['bound_by'],
-        'library_ms': None}]}), flush=True)
+        'library_ms': None}]
+    for name, (source, replaces) in SYNC_KERNELS.items():
+        k = sync_nums[name]
+        kernels.append({
+            'name': name, 'route': 'cuda', 'source': source,
+            'replaces': replaces, 'launches': sync['launches'][name],
+            'max_abs_err': k['max_abs_err'],
+            'ms': k['ms'], 'plain_ms': k['plain_ms'],
+            'bound_ms': k['bound_ms'], 'bound_by': k['bound_by'],
+            'library_ms': None})
+    print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

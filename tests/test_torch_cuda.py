@@ -1,21 +1,26 @@
-"""Tests of the port's CUDA kernel that need an NVIDIA GPU (marker
+"""Tests of the port's CUDA kernels that need an NVIDIA GPU (marker
 `cuda`; they skip without one). The file imports only the port, so it
 also runs on a machine without jax:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-The hand-written kernel is held against its plain torch version on the
-same inputs, and the seam on the card against the seam on the CPU.
-Tolerance: none (exact int32 equality on the real key columns [:, :K];
-column K is the scratch column and holds garbage by contract)."""
+Each hand-written kernel is held against its plain torch version on the
+same inputs, and the seam, the pipelined seam and a sync round on the
+card against the same on the CPU. Tolerance: none (exact int32 equality
+on the merge's real key columns [:, :K], whose column K is the scratch
+column and holds garbage by contract; equal Bloom bytes and probe
+answers; equal hash-index membership and new-key counts, since the
+insert kernel's slot layout may differ where rows race for a slot)."""
 
 import numpy as np
 import pytest
 import torch
 
 from automerge_tpu_torch.columnar import decode_change_meta, encode_change
+from automerge_tpu_torch.backend import init_sync_state
 from automerge_tpu_torch.fleet import apply
 from automerge_tpu_torch.fleet import backend, merge_kernel
+from automerge_tpu_torch.fleet import sync_cases, sync_driver, sync_kernels
 from automerge_tpu_torch.fleet.merge_cases import (CORNERS, clone,
                                                    corner_cols, launch_along,
                                                    random_cols, seeded)
@@ -230,3 +235,135 @@ def test_seam_on_the_card_matches_the_cpu(cuda):
     assert gpu_docs == cpu_docs
     assert gpu_saves == cpu_saves
     assert_grids_equal(cpu_state, gpu_state, gpu_state.winners.shape[1] - 1)
+
+
+# ---- the sync plane's kernels ----------------------------------------------
+
+@pytest.mark.parametrize('name', sync_cases.INDEX_CASES)
+def test_index_kernels_match_plain_versions(cuda, name):
+    """Insert (every key at one start slot, a chain wrapping at cap - 1,
+    in-batch duplicates and present keys, the 0.6 load bound, many
+    spaces) and probe, kernel against plain version."""
+    case = sync_cases.index_case(name, np.random.default_rng(41), cuda)
+    before = dict(sync_kernels.LAUNCHES)
+    got = sync_cases.index_both(case)
+    assert (got['insert'], got['probe'], got['wrong']) == (0, 0, 0), got
+    for kernel in ('hashindex_insert', 'hashindex_probe'):
+        assert sync_kernels.LAUNCHES[kernel] == before[kernel] + 1
+
+
+@pytest.mark.parametrize('counts', sorted(sync_cases.BLOOM_COUNTS))
+def test_bloom_kernels_match_plain_versions(cuda, counts):
+    """Build filters of the given sizes and probe each with its members
+    and as many strangers, kernel against plain version."""
+    before = dict(sync_kernels.LAUNCHES)
+    got = sync_cases.bloom_both(np.random.default_rng(43),
+                                sync_cases.BLOOM_COUNTS[counts], cuda)
+    assert (got['build'], got['probe'], got['missed']) == (0, 0, 0), got
+    for kernel in ('bloom_build', 'bloom_probe'):
+        assert sync_kernels.LAUNCHES[kernel] == before[kernel] + 1
+
+
+def test_grow_by_migration_on_the_card_matches_the_cpu(cuda):
+    """A table that grows twice and drops two dead spaces on the way
+    (the migration re-inserts the old table's live rows on the device)
+    answers every probe as the same table on the CPU does."""
+    from automerge_tpu_torch.fleet import hashindex
+    rng = np.random.default_rng(47)
+    keys = rng.integers(0, 256, (700, 32), dtype=np.uint8)
+    spaces = rng.integers(0, 6, 400).astype(np.int32)
+    probe_spaces = rng.integers(0, 7, 700).astype(np.int32)  # 6: never minted
+    answers, lengths = {}, {}
+    for dev in ('cpu', 'cuda'):
+        t = hashindex.HashIndex(capacity=8, device_min=1, load_max=0.5,
+                                device=dev)
+        for _ in range(6):
+            t.new_space()
+        before = sync_kernels.LAUNCHES['hashindex_insert']
+        for lo in range(0, 400, 100):
+            t.insert(spaces[lo:lo + 100], keys[lo:lo + 100])
+        assert t.grows >= 2
+        t.release_space(0)
+        t.release_space(1)
+        t.insert(2, keys[400:])             # grows, dropping the dead
+        lengths[dev] = (t.cap, t.grows, len(t))
+        answers[dev] = t.probe(probe_spaces, keys)
+        launched = sync_kernels.LAUNCHES['hashindex_insert'] - before
+        # one launch per insert call, one per migration
+        assert launched == (0 if dev == 'cpu' else 5 + t.grows)
+    assert lengths['cuda'] == lengths['cpu']
+    np.testing.assert_array_equal(answers['cuda'], answers['cpu'])
+
+
+def _sync_round(dev, n_links=64):
+    """A fleet of 4 docs serving n_links peer links, each peer soliciting
+    a full resend every round (a cold round, then steady rounds); a
+    fresh fleet of n_links replicas
+    receives the cold round, each replica makes a local edit and
+    replies, probing the hub's filter. Returns every message, the
+    replicas' saves, and the launches the run made."""
+    rows = _seam_batch(4, 6, seed=5)
+    fleet = backend.DocFleet(doc_capacity=4, key_capacity=31, device=dev)
+    hub = backend.init_docs(4, fleet)
+    hub, _ = backend.apply_changes_docs(hub, rows, mirror=False)
+    fleet.frontier_index(device_min=1)
+    before = dict(sync_kernels.LAUNCHES)
+    links = [hub[i % 4] for i in range(n_links)]
+    states = [init_sync_state() for _ in range(n_links)]
+    msgs = []
+    for r in range(3):
+        for st in states:          # the peer solicits a full resend
+            st.update(theirHeads=[], theirNeed=[],
+                      theirHave=[{'lastSync': [], 'bloom': b''}])
+        states, out = sync_driver.generate_sync_messages_docs(links, states)
+        msgs += out
+        if r == 0:
+            cold = out
+    replica = backend.DocFleet(doc_capacity=n_links, key_capacity=31,
+                               device=dev)
+    replica.frontier_index(device_min=1)
+    peers = backend.init_docs(n_links, replica)
+    peer_states = [init_sync_state() for _ in range(n_links)]
+    peers, peer_states, _ = sync_driver.receive_sync_messages_docs(
+        peers, peer_states, cold)
+    assert [bytes(p['state'].save()) for p in peers] == \
+        [bytes(hub[i % 4]['state'].save()) for i in range(n_links)]
+    edits = [[encode_change({
+        'actor': f'{i + 1:032x}', 'seq': 1, 'startOp': 7, 'time': 0,
+        'message': '', 'deps': list(p['heads']),
+        'ops': [{'action': 'set', 'obj': '_root', 'key': 'local',
+                 'value': i, 'datatype': 'int', 'pred': []}]})]
+        for i, p in enumerate(peers)]
+    peers, _ = backend.apply_changes_docs(peers, edits, mirror=False)
+    peer_states, replies = sync_driver.generate_sync_messages_docs(
+        peers, peer_states)
+    launched = {k: sync_kernels.LAUNCHES[k] - before[k] for k in before}
+    saves = [bytes(p['state'].save()) for p in peers]
+    return [bytes(m) if m is not None else None
+            for m in msgs + replies], saves, launched
+
+
+def test_sync_round_on_the_card_matches_the_cpu(cuda):
+    cpu_msgs, cpu_saves, cpu_launched = _sync_round('cpu')
+    gpu_msgs, gpu_saves, gpu_launched = _sync_round('cuda')
+    assert gpu_msgs == cpu_msgs
+    assert gpu_saves == cpu_saves
+    assert not any(cpu_launched.values())
+    assert all(gpu_launched.values()), gpu_launched
+
+
+def test_pipelined_seam_on_the_card_matches_the_cpu(cuda):
+    per_doc = _seam_batch(24, 12, seed=4)
+    results = {}
+    for dev in ('cpu', 'cuda'):
+        fleet = backend.DocFleet(doc_capacity=24, key_capacity=31,
+                                 device=dev)
+        handles = backend.init_docs(24, fleet)
+        handles, _ = backend.apply_changes_docs_pipelined(
+            handles, per_doc, sub_batches=4)
+        assert fleet.metrics.turbo_calls == 4
+        results[dev] = (backend.materialize_docs(handles),
+                        [bytes(h['state'].save()) for h in handles],
+                        fleet.state)
+    assert results['cuda'][:2] == results['cpu'][:2]
+    assert_grids_equal(results['cpu'][2], results['cuda'][2], 30)

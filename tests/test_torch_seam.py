@@ -11,22 +11,30 @@ next step), odd docs a single-actor chain. Ops are overwriting sets
 deletes. A second batch adds keys past the grid's capacity (the grid
 grows) and an actor that sorts before the others (actors renumber)."""
 
+import threading
+
 import numpy as np
 import pytest
 import torch
 
+import automerge_tpu.native as jax_native
 from automerge_tpu.columnar import decode_change_meta, encode_change
 from automerge_tpu.errors import MalformedChange
 from automerge_tpu.fleet import backend as jax_backend
 import automerge_tpu_torch.native as torch_native
 from automerge_tpu_torch.fleet import backend as torch_backend
+from automerge_tpu_torch.fleet import sync_driver as torch_driver
 from automerge_tpu_torch.fleet.merge_kernel import LAUNCHES
 from automerge_tpu_torch.fleet.tensor_doc import (state_from_numpy,
                                                   state_to_numpy)
 
-# Build the port's native codec here, at import (collection time), so
-# the ~15 s g++ build is not charged to a test family's time budget.
-_NATIVE_OK = torch_native.available()
+# Build both native codecs here, at import (collection time), so the
+# ~15 s g++ builds are not charged to a test family's time budget. The
+# reference's codec builds in place without a lock, so a worker that
+# loads it while another is still linking it finds no codec: the
+# reference side then takes its exact path and nothing compares, so
+# the module skips, as the reference's own native tests do.
+_NATIVE_OK = torch_native.available() and jax_native.available()
 
 N_DOCS, N_KEYS, N_CHANGES = 48, 40, 20
 A, B, C = 'aa' * 16, 'bb' * 16, '00' * 16
@@ -154,8 +162,9 @@ def _assert_same(jf, jh, tf, th):
     assert tf.del_fallback == jf.del_fallback
 
 
-pytestmark = pytest.mark.skipif(not _NATIVE_OK,
-                                reason='native codec unavailable')
+pytestmark = pytest.mark.skipif(
+    not _NATIVE_OK, reason='a native codec is unavailable (the turbo path '
+    'and the reference comparison need both)')
 
 
 def test_turbo_seam_two_batches_match_reference():
@@ -226,11 +235,11 @@ def test_text_documents_raise_not_implemented():
 @pytest.mark.parametrize('call', [
     lambda: torch_backend.DocFleet(device='cpu', exact_device=True),
     lambda: torch_backend.DocFleet(device='cpu', mesh=object()),
-    lambda: torch_backend.DocFleet(device='cpu').frontier_index(),
+    lambda: torch_driver.generate_sync_messages_mixed(None, [], []),
     lambda: torch_backend.DocFleet(device='cpu').attach_journal(object()),
     lambda: torch_backend.park_docs([]),
     lambda: torch_backend.rebuild_docs([]),
-    lambda: torch_backend.apply_changes_docs_pipelined([], []),
+    lambda: torch_driver.receive_sync_messages_mixed(None, [], [], []),
 ])
 def test_later_slices_raise_not_implemented(call):
     with pytest.raises(NotImplementedError, match='ROADMAP'):
@@ -244,3 +253,69 @@ def test_cpu_seam_launches_no_kernel():
     assert LAUNCHES['lww_merge'] == before
     assert tf.state.winners.device.type == 'cpu'
     assert tf.state.winners.dtype == torch.int32
+
+
+# ---- the pipelined seam ----------------------------------------------------
+
+def test_pipelined_matches_reference_and_sequential_sub_batches():
+    """apply_changes_docs_pipelined(sub_batches=4) against the
+    reference's pipelined call and against four sequential
+    apply_changes_docs calls over the same splits."""
+    jf, jh, tf, th = _fleets()
+    jh, jp = jax_backend.apply_changes_docs_pipelined(jh, BATCH1,
+                                                      sub_batches=4)
+    th, tp = torch_backend.apply_changes_docs_pipelined(th, BATCH1,
+                                                        sub_batches=4)
+    assert tp == jp
+    assert tf.metrics.turbo_calls == jf.metrics.turbo_calls == 4
+    _assert_same(jf, jh, tf, th)
+    _jf2, _jh2, sf, sh = _fleets()
+    steps = [-(-len(c) // 4) for c in BATCH1]    # each doc's split
+    for s in range(4):
+        sh, _ = torch_backend.apply_changes_docs(
+            sh, [c[s * k:(s + 1) * k] for c, k in zip(BATCH1, steps)],
+            mirror=False)
+    assert [bytes(h['state'].save()) for h in sh] == \
+        [bytes(h['state'].save()) for h in th]
+    for a, b in zip(state_to_numpy(sf.state), state_to_numpy(tf.state)):
+        np.testing.assert_array_equal(a[:, :-1], b[:, :-1])
+
+
+def test_pipelined_producer_failure_raises_in_the_caller(monkeypatch):
+    """A parse that fails on the producer thread is raised by the caller,
+    and the producer thread has ended by then."""
+    _jf, _jh, _tf, th = _fleets()
+    real = torch_native.ingest_changes
+    calls = []
+
+    def failing(*args, **kwargs):
+        calls.append(1)
+        if len(calls) == 2:
+            raise RuntimeError('parse failed on the producer')
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(torch_native, 'ingest_changes', failing)
+    before = set(threading.enumerate())
+    with pytest.raises(RuntimeError, match='producer'):
+        torch_backend.apply_changes_docs_pipelined(th, BATCH1, sub_batches=4)
+    assert set(threading.enumerate()) <= before    # the producer joined
+    assert len(calls) == 2
+
+
+def test_pipelined_with_mirror_takes_the_plain_call(monkeypatch):
+    jf, jh, tf, th = _fleets()
+    seen = []
+    real = torch_backend.apply_changes_docs
+
+    def spy(handles, per_doc, **kwargs):
+        seen.append(kwargs)
+        return real(handles, per_doc, **kwargs)
+
+    monkeypatch.setattr(torch_backend, 'apply_changes_docs', spy)
+    th, tp = torch_backend.apply_changes_docs_pipelined(
+        th, BATCH1, sub_batches=4, mirror=True)
+    jh, jp = jax_backend.apply_changes_docs_pipelined(
+        jh, BATCH1, sub_batches=4, mirror=True)
+    assert seen == [{'mirror': True}]               # one call, no parse
+    assert tp == jp
+    _assert_same(jf, jh, tf, th)
