@@ -1,17 +1,19 @@
 """The fleet engine on torch: batched CRDT computation over document
-fleets, with the LWW merge and the sync plane's Bloom and hash-index
-kernels as hand-written CUDA kernels.
+fleets, with the LWW merge, the multi-value register scan and the sync
+plane's Bloom and hash-index kernels as hand-written CUDA kernels.
 
-This slice of the port carries the LWW grid, the turbo apply seam
+The port carries the LWW grid, the exact-device register engine
+(`DocFleet(exact_device=True)`, over `registers`), the turbo apply seam
 (`backend.apply_changes_docs`, and its pipelined form) and the batched
 sync plane (`sync_driver`, over `bloom` and `hashindex`); sequences,
-exact-device registers, storage and multi-device sharding are later
-slices (ROADMAP.md Queue 1).
+storage and multi-device sharding are later slices (ROADMAP.md Queue 1).
 """
 
 from .tensor_doc import (FleetState, OpBatch, TOMBSTONE, pack_op_id,
                          state_from_numpy, state_to_numpy, unpack_op_id)
 from .apply import apply_op_batch
+from .registers import (RegisterOpBatch, RegisterState, apply_register_batch,
+                        register_state_from_numpy, register_state_to_numpy)
 from .bloom import build_bloom_filters, probe_bloom_filters, bloom_filter_bytes
 from .sync_driver import (generate_sync_messages_docs,
                           receive_sync_messages_docs)
@@ -23,6 +25,8 @@ __all__ = [
     'FleetState', 'OpBatch', 'TOMBSTONE', 'pack_op_id', 'unpack_op_id',
     'state_from_numpy', 'state_to_numpy',
     'apply_op_batch',
+    'RegisterState', 'RegisterOpBatch', 'apply_register_batch',
+    'register_state_from_numpy', 'register_state_to_numpy',
     'build_bloom_filters', 'probe_bloom_filters', 'bloom_filter_bytes',
     'generate_sync_messages_docs', 'receive_sync_messages_docs',
 ]

@@ -1,12 +1,14 @@
 """The device-routed backend: Automerge's Backend contract over the fleet.
 
 This is the torch port of automerge_tpu/fleet/backend.py. The fleet's
-grids are torch int32 tensors on one device (`DocFleet(device=...)`,
-CUDA by default) and every merge dispatch is the hand-written CUDA LWW
-merge kernel (fleet/merge_kernel.py). The module is a copy of the
-reference with the device calls swapped; paths that belong to later
-slices of the port (ROADMAP.md "Queue 1") raise NotImplementedError
-naming their item: sharded meshes, exact-device registers, Text/list
+grids are torch tensors on one device (`DocFleet(device=...)`, CUDA by
+default). Every LWW merge dispatch is the hand-written CUDA merge kernel
+(fleet/merge_kernel.py); with `exact_device=True` the fleet keeps the
+multi-value register state instead, and every dispatch is the
+hand-written CUDA register scan (fleet/register_kernel.py). The module
+is a copy of the reference with the device calls swapped; paths that
+belong to later slices of the port (ROADMAP.md "Queue 1") raise
+NotImplementedError naming their item: sharded meshes, Text/list
 sequences, durability journals and the storage tier
 (park/load/rebuild).
 
@@ -80,7 +82,6 @@ from .ingest import KeyInterner
 
 # Later slices of the port (ROADMAP.md Queue 1): their paths raise
 _MULTI_DEVICE = 'multi-device (fleet/sharding.py, fleet/exchange.py)'
-_EXACT_DEVICE = 'exact-device mode (fleet/registers.py)'
 _SEQUENCE = 'Text/list sequences (fleet/sequence.py)'
 _STORAGE = 'storage and durability (fleet/loader.py, fleet/durability.py)'
 
@@ -280,11 +281,9 @@ class DocFleet:
     def __init__(self, doc_capacity=64, key_capacity=64,
                  exact_device=False, actor_slot_capacity=8, d_preds=4,
                  mesh=None, device=None):
-        # mesh / exact_device belong to later slices of the port
+        # a mesh belongs to a later slice of the port
         if mesh is not None:
             raise _later(_MULTI_DEVICE)
-        if exact_device:
-            raise _later(_EXACT_DEVICE)
         # The torch device every grid lives on (CUDA unless asked)
         self.device = resolve_device(device)
         self.mesh = None
@@ -342,9 +341,12 @@ class DocFleet:
         #   set_packed) array 6-tuples], one entry per dispatched batch
         self._pending_winner_rows = []
         self._pending_winner_count = 0
-        # exact_device=True (the multi-value register engine) is a later
-        # slice of the port: this fleet is always the LWW grid
-        self.exact_device = False
+        # exact_device=True stores the device state in the multi-value
+        # register engine (fleet/registers.py) instead of the LWW
+        # scatter-max grid: conflict sets, set-vs-delete resurrection, and
+        # counter semantics become exact on device, at ordered-scan cost
+        self.exact_device = exact_device
+        self.reg_state = None     # RegisterState, allocated on first flush
         self.actor_slot_cap = actor_slot_capacity
         self.d_preds = d_preds
         self.doc_cap = doc_capacity
@@ -443,7 +445,9 @@ class DocFleet:
             out['op_index'] = int(
                 sum(a.nbytes for a in self._op_index.values()) +
                 sum(p[1].nbytes for p in self._op_index_pending))
-        out['total'] = out.get('lww_grid', 0)
+        if self.reg_state is not None:
+            out['registers'] = self.reg_state.nbytes()
+        out['total'] = out.get('lww_grid', 0) + out.get('registers', 0)
         out['value_table_entries'] = len(self.value_table)
         return out
 
@@ -576,6 +580,10 @@ class DocFleet:
             if self.host_winners is not None:
                 self._fold_pending_winners()
                 self.host_winners[dst] = self.host_winners[src]
+        if self.reg_state is not None and src < self.reg_state.reg.shape[0]:
+            self._ensure_reg_capacity(n_docs=dst + 1, n_keys=len(self.keys))
+            for t in self.reg_state.tensors():
+                t[dst] = t[src]
         return dst
 
     def _zero_rows(self, slots):
@@ -593,6 +601,13 @@ class DocFleet:
                 if self.host_winners is not None:
                     self._fold_pending_winners()
                     self.host_winners[sel] = 0
+        if self.reg_state is not None:
+            sel = arr[arr < self.reg_state.reg.shape[0]]
+            if len(sel):
+                from .registers import zero_register_rows_donated
+                zero_register_rows_donated(self.reg_state,
+                                           torch.from_numpy(sel))
+                self.metrics.dispatches += 1
 
     # -- sequence rows (a later slice of the port) ---------------------
 
@@ -615,6 +630,26 @@ class DocFleet:
 
     def _intern_value_boxed(self, value):
         return -(self.value_table.intern(value) + 2)
+
+    def _intern_typed(self, value, datatype):
+        """THE datatype-boxing rule for device value lanes (one source of
+        truth for the per-op and turbo ingest paths): payloads whose wire
+        datatype an int32 lane can't carry ('uint', 'counter',
+        'timestamp', 'float64', …) box as TypedValue so device-served
+        patches keep exact datatype leaves; plain ints in range stay
+        inline; everything else boxes raw."""
+        from .registers import TypedValue
+        if not isinstance(datatype, str):
+            # int datatype tags (bytes / unknown wire types,
+            # columnar.decode_value) box raw: their patch leaves are
+            # mirror territory, not TypedValue material
+            datatype = None
+        if datatype not in (None, 'int'):
+            return self._intern_value_boxed(TypedValue(value, datatype))
+        if isinstance(value, int) and not isinstance(value, bool) and \
+                0 <= value < (1 << 31):
+            return value
+        return self._intern_value_boxed(value)
 
     def _make_link_value(self, slot, oid, type_name):
         """THE make-op link rule, shared by the apply and bulk-load ingest
@@ -712,6 +747,91 @@ class DocFleet:
             hw_new = (hw & ~mask) | perm_full[hw & mask]
             self.host_winners = np.where(hw != 0, hw_new, 0) \
                 .astype(np.int32)
+
+    def _ensure_reg_capacity(self, n_docs, n_keys):
+        from .registers import RegisterState
+        need_docs = self._cap_docs(n_docs)
+        need_keys = _pow2(max(n_keys + 1, self.key_cap))
+        need_slots = _pow2(max(len(self.actors), self.actor_slot_cap))
+        if self.reg_state is None:
+            self.doc_cap, self.key_cap = need_docs, need_keys
+            self.actor_slot_cap = need_slots
+            self.reg_state = RegisterState.empty(need_docs, need_keys - 1,
+                                                 need_slots, self.device)
+            return
+        old_n, old_k, old_a = self.reg_state.reg.shape
+        if need_docs <= old_n and need_keys <= old_k and \
+                need_slots <= old_a:
+            return
+        self.metrics.grows += 1
+        n = max(need_docs, old_n)
+        k = max(need_keys, old_k)
+        a = max(need_slots, old_a)
+        grown = []
+        for arr in self.reg_state.tensors()[:4]:
+            out = torch.zeros((n, k, a), dtype=arr.dtype, device=self.device)
+            # old scratch column (old_k - 1) holds garbage: drop it
+            out[:old_n, :old_k - 1, :old_a] = arr[:, :old_k - 1]
+            grown.append(out)
+        inexact = torch.zeros((n,), dtype=torch.bool, device=self.device)
+        inexact[:old_n] = self.reg_state.inexact
+        self.doc_cap, self.key_cap = n, k - 1
+        self.actor_slot_cap = a
+        self.reg_state = RegisterState(*grown, inexact)
+
+    def _lane_permutation(self, perm, n_lanes):
+        """Actor-lane permutation machinery for the register engine:
+        lanes are indexed by actor number, so a sorted-order actor
+        insertion (perm: old actor num -> new actor num) both renumbers
+        packed-id actor bits and moves every lane.
+
+        Returns (move, renum): move(arr, fill) permutes the trailing lane
+        axis of a [..., n_lanes] tensor — every pre-existing actor appears
+        in perm; lanes not fed by any old actor (newly inserted actors,
+        plus the unused tail) start as `fill` — and renum(arr) rewrites
+        the actor bits of non-zero packed opIds."""
+        old_of_new = np.zeros(n_lanes, dtype=np.int64)
+        fresh = np.ones(n_lanes, dtype=bool)
+        for old_i, new_i in enumerate(np.asarray(perm)):
+            if new_i < n_lanes:
+                old_of_new[new_i] = old_i
+                fresh[new_i] = False
+        gather = torch.from_numpy(old_of_new).to(self.device)
+        zero_new = torch.from_numpy(fresh).to(self.device)
+        mask = MAX_ACTORS - 1
+        perm_full = np.arange(MAX_ACTORS, dtype=np.int32)
+        perm_full[:len(perm)] = perm
+        bits = torch.from_numpy(perm_full).to(self.device)
+
+        def move(arr, fill):
+            return torch.where(zero_new, fill, arr[..., gather])
+
+        def renum(arr):
+            return torch.where(arr != 0,
+                               (arr & ~mask) | bits[(arr & mask).long()], 0)
+
+        return move, renum
+
+    @_spanned('actor_remap')
+    def _remap_reg_actors(self, perm):
+        """Renumber actor bits AND permute the actor-slot axis of the
+        register state after a sorted-order actor insertion."""
+        perm_full = np.arange(MAX_ACTORS, dtype=np.int32)
+        perm_full[:len(perm)] = perm
+        self._index_remap_actors(perm_full)
+        if self.reg_state is None:
+            return
+        from .registers import RegisterState
+        # Grow the slot axis FIRST: the freshly inserted actors may push an
+        # existing actor's new slot index past the current width, and the
+        # permutation below would silently drop its registers
+        self._ensure_reg_capacity(n_docs=self.n_slots, n_keys=len(self.keys))
+        self.metrics.remaps += 1
+        rs = self.reg_state
+        move, renum = self._lane_permutation(perm, rs.reg.shape[2])
+        self.reg_state = RegisterState(
+            renum(move(rs.reg, 0)), move(rs.killed, False),
+            move(rs.value, 0), move(rs.counter, 0), rs.inexact)
 
     def _rebase_slot(self, slot, new_ctr, floor_ctr=None):
         """Shift a slot's packing window so counters up to `new_ctr` fit:
@@ -1000,7 +1120,10 @@ class DocFleet:
             return
         perm = self.actors.insert_many(self.pending_actors)
         if perm is not None:
-            self._remap_actors(perm)
+            if self.exact_device:
+                self._remap_reg_actors(perm)
+            else:
+                self._remap_actors(perm)
         n_docs = self.n_slots
         per_doc = [[] for _ in range(n_docs)]
         for slot, buffers in self.pending:
@@ -1009,6 +1132,9 @@ class DocFleet:
             self.metrics.bytes_ingested += sum(len(b) for b in buffers)
         self.pending = []
         self.pending_actors = set()
+        if self.exact_device:
+            self._flush_exact(per_doc, n_docs)
+            return
         batch = None
         rebased_touched = any(
             d < n_docs and per_doc[d]
@@ -1043,6 +1169,109 @@ class DocFleet:
         self.metrics.device_ops += int(batch.valid.sum())
         if hazard:
             self._note_grid_batch(*hazard[0])
+
+    def _flush_exact(self, per_doc, n_docs):
+        """Exact-device flush: flat rows (with preds) into the multi-value
+        register engine, one ordered-scan dispatch. Batches the native
+        rows cannot carry route through the mixed Python parse."""
+        from .ingest import changes_to_op_rows
+        from .registers import (apply_register_batch_donated,
+                                rows_to_register_batch)
+        try:
+            rows = changes_to_op_rows(per_doc, self.keys, self.actors,
+                                      value_table=self.value_table)
+        except ValueError:
+            self._flush_exact_mixed(per_doc, n_docs)
+            return
+        self._ensure_reg_capacity(n_docs=n_docs, n_keys=len(self.keys))
+        n_cap = self.reg_state.reg.shape[0]
+        idx_sel = ((rows['flags'] == 1) & (rows['value'] != TOMBSTONE)) | \
+            (rows['flags'] == 2)
+        self._index_ops(rows['doc'][idx_sel], rows['key'][idx_sel],
+                        rows['packed'][idx_sel])
+        batch = rows_to_register_batch(
+            rows['doc'], rows['flags'], rows['key'], rows['packed'],
+            rows['value'], rows['pred_off'], rows['pred'],
+            n_docs=n_cap, d_preds=self.d_preds)
+        apply_register_batch_donated(self.reg_state, batch.to(self.device))
+        self.metrics.dispatches += 1
+        self.metrics.device_ops += len(rows['doc'])
+
+    def _flush_exact_mixed(self, per_doc, n_docs):
+        """Mixed-content flush for exact-device mode: flat rows (with pred
+        lists) into the register engine. Sequence ops belong to a later
+        slice of the port and raise."""
+        from .registers import (apply_register_batch_donated,
+                                rows_to_register_batch)
+        from .tensor_doc import pack_op_id
+        from .ingest import changes_to_decoded_ops
+        from ..common import parse_op_id
+
+        def pack(opid):
+            ctr, actor = parse_op_id(opid)
+            return pack_op_id(ctr, self.actors.intern(actor))
+
+        out_doc, out_key, out_packed, out_val, out_flags = [], [], [], [], []
+        pred_off, preds = [0], []
+        for d, op_id, op in changes_to_decoded_ops(per_doc):
+            obj = op['obj']
+            action = op['action']
+            packed = pack(op_id)
+            if obj != '_root' and obj in self.slot_seq.get(d, {}) or \
+                    action in _SEQ_MAKE:
+                raise _later(_SEQUENCE)
+            if action in _MAP_MAKE:
+                val_idx, flags = self._intern_value_boxed(
+                    _MapLink(op_id, OBJECT_TYPE[action])), 1
+            elif action == 'del':
+                val_idx, flags = TOMBSTONE, 1
+            elif action == 'inc':
+                val_idx, flags = op.get('value', 0), 2
+            else:
+                # _intern_typed is THE datatype-boxing rule: uint/counter/
+                # timestamp/float64 sets box with their datatype so
+                # device-served patches stay exact
+                val_idx, flags = self._intern_typed(
+                    op.get('value'), op.get('datatype')), 1
+            out_doc.append(d)
+            out_key.append(self.keys.intern(
+                op['key'] if obj == '_root' else (obj, op['key'])))
+            out_packed.append(packed)
+            out_val.append(val_idx)
+            out_flags.append(flags)
+            for p in op.get('pred', []):
+                preds.append(pack(p))
+            pred_off.append(len(preds))
+        if out_doc:
+            self._ensure_reg_capacity(n_docs=n_docs, n_keys=len(self.keys))
+            n_cap = self.reg_state.reg.shape[0]
+            doc_a = np.array(out_doc, dtype=np.int64)
+            key_a = np.array(out_key, dtype=np.int32)
+            packed_a = np.array(out_packed, dtype=np.int32)
+            flags_a = np.array(out_flags, dtype=np.uint8)
+            val_a = np.array(out_val, dtype=np.int32)
+            idx_sel = ((flags_a == 1) & (val_a != TOMBSTONE)) | \
+                (flags_a == 2)
+            self._index_ops(doc_a[idx_sel], key_a[idx_sel],
+                            packed_a[idx_sel])
+            batch = rows_to_register_batch(
+                doc_a, flags_a, key_a, packed_a, val_a,
+                np.array(pred_off, dtype=np.int64),
+                np.array(preds, dtype=np.int32),
+                n_docs=n_cap, d_preds=self.d_preds)
+            apply_register_batch_donated(self.reg_state,
+                                         batch.to(self.device))
+            self.metrics.dispatches += 1
+            self.metrics.device_ops += len(out_doc)
+
+    def inexact_slots(self):
+        """Slots whose histories fell outside the register engine's exact
+        shape (self-conflicts, pred overflow, …) — reads for these route to
+        the host mirror."""
+        self.flush()
+        if self.reg_state is None:
+            return set()
+        return set(np.flatnonzero(self.reg_state.inexact.cpu().numpy()))
 
     def _flush_mixed(self, per_doc, n_docs):
         """Python-decode flush splitting flat root-map rows (LWW grid) from
@@ -1186,6 +1415,8 @@ class DocFleet:
         mode the read comes from the multi-value registers instead (winner
         per key from the visible set, per-op counter folds)."""
         self.flush()
+        if self.exact_device:
+            return self._materialize_registers()
         if self.state is None:
             return [{} for _ in range(self.n_slots)]
         winners, values, counters = (t.cpu().numpy()
@@ -1256,9 +1487,53 @@ class DocFleet:
     def materialize(self, slot):
         return self.materialize_all()[slot]
 
+    def _materialize_registers(self):
+        from .registers import materialize_registers
+        if self.reg_state is None:
+            return [{} for _ in range(self.n_slots)]
+        docs = materialize_registers(self.reg_state, self.keys.keys,
+                                     value_table=self.value_table,
+                                     n_docs=self.n_slots)
+        free = set(self.free_slots)
+        out = []
+        rendered = None
+        for slot in range(self.n_slots):
+            if slot in free or slot >= len(docs):
+                out.append({})
+            else:
+                # Keys legitimately set to null keep their None value (the
+                # LWW grid and host mirror both report them; only absent /
+                # fully-deleted keys are omitted)
+                root_cells, nested = {}, {}
+                any_seq = False
+                for k, (v, _conflicts) in docs[slot].items():
+                    if isinstance(v, _SeqLink):
+                        any_seq = True
+                    if isinstance(k, tuple):
+                        nested.setdefault(k[0], {})[k[1]] = v
+                    else:
+                        root_cells[k] = v
+                if any_seq and rendered is None:
+                    rendered = self.render_seq_all()
+                out.append({k: self._resolve_value(slot, v, rendered or {},
+                                                   nested)
+                            for k, v in root_cells.items()})
+        return out
+
     def conflicts_all(self):
-        """Exact-device only (a later slice of the port)."""
-        raise ValueError('conflicts_all requires exact_device=True')
+        """Exact-device only: slot -> {key: {packed opId: value}} for every
+        key with a multi-value conflict (>1 visible op)."""
+        self.flush()
+        from .registers import materialize_registers
+        if not self.exact_device:
+            raise ValueError('conflicts_all requires exact_device=True')
+        if self.reg_state is None:
+            return [{} for _ in range(self.n_slots)]
+        docs = materialize_registers(self.reg_state, self.keys.keys,
+                                     value_table=self.value_table,
+                                     n_docs=self.n_slots)
+        return [{k: conflicts for k, (_v, conflicts) in doc.items()
+                 if conflicts} for doc in docs[:self.n_slots]]
 
 
 class _DocCols:
@@ -1940,6 +2215,11 @@ class _FlatEngine(HashGraph):
     # -- reads ----------------------------------------------------------
 
     def get_patch(self):
+        diffs = self._register_patch_diffs()
+        if diffs is not None:
+            return {'maxOp': self.max_op, 'clock': dict(self.clock),
+                    'deps': list(self.heads),
+                    'pendingChanges': len(self.queue), 'diffs': diffs}
         self._ensure_mirror()
         patch = self.mirror.get_patch()
         patch['maxOp'] = max(self.max_op, self.mirror.max_op)
@@ -1947,6 +2227,119 @@ class _FlatEngine(HashGraph):
         patch['deps'] = list(self.heads)
         patch['pendingChanges'] = len(self.queue)
         return patch
+
+    def _register_patch_diffs(self):
+        """Whole-doc patch diffs straight from the device state (exact
+        mode) — no mirror rebuild. The device's visible register lanes
+        become pseudo op rows fed through the host engine's OWN patch
+        machinery (`op_set._update_patch_property`, ref new.js:884-1040 /
+        documentPatch :1604-1635), so the patch grammar is identical by
+        construction. Returns None when the mirror must serve instead:
+        non-register fleets, device-inexact rows, or payloads the device
+        lanes can't represent."""
+        fleet = self.fleet
+        if not fleet.exact_device:
+            return None
+        fleet.flush()
+        empty = {'objectId': '_root', 'type': 'map', 'props': {}}
+        # emptiness check must not touch the changes property: on a
+        # bulk-loaded doc that would materialize the whole parked chunk
+        # just to answer a question the device state answers anyway
+        if self._doc_pending is None and not self._changes:
+            return empty
+        if fleet.reg_state is None:
+            return empty
+        if self.slot >= fleet.reg_state.inexact.shape[0]:
+            # Past the register state's doc capacity: the mirror serves
+            return None
+        if bool(fleet.reg_state.inexact[self.slot]):
+            return None
+        try:
+            return self._device_patch_diffs()
+        except _Unsupported:
+            return None
+
+    def _device_patch_diffs(self):
+        """Assemble the whole-doc diff tree from device register lanes via
+        the host patch machinery (the map half of the reference's:
+        sequence rows are a later slice of the port and raise). Raises
+        _Unsupported for any shape the lanes can't serve exactly (callers
+        use the mirror)."""
+        from ..backend.op_set import OpSet, ObjState, _utf16_key, root_meta
+        from ..common import lamport_key
+        from .registers import _patch_leaf
+        from .tensor_doc import unpack_op_id
+        if self.seq_objects:
+            raise _later(_SEQUENCE)
+        fleet = self.fleet
+        n_keys = len(fleet.keys)
+        reg, killed, value, counter = (
+            t[self.slot, :n_keys].cpu().numpy()
+            for t in fleet.reg_state.tensors()[:4])
+        visible = (reg != 0) & ~killed
+
+        def op_id_str(packed):
+            ctr, num = unpack_op_id(int(packed))
+            return f'{ctr}@{fleet.actors.actors[num]}'
+
+        def lane_row(packed, raw, cnt, base):
+            """Pseudo op row for one live register lane."""
+            row = dict(base)
+            row['id'] = op_id_str(packed)
+            row['succ'] = []
+            boxed = fleet.value_table[-raw - 2] if raw <= -2 else raw
+            if isinstance(boxed, _MapLink):
+                row['action'] = 'makeTable' if boxed.kind == 'table' \
+                    else 'makeMap'
+                return row
+            if isinstance(boxed, _SeqLink):
+                raise _later(_SEQUENCE)
+            leaf = _patch_leaf(int(raw), int(cnt), fleet.value_table)
+            if leaf is None:
+                raise _Unsupported('payload outside device lanes')
+            row['action'] = 'set'
+            row['value'] = leaf['value']
+            if 'datatype' in leaf:
+                row['datatype'] = leaf['datatype']
+            return row
+
+        # group this doc's live cells by (object, key)
+        cells = {}                  # object_id -> {key: [(packed, lane)]}
+        for k in np.flatnonzero(visible.any(axis=-1)):
+            key = fleet.keys.keys[int(k)]
+            obj, key_str = key if isinstance(key, tuple) else ('_root', key)
+            lanes = sorted((int(reg[k, s]), int(s))
+                           for s in np.flatnonzero(visible[k]))
+            cells.setdefault(obj, {})[key_str] = [(p, s, int(k))
+                                                  for p, s in lanes]
+        # cells are fleet-global: keep only THIS doc's objects (root keys
+        # are per-slot because register rows are per-slot; nested keys are
+        # (oid, key) and oids are globally unique)
+        mine = {'_root'} | set(self.map_objects)
+        cells = {obj: kv for obj, kv in cells.items() if obj in mine}
+
+        # reachability from root through live make lanes
+        shim = OpSet()
+        shim.objects = {'_root': ObjState('map')}
+        for oid, typ in self.map_objects.items():
+            shim.objects[oid] = ObjState(typ)
+        object_order = ['_root'] + sorted(self.map_objects, key=lamport_key)
+        object_meta = {'_root': root_meta()}
+        patches = {'_root': {'objectId': '_root', 'type': 'map',
+                             'props': {}}}
+        for object_id in object_order:
+            if object_id != '_root' and object_id not in object_meta:
+                continue          # unreachable (overwritten) object
+            prop_state = {}
+            for key_str in sorted(cells.get(object_id, {}), key=_utf16_key):
+                for packed, s, k in cells[object_id][key_str]:
+                    row = lane_row(packed, int(value[k, s]),
+                                   int(counter[k, s]),
+                                   {'key': key_str, 'insert': False})
+                    shim._update_patch_property(
+                        patches, object_id, row, prop_state, 0, 0,
+                        object_meta, whole_doc=True)
+        return patches['_root']
 
     def materialize(self):
         """Exact current {key: value} view (LWW winner per key,
@@ -2263,6 +2656,9 @@ def init_docs(n, fleet=None):
         if fleet.state is not None:
             fleet._ensure_capacity(n_docs=fleet.n_slots,
                                    n_keys=len(fleet.keys))
+        if fleet.reg_state is not None:
+            fleet._ensure_reg_capacity(n_docs=fleet.n_slots,
+                                       n_keys=len(fleet.keys))
         for slot in slots:
             d = FleetDoc.__new__(FleetDoc)
             d.fleet = fleet
@@ -2375,8 +2771,9 @@ quarantine_stats = Counters({'quarantined_docs': 0,
 # block runs).
 def _fleet_bytes(fleet):
     total = 0
-    if fleet.state is not None:
-        total += fleet.state.nbytes()
+    for state in (fleet.state, fleet.reg_state):
+        if state is not None:
+            total += state.nbytes()
     if fleet.host_winners is not None:
         total += fleet.host_winners.nbytes
     return total
@@ -3416,7 +3813,10 @@ def _apply_changes_turbo_inner(handles, per_doc_changes, ps, parsed=None):
     perm = fleet.actors.insert_many([nat_actors[int(a)]
                                      for a in applied_actor_ids])
     if perm is not None:
-        fleet._remap_actors(perm)
+        if fleet.exact_device:
+            fleet._remap_reg_actors(perm)
+        else:
+            fleet._remap_actors(perm)
     # -1 marks actors the fleet has never registered: ops' own actors are
     # always registered (applied_actor_ids above), so -1 can only surface
     # through pred/ref columns, where it flags the doc/row inexact instead
@@ -3464,6 +3864,23 @@ def _apply_changes_turbo_inner(handles, per_doc_changes, ps, parsed=None):
         kept_vals_all[ri] = boxed
         if mk <= 10:
             kept_flags_all[ri] = 1
+    if fleet.exact_device:
+        # uint/counter/timestamp sets box with their wire datatype so
+        # device-served patches keep exact datatypes and counter folds
+        # (same rule as ingest.changes_to_op_rows; dels carry value -1 and
+        # no typed vtype, so they never box)
+        from .registers import typed_wire_tags
+        _tags = typed_wire_tags()
+        typed_sel = keep & (rows['flags'] == 1) & (rows['value'] != -1) & \
+            (vlen_all == 0) & np.isin(rows['vtype'], list(_tags))
+        typed_memo = {}
+        for ri in np.flatnonzero(typed_sel).tolist():
+            tk = (int(rows['value'][ri]), int(rows['vtype'][ri]))
+            vid = typed_memo.get(tk)
+            if vid is None:
+                vid = fleet._intern_typed(tk[0], _tags[tk[1]])
+                typed_memo[tk] = vid
+            kept_vals_all[ri] = vid
     # arena-boxed map-cell payloads (strings/bools/None/floats/bytes,
     # out-of-lane ints): decode and intern by the shared rule (exact mode
     # keeps TypedValue datatypes; the LWW grid boxes raw). One table walk
@@ -3479,8 +3896,13 @@ def _apply_changes_turbo_inner(handles, per_doc_changes, ps, parsed=None):
             # and must fail loudly, not index decoded_vals[-1]
             raise AssertionError('undecoded arena payload in turbo batch')
         uniq_g = np.unique(gids)
-        vids = [fleet._intern_value(decoded_vals[g]['value'])
-                for g in uniq_g.tolist()]
+        if fleet.exact_device:
+            vids = [fleet._intern_typed(decoded_vals[g]['value'],
+                                        decoded_vals[g].get('datatype'))
+                    for g in uniq_g.tolist()]
+        else:
+            vids = [fleet._intern_value(decoded_vals[g]['value'])
+                    for g in uniq_g.tolist()]
         kept_vals_all[boxed_idx] = np.asarray(vids, dtype=np.int32)[
             np.searchsorted(uniq_g, gids)]
 
@@ -3504,6 +3926,45 @@ def _apply_changes_turbo_inner(handles, per_doc_changes, ps, parsed=None):
     _v = kept_vals_all[keep_root]
     _idx_sel = ((_f == 1) & (_v != TOMBSTONE)) | (_f == 2)
     fleet._index_ops(slots[_idx_sel], key[_idx_sel], packed[_idx_sel])
+
+    if fleet.exact_device:
+        from .registers import (apply_register_batch_donated,
+                                rows_to_register_batch)
+        if n_kept_root:
+            # Slice the kept rows' pred segments and remap their actor bits
+            pred_counts = np.diff(rows['pred_off'])
+            entry_keep = np.repeat(keep_root, pred_counts)
+            preds_kept = rows['pred'][entry_keep]
+            pred_actor = actor_map[preds_kept & (_MA - 1)]
+            bad_pred = (preds_kept != 0) & (pred_actor < 0)
+            preds_kept = np.where(
+                preds_kept != 0,
+                (preds_kept >> 8 << 8) | pred_actor,
+                0).astype(np.int32)
+            preds_kept[bad_pred] = 0   # unknown-actor preds never reach device
+            off_kept = np.zeros(n_kept_root + 1, dtype=np.int64)
+            np.cumsum(pred_counts[keep_root], out=off_kept[1:])
+            # Rows whose preds named an unregistered actor go inexact (host
+            # replay re-validates them) rather than killing actor 0's slot
+            bad_rows = np.zeros(n_kept_root, dtype=bool)
+            if bad_pred.any():
+                row_of_entry = np.repeat(np.arange(n_kept_root),
+                                         pred_counts[keep_root])
+                bad_rows[row_of_entry[bad_pred]] = True
+            fleet._ensure_reg_capacity(n_docs=fleet.n_slots,
+                                       n_keys=len(fleet.keys))
+            n_cap = fleet.reg_state.reg.shape[0]
+            reg_batch = rows_to_register_batch(
+                slots.astype(np.int64), kept_flags_all[keep_root], key,
+                packed, kept_vals_all[keep_root], off_kept, preds_kept,
+                n_docs=n_cap, d_preds=fleet.d_preds,
+                force_overflow=bad_rows)
+            ps.mark('turbo_dispatch')
+            apply_register_batch_donated(fleet.reg_state,
+                                         reg_batch.to(fleet.device))
+            fleet.metrics.dispatches += 1
+        fleet.metrics.device_ops += int(keep.sum())
+        return result
 
     if n_kept_root:
         n_slots = fleet.n_slots
@@ -3741,11 +4202,20 @@ def materialize_docs(handles):
             fleet = state.fleet
             if id(fleet) not in by_fleet:
                 by_fleet[id(fleet)] = fleet.materialize_all()
+    inexact_by_fleet = {}
     out = []
     for handle in handles:
         state = handle['state']
         if isinstance(state, FleetDoc) and state.is_fleet:
             fleet = state.fleet
+            if fleet.exact_device:
+                if id(fleet) not in inexact_by_fleet:
+                    inexact_by_fleet[id(fleet)] = fleet.inexact_slots()
+                if state._impl.slot in inexact_by_fleet[id(fleet)]:
+                    # History fell outside the register engine's exact
+                    # shape: the host mirror is authoritative
+                    out.append(state.materialize())
+                    continue
             if state._impl.slot in fleet.grid_overflow or \
                     state._impl.slot in fleet.del_fallback:
                 # Counter spread exceeded the packing window, or the

@@ -430,8 +430,147 @@ def intern_composite_keys(obj, key_nat, nat_keys, nat_actors, key_interner):
 
 def changes_to_op_rows(per_doc_changes, key_interner, actor_interner,
                        value_table=None):
-    """Flat op rows with per-op pred lists for the exact register engine:
-    the exact-device slice of the port (ROADMAP.md Queue 1)."""
-    raise NotImplementedError(
-        'exact-device mode (fleet/registers.py) is not ported to '
-        'automerge_tpu_torch yet (ROADMAP.md Queue 1)')
+    """Flat op rows with per-op pred lists, for the exact register engine
+    (fleet/registers.py): returns a dict of parallel arrays
+    {doc, key, packed, value, flags, pred_off, pred} in application order
+    (doc-major, op order preserved), with keys/actors interned into the
+    fleet tables and preds packed with fleet actor numbers.
+
+    Native C++ path when every value is an inline int; Python decode
+    otherwise (interning non-int values into value_table). flags: 1 =
+    set/del (dels carry value TOMBSTONE), 2 = inc. Only flat root-map ops
+    are supported; raises ValueError otherwise."""
+    buffers, docs = [], []
+    for d, changes in enumerate(per_doc_changes):
+        for change in changes:
+            buffers.append(bytes(change))
+            docs.append(d)
+
+    if native.available() and buffers:
+        # with_seq=True so the wire value-type tag rides along: uint /
+        # counter / timestamp set values box into the value table as
+        # TypedValue, letting device-served patches keep exact datatypes
+        out = native.ingest_changes(buffers, list(range(len(buffers))),
+                                    with_meta=True, with_seq=True)
+        if out is not None and out[0]['flags'].size and \
+                out[0]['flags'].max() > 2:
+            out = None    # sequence/make rows: not register material
+        if out is not None:
+            rows, nat_keys, nat_actors, _meta = out
+            # root keys intern bare; nested map cells (rows['obj'] != 0)
+            # intern composite (objectId, key) like the Python decode path
+            key_ids = intern_composite_keys(rows['obj'], rows['key'],
+                                            nat_keys, nat_actors,
+                                            key_interner)
+            actor_map = np.array([actor_interner.intern(a)
+                                  for a in nat_actors], dtype=np.int32) \
+                if nat_actors else np.zeros(1, np.int32)
+
+            def remap(p):
+                return np.where(
+                    p != 0, (p >> 8 << 8) | actor_map[p & 0xff], 0
+                ).astype(np.int32)
+
+            values = rows['value'].astype(np.int32, copy=True)
+            if value_table is not None and 'vtype' in rows:
+                from ..columnar import decode_value
+                from .registers import TypedValue, typed_wire_tags
+                tags = typed_wire_tags()
+                # values == TOMBSTONE (-1) identifies del rows: the native
+                # parser boxes negative set values via the arena, so -1 on
+                # a flags==1 row can only be a del
+                typed = (rows['flags'] == 1) & (values != TOMBSTONE) & \
+                    (rows['vlen'] == 0) & np.isin(rows['vtype'], list(tags))
+                for ri in np.flatnonzero(typed):
+                    values[ri] = -(value_table.intern(TypedValue(
+                        int(rows['value'][ri]),
+                        tags[int(rows['vtype'][ri])])) + 2)
+                # arena-boxed payloads (strings/bools/None/floats/bytes,
+                # out-of-lane ints): decode the raw wire bytes and box by
+                # the shared datatype rule
+                vlen = rows['vlen']
+                off = np.cumsum(vlen, dtype=np.int64) - vlen
+                # dels (value TOMBSTONE, vtype 0) are NOT boxed nulls
+                boxed_sel = (rows['flags'] == 1) & (values != TOMBSTONE) & \
+                    ((vlen > 0) | np.isin(rows['vtype'], (0, 1, 2)))
+                blob = rows['vblob']
+                for ri in np.flatnonzero(boxed_sel):
+                    ln, vt = int(vlen[ri]), int(rows['vtype'][ri])
+                    decoded = decode_value((ln << 4) | vt,
+                                           blob[off[ri]:off[ri] + ln])
+                    dt = decoded.get('datatype')
+                    if isinstance(dt, str) and dt != 'int':
+                        box = TypedValue(decoded['value'], dt)
+                    else:
+                        box = decoded['value']
+                    values[ri] = -(value_table.intern(box) + 2)
+            return {
+                'doc': np.array(docs, dtype=np.int64)[rows['doc']],
+                'key': key_ids,
+                'packed': remap(rows['packed']),
+                'value': values,
+                'flags': rows['flags'],
+                'pred_off': rows['pred_off'],
+                'pred': remap(rows['pred']),
+            }
+
+    # Python fallback: full decode, arbitrary values via the value table
+    from ..columnar import decode_change
+    from ..common import parse_op_id
+    out_doc, out_key, out_packed, out_val, out_flags = [], [], [], [], []
+    pred_off, preds = [0], []
+
+    def pack(op_id):
+        ctr, actor = parse_op_id(op_id)
+        return pack_op_id(ctr, actor_interner.intern(actor))
+
+    for buf, d in zip(buffers, docs):
+        change = decode_change(buf)
+        for i, op in enumerate(change['ops']):
+            if op['obj'] != '_root' or op.get('insert') or \
+                    op.get('key') is None or \
+                    op['action'] not in ('set', 'del', 'inc'):
+                raise ValueError('register ingest supports flat root-map '
+                                 'set/del/inc ops only')
+            op_id = f"{change['startOp'] + i}@{change['actor']}"
+            action = op['action']
+            value = op.get('value')
+            datatype = op.get('datatype')
+            if action == 'del':
+                val_idx = TOMBSTONE
+            elif action == 'inc':
+                if not isinstance(value, int) or isinstance(value, bool) or \
+                        not -(1 << 31) < value < (1 << 31):
+                    raise ValueError('inc delta must be an int32')
+                val_idx = value
+            elif datatype not in (None, 'int') and value_table is not None:
+                # uint/counter/timestamp/float64 set values box with their
+                # datatype so device-served patches stay exact
+                from .registers import TypedValue
+                val_idx = -(value_table.intern(
+                    TypedValue(value, datatype)) + 2)
+            elif isinstance(value, int) and not isinstance(value, bool) and \
+                    0 <= value < (1 << 31):
+                val_idx = value
+            elif value_table is not None:
+                val_idx = -(value_table.intern(value) + 2)
+            else:
+                raise ValueError('non-int value requires a value_table')
+            out_doc.append(d)
+            out_key.append(key_interner.intern(op['key']))
+            out_packed.append(pack(op_id))
+            out_val.append(val_idx)
+            out_flags.append(2 if action == 'inc' else 1)
+            for p in op.get('pred', []):
+                preds.append(pack(p))
+            pred_off.append(len(preds))
+
+    return {
+        'doc': np.array(out_doc, dtype=np.int64),
+        'key': np.array(out_key, dtype=np.int32),
+        'packed': np.array(out_packed, dtype=np.int32),
+        'value': np.array(out_val, dtype=np.int32),
+        'flags': np.array(out_flags, dtype=np.uint8),
+        'pred_off': np.array(pred_off, dtype=np.int64),
+        'pred': np.array(preds, dtype=np.int32),
+    }

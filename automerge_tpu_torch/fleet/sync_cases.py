@@ -57,11 +57,16 @@ def _tensors(words, spaces, valid, device):
 INDEX_CASES = ('collide', 'wrap', 'dups', 'load', 'spaces')
 
 
-def index_case(name, rng, device):
+INDEX_CAPS = {'collide': 1024, 'wrap': 1024, 'dups': 4096, 'load': 1 << 16,
+              'spaces': 1 << 14}
+
+
+def index_case(name, rng, device, cap=None):
     """dict(tkey, tspace, keys, spaces, valid, occupied): a starting
-    table (`occupied` slots in use) and a batch to insert into it."""
-    cap = {'collide': 1024, 'wrap': 1024, 'dups': 4096, 'load': 1 << 16,
-           'spaces': 1 << 14}[name]
+    table (`occupied` slots in use) and a batch to insert into it. The
+    table has INDEX_CAPS[name] slots unless `cap` (a power of two) says
+    otherwise."""
+    cap = cap or INDEX_CAPS[name]
     tkey, tspace = empty_table(cap, device)
     occupied = 0
     if name in ('collide', 'wrap'):

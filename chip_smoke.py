@@ -5,9 +5,10 @@
 
 Phases (any failure exits non-zero):
 
-1. build: the native codec (g++) and the three CUDA sources (nvcc,
-   sm_90a: the LWW merge, the Bloom pair, the hash-index pair) are
-   compiled from this checkout's sources, all at once;
+1. build: the native codec (g++) and the four CUDA sources (nvcc,
+   sm_90a: the LWW merge, the register scan, the Bloom pair, the
+   hash-index pair) are compiled from this checkout's sources, all at
+   once;
 2. kernel vs plain: seeded inputs go through each CUDA kernel and its
    plain torch version on the card and must agree exactly. The merge:
    int32 equality on the real key columns and the valid-lane count,
@@ -23,7 +24,10 @@ Phases (any failure exits non-zero):
    wrapping at cap - 1, in-batch duplicates, the 0.6 load bound and many
    spaces (equal membership and new-key counts: the insert's slot layout
    may differ where rows race); the Bloom build and probe over skewed
-   filter sizes (equal bytes and answers);
+   filter sizes (equal bytes and answers); the register scan on every
+   corner of fleet/register_cases.py at P = 0, 1 and 20 (8 actor slots)
+   and at 256 actor slots, and at P = 3000 (all five arrays and the lane
+   count equal);
 3. main paths, each with every launch count set to 0 just before it and
    read just after:
    - seam: the fleet backend seam at full size (10,000 docs x 1,000 keys
@@ -37,6 +41,18 @@ Phases (any failure exits non-zero):
      must equal four sequential apply_changes_docs calls over the same
      splits (and whose save() equals the one-call seam's), one dispatch
      per sub-batch; changes/s beside apply_changes_docs's, in turns;
+   - exact seam: DocFleet(exact_device=True, device='cuda') at the same
+     width (10,000 docs, key capacity 1,001, register state [10000,
+     1024, 8]): init_docs, then three batches through
+     apply_changes_docs(mirror=False) (register_cases.exact_seam_changes:
+     a 20-change chain whose sets pred their key's standing op;
+     concurrent changes by two new actors, one sorting first, that
+     renumber every lane, resurrect a deleted key, conflict and set a
+     counter; an inc), one register dispatch per batch; every doc's
+     materialize_docs and conflicts_all equal the host OpSet's, 4 sampled
+     docs' device-served get_patch() equal the host's patch, save()
+     round-trips, nothing inexact; changes/s of its first batch beside
+     the LWW seam's, in turns;
    - sync: a hub of 4 docs (chains of depth 8) serving 100,000 peer
      links (bench.py's fabric sweep, top leg) with its frontier index at
      2^21 slots: a cold round, a round that lands the staged sent sets,
@@ -60,7 +76,10 @@ Phases (any failure exits non-zero):
    beside its plain version and its bound; then each sync kernel on the
    largest inputs the sync path handed it (recorded during the path),
    held to its plain version there, timed beside its plain version and
-   its bound; traced breakdowns of the seam, the pipelined seam and one
+   its bound; the register scan on the largest batch the exact seam
+   handed it (held to its plain version there; L2 warm and flushed,
+   each launch on the touched rows restored off the clock); traced
+   breakdowns of the seam, the pipelined seam, the exact seam and one
    steady sync round; the grid bytes, and the card's name and power
    limit.
 
@@ -76,6 +95,7 @@ and prints no result.
 """
 
 import argparse
+import gc
 import json
 import os
 import statistics
@@ -117,7 +137,8 @@ def card_line():
 
 def build_all(baseline=None):
     from automerge_tpu_torch import native
-    from automerge_tpu_torch.fleet import merge_kernel, sync_kernels
+    from automerge_tpu_torch.fleet import (merge_kernel, register_kernel,
+                                           sync_kernels)
     times, errors = {}, []
 
     def run(name, fn):
@@ -132,6 +153,7 @@ def build_all(baseline=None):
 
     jobs = [('native_codec', native.available),
             ('lww_merge', lambda: merge_kernel.build() is not None),
+            ('registers', lambda: register_kernel.build() is not None),
             ('bloom', lambda: sync_kernels.build_bloom() is not None),
             ('hashindex', lambda: sync_kernels.build_hashindex() is not None)]
     if baseline is not None:
@@ -325,6 +347,32 @@ def sync_kernel_vs_plain():
             f'({got["filters"]} filters, {got["bytes"]} B)')
 
 
+def register_kernel_vs_plain():
+    """The register scan against its plain version on every corner of
+    fleet/register_cases.py: at P = 0, 1 and 20 lanes (8 actor slots, 4
+    pred lanes), at 256 actor slots, and at P = 3000 (the plain version
+    on the CPU there: its Python loop would make ~200,000 launches).
+    Returns the largest difference seen (0, or the script fails)."""
+    import numpy as np
+    from automerge_tpu_torch.fleet import register_cases as rc
+    max_err = 0
+    for i, name in enumerate(rc.CASES):
+        rng = np.random.default_rng(80 + i)
+        for n, keys, slots, lanes, plain in (
+                (300, 40, 8, 0, None), (300, 40, 8, 1, None),
+                (300, 40, 8, 20, None), (48, 9, 256, 20, None),
+                (40, 40, 8, 3000, 'cpu')):
+            state, batch = rc.case(name, rng, n, keys, slots, lanes, 4)
+            got = rc.both(state, batch, DEVICE, plain)
+            max_err = max(max_err, got['max_abs_err'])
+            if got['differ'] or got['max_abs_err']:
+                fail(f'register_scan != plain on {name} at P = {lanes}, '
+                     f'A = {slots}: {got}')
+        log(f'kernel == plain: register_scan, {name} (P = 0, 1, 20 and '
+            f'3000 at 8 slots; P = 20 at 256 slots)')
+    return max_err
+
+
 # ---- phase 3 ---------------------------------------------------------------
 
 def seam_workload(seed=0):
@@ -441,7 +489,8 @@ def main_path():
 def traced(run):
     """`run()` once with the host-phase spans on and torch.profiler
     tracing CPU + CUDA. Returns the wall seconds, the seconds per span
-    name (summed; `@main` names the main thread's share), and the
+    name (summed; `@main` names the main thread's share; `python_gc` the
+    seconds the interpreter's garbage collector paused the run), and the
     device-side rows (kernels, copies) as (ms, name, count), longest
     first. The traced run is slower than an untraced one; read the
     shares."""
@@ -453,14 +502,23 @@ def traced(run):
     spans.clear()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    pauses = [0.0, 0.0]        # [seconds paused, start of the current pause]
+
+    def on_gc(phase, _info):
+        if phase == 'start':
+            pauses[1] = time.perf_counter()
+        else:
+            pauses[0] += time.perf_counter() - pauses[1]
     with torch.profiler.profile(activities=acts) as prof:
+        gc.callbacks.append(on_gc)
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        gc.callbacks.remove(on_gc)
     observability.disable()
     main_tid = _threading.get_ident()
-    phases = {}
+    phases = {'python_gc': pauses[0]}
     for rec in spans.iter_spans():
         for name in (rec['name'], rec['name'] + '@main') \
                 if rec['tid'] == main_tid else (rec['name'],):
@@ -497,7 +555,7 @@ def breakdown(per_doc, mode='plain'):
     wall, phases, rows = traced(lambda: run_seam(per_doc, split, mode))
     order = ('turbo_setup', 'turbo_parse', 'turbo_parse@main',
              'native_parse', 'turbo_gate', 'turbo_commit', 'turbo_stage',
-             'turbo_dispatch', 'dispatch_grid')
+             'turbo_dispatch', 'dispatch_grid', 'python_gc')
     log(f'breakdown, {mode} seam (traced run, wall {wall * 1e3:.1f} ms): '
         f'init_docs {split["init_s"] * 1e3:.1f} ms, apply '
         f'{split["apply_s"] * 1e3:.1f} ms; ' +
@@ -543,6 +601,156 @@ def pipelined_path(per_doc, seam_handles):
     for mode, reps in rates.items():
         log(f'{mode} seam changes/s (median of {len(reps)}, in turns): '
             f'{statistics.median(reps):.1f}  reps {[round(r) for r in reps]}')
+
+
+# ---- the exact seam ---------------------------------------------------------
+
+class RegisterRecorder:
+    """While on, keeps a copy of the largest batch the fleet hands the
+    register scan (by live lanes) and of the state before that call, so
+    phase 4 can hold and time the kernel on the main path's own input.
+    The wrapper still counts its launches as before."""
+
+    def __init__(self):
+        self.saved = None
+
+    def __enter__(self):
+        from automerge_tpu_torch.fleet import registers
+        self._real = registers.register_scan
+
+        def call(state, ops):
+            live = int((ops.kind != 0).sum())
+            if self.saved is None or live >= self.saved[0]:
+                self.saved = (live, registers.RegisterState(
+                    *(t.clone() for t in state.tensors())),
+                    registers.RegisterOpBatch(*ops.columns()))
+            return self._real(state, ops)
+        registers.register_scan = call
+        return self
+
+    def __exit__(self, *exc):
+        from automerge_tpu_torch.fleet import registers
+        registers.register_scan = self._real
+
+
+def run_exact_seam(batches, split=None):
+    """One exact seam run on a fresh fleet: DocFleet(exact_device=True),
+    init_docs, then one apply_changes_docs(mirror=False) call per batch
+    (every doc gets the same bytes). `split` (a dict) receives the
+    seconds of fleet + init_docs and of the first batch up to its sync.
+    Returns the fleet, the handles and the dispatches of each batch."""
+    import torch
+    from automerge_tpu_torch.fleet.backend import (
+        DocFleet, apply_changes_docs, init_docs)
+    t0 = time.perf_counter()
+    fleet = DocFleet(doc_capacity=N_DOCS, key_capacity=N_KEYS + 1,
+                     exact_device=True, device=DEVICE)
+    handles = init_docs(N_DOCS, fleet)
+    t1 = time.perf_counter()
+    dispatches = []
+    for i, batch in enumerate(batches):
+        d0 = fleet.metrics.dispatches
+        handles, _ = apply_changes_docs(
+            handles, [list(batch) for _ in range(N_DOCS)], mirror=False)
+        dispatches.append(fleet.metrics.dispatches - d0)
+        if i == 0:
+            torch.cuda.synchronize()
+            if split is not None:
+                split['init_s'] = t1 - t0
+                split['apply_s'] = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    return fleet, handles, dispatches
+
+
+def exact_path(per_doc):
+    """The exact seam at full width (see the module docstring). Returns
+    its launches and the register scan's recorded input."""
+    from automerge_tpu_torch import backend as host
+    from automerge_tpu_torch.columnar import (decode_change_meta,
+                                              decode_document)
+    from automerge_tpu_torch.fleet import register_cases, register_kernel
+    from automerge_tpu_torch.fleet.backend import (_leaf_value, get_patch,
+                                                   materialize_docs)
+    batches = register_cases.exact_seam_changes(N_CHANGES, N_KEYS)
+    register_kernel.reset_launches()
+    with RegisterRecorder() as rec:
+        fleet, handles, dispatches = run_exact_seam(batches)
+    launches = dict(register_kernel.LAUNCHES)
+    if dispatches != [1, 1, 1]:
+        fail(f'exact seam: {dispatches} register dispatches per batch '
+             f'(want 1 each)')
+    if launches['register_scan'] < 1:
+        fail('the exact seam never launched register_scan')
+    rs = fleet.reg_state
+    shape = tuple(rs.reg.shape)
+    # _ensure_reg_capacity: docs at capacity, keys pow2(1,001), 8 slots
+    want_shape = (N_DOCS, 1024, 8)
+    want_bytes = N_DOCS * 1024 * 8 * (4 + 1 + 4 + 4) + N_DOCS
+    if rs.reg.device.type != DEVICE or shape != want_shape or \
+            rs.nbytes() != want_bytes:
+        fail(f'exact seam: register state {shape} on {rs.reg.device}, '
+             f'{rs.nbytes()} B (want {want_shape} on {DEVICE}, '
+             f'{want_bytes} B)')
+    hb = host.init()
+    for batch in batches:
+        hb, _ = host.apply_changes(hb, batch)
+    want_patch = host.get_patch(hb)
+    want = _leaf_value(want_patch['diffs'])
+    want_conflicts = {key: {op_id: leaf['value'] for op_id, leaf in
+                            cands.items()}
+                      for key, cands in want_patch['diffs']['props'].items()
+                      if len(cands) > 1}
+    docs = materialize_docs(handles)
+    if any(doc != want for doc in docs):
+        bad = next(i for i, doc in enumerate(docs) if doc != want)
+        fail(f'exact seam: doc {bad} != the host OpSet: {docs[bad]} vs '
+             f'{want}')
+    conflicts = fleet.conflicts_all()
+    named = [{key: {_op_name(fleet, p): v for p, v in c.items()}
+              for key, c in doc.items()} for doc in conflicts]
+    if len(named) != N_DOCS or any(c != want_conflicts for c in named):
+        fail(f'exact seam: conflicts_all != the host OpSet\'s '
+             f'({named[0]} vs {want_conflicts})')
+    hashes = sorted(decode_change_meta(b, True)['hash']
+                    for batch in batches for b in batch)
+    for d in (0, 1, N_DOCS // 2, N_DOCS - 1):
+        if get_patch(handles[d]) != want_patch:
+            fail(f'exact seam: doc {d} get_patch() != the host patch')
+        saved = bytes(handles[d]['state'].save())
+        if sorted(ch['hash'] for ch in decode_document(saved)) != hashes \
+                or saved != bytes(host.save(hb)):
+            fail(f'exact seam: doc {d} save() does not round-trip')
+    if fleet.inexact_slots():
+        fail(f'exact seam: inexact slots {sorted(fleet.inexact_slots())}')
+    log(f'exact seam: {N_DOCS} docs, 3 batches ({N_CHANGES} + 2 + 1 '
+        f'changes per doc), register dispatches {dispatches}, '
+        f'register_scan launches {launches["register_scan"]}, register '
+        f'state {shape} on {rs.reg.device} = {rs.nbytes()} B; all '
+        f'{N_DOCS} docs\' materialize_docs and conflicts_all == host '
+        f'OpSet (conflicts on {sorted(want_conflicts)}), 4 sampled '
+        f'get_patch() == host patch, save() round-trips and == host '
+        f'save(), no inexact slot')
+    del fleet, handles, rs
+    rates = {'exact': [], 'lww': []}
+    for mode in ('exact', 'lww', 'lww', 'exact') * 2 + ('exact', 'lww'):
+        gc.collect()        # the last run's fleet returns its memory first
+        t0 = time.perf_counter()
+        if mode == 'exact':
+            run_exact_seam(batches[:1])
+        else:
+            run_seam(per_doc)
+        rates[mode].append(N_DOCS * N_CHANGES / (time.perf_counter() - t0))
+    for mode, reps in rates.items():
+        log(f'{mode} seam changes/s (first batch, median of {len(reps)}, '
+            f'in turns): {statistics.median(reps):.1f}  reps '
+            f'{[round(r) for r in reps]}')
+    return launches, rec.saved, batches
+
+
+def _op_name(fleet, packed):
+    from automerge_tpu_torch.fleet.tensor_doc import unpack_op_id
+    ctr, num = unpack_op_id(int(packed))
+    return f'{ctr}@{fleet.actors.actors[num]}'
 
 
 # ---- the sync plane's main path --------------------------------------------
@@ -783,7 +991,7 @@ def sync_breakdown(sync):
     wall, phases, rows = traced(
         lambda: host.runcall(generate_sync_messages_docs, links, states))
     order = ('sync_generate', 'bloom_build', 'bloom_build_wait',
-             'bloom_probe', 'bloom_probe_wait', 'sync_encode')
+             'bloom_probe', 'bloom_probe_wait', 'sync_encode', 'python_gc')
     log(f'breakdown, steady sync round (traced and profiled, wall '
         f'{wall * 1e3:.1f} ms): ' +
         ', '.join(f'{name} {phases.get(name, 0) * 1e3:.1f} ms'
@@ -1145,6 +1353,112 @@ def sync_kernel_numbers(inputs):
     return out
 
 
+def register_numbers(saved):
+    """The register scan on the largest batch the exact seam handed it
+    (recorded with the state before the call): held to its plain version
+    there, then timed (device ms; launches queued behind a sleep, each
+    on the touched rows restored from the recorded state first, off the
+    clock: L2 warm, and with the L2 flushed after the restore) beside
+    its plain version (host-issued) and its bound. The bound counts what
+    this batch needs: every lane's kind and overflow flag; each live
+    lane's key, packed id, value and D preds; reg and killed (5 B) read
+    from every distinct cell a live op reads (its own actor slot and its
+    non-zero preds' slots); the four arrays (13 B) written at every
+    distinct cell a set writes; the inexact flags read and written once.
+    Operations: ~(10 + 6 D) integer operations per live lane. No single
+    PyTorch call computes the scan (library_ms null)."""
+    import torch
+    from automerge_tpu_torch.fleet import register_kernel as rk
+    from automerge_tpu_torch.fleet.registers import RegisterState
+    _live, state0, ops = saved
+    n, k1, a = state0.reg.shape
+    p, d = ops.preds.shape[1:]
+    got = RegisterState(*(t.clone() for t in state0.tensors()))
+    want = RegisterState(*(t.clone() for t in state0.tensors()))
+    err = abs(int(rk.register_scan(got, ops)) -
+              int(rk.register_scan_plain(want, ops)))
+    for x, y in zip(got.tensors(), want.tensors()):
+        err = max(err, int((x.long() - y.long()).abs().max()))
+    del want
+    live = ops.kind != 0
+    doc = torch.arange(n, device=ops.kind.device).view(-1, 1).expand(n, p)
+    row = (doc * k1 + ops.key_id.long())[live]
+    rows = torch.unique(row)
+    snaps = [t.view(-1, a)[rows].clone() for t in state0.tensors()[:4]]
+
+    def restore():
+        for t, snap in zip(got.tensors()[:4], snaps):
+            t.view(-1, a)[rows] = snap
+        got.inexact.copy_(state0.inexact)
+
+    def queued(fn, reps=20, flush=None):
+        restore()
+        fn()
+        torch.cuda.synchronize()
+        pairs = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+        torch.cuda._sleep(SLEEP_CYCLES)
+        for start, end in pairs:
+            restore()
+            if flush is not None:
+                flush.fill_(1)
+            start.record()
+            fn()
+            end.record()
+        torch.cuda.synchronize()
+        return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32,
+                        device=ops.kind.device)
+    nums = dict(
+        shape=f'[{n}, {k1}, {a}] state, {p} lanes x {d} preds per doc '
+              f'({int(live.sum())} live)',
+        max_abs_err=err,
+        ms=queued(lambda: rk.register_scan(got, ops)),
+        cold_ms=queued(lambda: rk.register_scan(got, ops), flush=flush),
+        plain_ms=time_restored(lambda: rk.register_scan_plain(got, ops),
+                               restore, reps=3))
+    del flush
+    slot = (ops.packed & 255).long()
+    own = (row * a + slot[live])[slot[live] < a]
+    pred_slot = (ops.preds & 255).long()
+    pred_live = live.unsqueeze(-1) & (ops.preds != 0) & (pred_slot < a)
+    pred_cells = ((doc * k1 + ops.key_id.long()).unsqueeze(-1) * a +
+                  pred_slot)[pred_live]
+    read_cells = int(torch.unique(torch.cat([own, pred_cells])).numel())
+    sets = live & (ops.kind == 1) & (slot < a)
+    set_cells = int(torch.unique(((doc * k1 + ops.key_id.long()) * a +
+                                  slot)[sets]).numel())
+    n_live = int(live.sum())
+    n_bytes = (n * p * 5 + n_live * (12 + 4 * d) + read_cells * 5 +
+               set_cells * 13 + n * 2)
+    nums.update(bound_of(n_bytes, n_live * (10 + 6 * d)))
+    log(f'register_scan at the exact seam\'s batch, {nums["shape"]}: ' +
+        ', '.join(f'{key} {val:.4f}' if isinstance(val, float) else
+                  f'{key} {val}' for key, val in nums.items()
+                  if key != 'shape'))
+    if nums['max_abs_err']:
+        fail(f'register_scan != plain at the exact seam\'s batch (max abs '
+             f'err {nums["max_abs_err"]})')
+    return nums
+
+
+def exact_breakdown(batches):
+    """One traced exact seam run (its first batch, as the timed reps):
+    seconds per seam phase, and the device's busy time against the run's
+    wall time."""
+    split = {}
+    wall, phases, rows = traced(lambda: run_exact_seam(batches[:1], split))
+    order = ('turbo_setup', 'turbo_parse', 'turbo_gate', 'turbo_commit',
+             'turbo_stage', 'turbo_dispatch', 'python_gc')
+    log(f'breakdown, exact seam (traced run, first batch, wall '
+        f'{wall * 1e3:.1f} ms): init_docs {split["init_s"] * 1e3:.1f} ms, '
+        f'apply {split["apply_s"] * 1e3:.1f} ms; ' +
+        ', '.join(f'{name} {phases.get(name, 0) * 1e3:.1f} ms'
+                  for name in order))
+    device_line(wall, rows)
+
+
 def load_baseline(path):
     """The merge wrapper of another checkout of this repository (e.g. the
     parent commit, unpacked with `git archive`). Its package is loaded
@@ -1188,14 +1502,19 @@ def main():
     build_all(baseline)
     max_err = kernel_vs_plain()
     sync_kernel_vs_plain()
+    reg_err = register_kernel_vs_plain()
     launches, grid_bytes, grid_shape, per_doc, seam_handles = main_path()
     pipelined_path(per_doc, seam_handles)
     del seam_handles
+    reg_launches, reg_input, exact_batches = exact_path(per_doc)
     sync = sync_path()
     nums = kernel_numbers(grid_shape, baseline)
     sync_nums = sync_kernel_numbers(sync.pop('inputs'))
+    reg_nums = register_numbers(reg_input)
+    del reg_input
     breakdown(per_doc)
     breakdown(per_doc, 'pipelined')
+    exact_breakdown(exact_batches)
     sync_breakdown(sync)
     log(f'grid bytes: {grid_bytes}')
     log(f'wall: {time.perf_counter() - t_start:.1f} s')
@@ -1220,6 +1539,15 @@ def main():
             'ms': k['ms'], 'plain_ms': k['plain_ms'],
             'bound_ms': k['bound_ms'], 'bound_by': k['bound_by'],
             'library_ms': None})
+    kernels.append({
+        'name': 'register_scan', 'route': 'cuda',
+        'source': 'automerge_tpu_torch/fleet/csrc/registers.cu',
+        'replaces': 'automerge_tpu/fleet/registers.py:207',
+        'launches': reg_launches['register_scan'],
+        'max_abs_err': max(reg_err, reg_nums['max_abs_err']),
+        'ms': reg_nums['ms'], 'plain_ms': reg_nums['plain_ms'],
+        'bound_ms': reg_nums['bound_ms'], 'bound_by': reg_nums['bound_by'],
+        'library_ms': None})
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -5,12 +5,13 @@ also runs on a machine without jax:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
 Each hand-written kernel is held against its plain torch version on the
-same inputs, and the seam, the pipelined seam and a sync round on the
-card against the same on the CPU. Tolerance: none (exact int32 equality
-on the merge's real key columns [:, :K], whose column K is the scratch
-column and holds garbage by contract; equal Bloom bytes and probe
-answers; equal hash-index membership and new-key counts, since the
-insert kernel's slot layout may differ where rows race for a slot)."""
+same inputs, and the seam, the pipelined seam, a sync round and an
+exact-device seam on the card against the same on the CPU. Tolerance:
+none (exact int32 equality on the merge's real key columns [:, :K],
+whose column K is the scratch column and holds garbage by contract;
+equal Bloom bytes and probe answers; equal hash-index membership and
+new-key counts, since the insert kernel's slot layout may differ where
+rows race for a slot; equal register arrays, all five)."""
 
 import numpy as np
 import pytest
@@ -20,6 +21,7 @@ from automerge_tpu_torch.columnar import decode_change_meta, encode_change
 from automerge_tpu_torch.backend import init_sync_state
 from automerge_tpu_torch.fleet import apply
 from automerge_tpu_torch.fleet import backend, merge_kernel
+from automerge_tpu_torch.fleet import register_cases, register_kernel
 from automerge_tpu_torch.fleet import sync_cases, sync_driver, sync_kernels
 from automerge_tpu_torch.fleet.merge_cases import (CORNERS, clone,
                                                    corner_cols, launch_along,
@@ -367,3 +369,66 @@ def test_pipelined_seam_on_the_card_matches_the_cpu(cuda):
                         fleet.state)
     assert results['cuda'][:2] == results['cpu'][:2]
     assert_grids_equal(results['cpu'][2], results['cuda'][2], 30)
+
+
+# ---- the register scan ------------------------------------------------------
+
+@pytest.mark.parametrize('lanes', [0, 1, 20, 3000])
+@pytest.mark.parametrize('name', register_cases.CASES)
+def test_register_scan_matches_plain_version(cuda, name, lanes):
+    """Every corner of fleet/register_cases.py at P = 0, 1, 20 and 3,000
+    op lanes per doc (8 actor slots, 4 pred lanes). At P = 3,000 the
+    plain version runs on the CPU: its Python loop would issue ~200,000
+    small launches on the card."""
+    rng = np.random.default_rng(61 + register_cases.CASES.index(name))
+    n_docs = 40 if lanes == 3000 else 300
+    state, batch = register_cases.case(name, rng, n_docs, 40, 8, lanes, 4)
+    before = register_kernel.LAUNCHES['register_scan']
+    got = register_cases.both(state, batch, cuda,
+                              'cpu' if lanes == 3000 else None)
+    assert got['differ'] == [] and got['max_abs_err'] == 0, got
+    assert register_kernel.LAUNCHES['register_scan'] == \
+        before + (1 if lanes else 0)
+
+
+@pytest.mark.parametrize('name', register_cases.CASES)
+def test_register_scan_at_256_actor_slots(cuda, name):
+    rng = np.random.default_rng(71 + register_cases.CASES.index(name))
+    state, batch = register_cases.case(name, rng, 48, 9, 256, 20, 4)
+    got = register_cases.both(state, batch, cuda)
+    assert got['differ'] == [] and got['max_abs_err'] == 0, got
+
+
+def test_exact_seam_on_the_card_matches_the_cpu(cuda):
+    """register_cases.exact_seam_changes' three batches (a chain whose
+    sets pred their key's standing op; concurrent changes that renumber
+    every actor lane, resurrect a deleted key, conflict and set a
+    counter; an inc) through DocFleet(exact_device=True) on each
+    device."""
+    from automerge_tpu_torch.fleet.registers import register_state_to_numpy
+    batches = register_cases.exact_seam_changes(12, 30, seed=7)
+    n_docs = 24
+    results = {}
+    for dev in ('cpu', 'cuda'):
+        fleet = backend.DocFleet(doc_capacity=n_docs, key_capacity=31,
+                                 exact_device=True, device=dev)
+        handles = backend.init_docs(n_docs, fleet)
+        before = register_kernel.LAUNCHES['register_scan']
+        for batch in batches:
+            d0 = fleet.metrics.dispatches
+            handles, _ = backend.apply_changes_docs(
+                handles, [list(batch) for _ in range(n_docs)], mirror=False)
+            assert fleet.metrics.dispatches == d0 + 1
+        launched = register_kernel.LAUNCHES['register_scan'] - before
+        assert launched == (3 if dev == 'cuda' else 0)
+        assert fleet.reg_state.reg.device.type == dev
+        results[dev] = (backend.materialize_docs(handles),
+                        fleet.conflicts_all(), fleet.inexact_slots(),
+                        [backend.get_patch(h) for h in handles[:4]],
+                        [bytes(h['state'].save()) for h in handles],
+                        register_state_to_numpy(fleet.reg_state))
+    cpu, gpu = results['cpu'], results['cuda']
+    assert gpu[:5] == cpu[:5]
+    assert gpu[1][0] and not gpu[2]         # a conflict, nothing inexact
+    for a, b in zip(cpu[5], gpu[5]):
+        np.testing.assert_array_equal(b, a)

@@ -334,7 +334,11 @@ def test_shared_kernel_cases_hold_on_the_cpu(name):
     colliding keys really share one start slot, the batch lands within
     the load bound, and every inserted key is then found."""
     from automerge_tpu_torch.fleet import sync_cases
-    case = sync_cases.index_case(name, np.random.default_rng(41), CPU)
+    # smaller tables than the card's (the plain claim loop walks a
+    # colliding chain one key per step); 'dups' has a fixed row count
+    cap = {'collide': 256, 'wrap': 256, 'load': 1 << 12,
+           'spaces': 1 << 12}.get(name)
+    case = sync_cases.index_case(name, np.random.default_rng(41), CPU, cap)
     cap = len(case['tspace'])
     if name in ('collide', 'wrap'):
         starts = sync_kernels.start_pos(case['keys'], case['spaces'], cap)

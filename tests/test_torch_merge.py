@@ -260,14 +260,13 @@ def test_counter_keep_reset_and_negative_incs():
     assert seen == [0, -4, -4, 2, 0, -7]
 
 
-def _pallas_case(variant, p=12):
+def _pallas_case(variant, p=12, kernel=pallas_apply_op_batch):
     rng = np.random.default_rng(5)
     n_docs, n_keys = 8, 17
     jstate, tstate = seeded_states(rng, n_docs, n_keys)
     cols = random_cols(rng, n_docs, n_keys, p, ctr0=4)
     jops, tops = both_ops(cols)
-    want, ws = pallas_apply_op_batch(jstate, jops, interpret=True,
-                                     variant=variant)
+    want, ws = kernel(jstate, jops, interpret=True, variant=variant)
     got, gs = torch_apply.apply_op_batch(tstate, tops)
     assert int(gs) == int(ws)
     assert_match(want, got, n_keys)
@@ -277,8 +276,17 @@ def test_matches_pallas_dense_interpret():
     _pallas_case('dense')
 
 
-def test_matches_pallas_loop_interpret():
-    _pallas_case('loop')
+def test_matches_pallas_loop_interpret(monkeypatch):
+    """The loop variant unrolls one step per lane of an op chunk, so its
+    compile grows with the chunk: with the chunk set to 8 lanes (the
+    PALLAS_OP_CHUNK knob of the JAX package, traced afresh under its own
+    jit) the 12 lanes span two chunks, and the carry between them runs."""
+    import jax
+    from automerge_tpu.fleet import pallas_merge
+    monkeypatch.setattr(pallas_merge, 'OP_CHUNK', 8)
+    kernel = jax.jit(pallas_merge._pallas_apply_op_batch_impl,
+                     static_argnames=('interpret', 'variant'))
+    _pallas_case('loop', kernel=kernel)
 
 
 def test_warp_route_shape_matches_pallas_interpret():

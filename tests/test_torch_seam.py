@@ -232,8 +232,17 @@ def test_text_documents_raise_not_implemented():
                                              mirror=mirror)
 
 
+def _exact_fleet_fed_text():
+    fleet = torch_backend.DocFleet(device='cpu', exact_device=True)
+    handles = torch_backend.init_docs(1, fleet)
+    torch_backend.apply_changes_docs(handles, [[encode_change({
+        'actor': A, 'seq': 1, 'startOp': 1, 'time': 0, 'message': '',
+        'deps': [], 'ops': [{'action': 'makeText', 'obj': '_root',
+                             'key': 't', 'pred': []}]})]], mirror=False)
+
+
 @pytest.mark.parametrize('call', [
-    lambda: torch_backend.DocFleet(device='cpu', exact_device=True),
+    _exact_fleet_fed_text,
     lambda: torch_backend.DocFleet(device='cpu', mesh=object()),
     lambda: torch_driver.generate_sync_messages_mixed(None, [], []),
     lambda: torch_backend.DocFleet(device='cpu').attach_journal(object()),

@@ -1,6 +1,7 @@
 """Differential tests of the port's batched sync plane
 (fleet/sync_driver.py over fleet/bloom.py and fleet/hashindex.py)
-against the JAX package's, in LWW mode, on the same change bytes.
+against the JAX package's, in LWW mode (and in exact-device mode for
+the fabric rounds), on the same change bytes.
 
 Every generated message must be byte-identical to the reference's, round
 after round: doc pairs syncing both ways until they converge (the
@@ -68,9 +69,9 @@ def _chain(actor, n, deps=(), key='k', start_op=1, start_seq=1):
     return bufs
 
 
-def _fleet_docs(pkg, rows, device_min=1):
+def _fleet_docs(pkg, rows, device_min=1, exact=False):
     fleet = pkg.fleet.DocFleet(doc_capacity=max(len(rows), 8),
-                               key_capacity=16, **pkg.kw)
+                               key_capacity=16, exact_device=exact, **pkg.kw)
     docs = pkg.fleet.init_docs(len(rows), fleet)
     docs, _ = pkg.fleet.apply_changes_docs(docs, rows, mirror=False)
     fleet.frontier_index(device_min=device_min)
@@ -216,14 +217,15 @@ def test_pairs_converge_with_messages_identical_to_reference():
 
 # ---- a fleet serving peer links (tests/test_sync_fabric.py:189) ----------
 
-def _drive_links(pkg, fused, n=3, k=3, rounds=5):
+def _drive_links(pkg, fused, n=3, k=3, rounds=5, exact=False):
     """n fleet docs, k host peers per doc, `rounds` full rounds. Round 2:
     link (0, 1) drops and its peer comes back with NO replica (fresh
     states both ends, full resend through a new peer-space). Round 3:
     link (2, 0) resets both sync states but the peer keeps its data.
-    Returns the byte transcript and the final heads."""
+    Returns the byte transcript, the final heads and the sync states
+    (with k = 1 there is no link (0, 1) to drop)."""
     doc_rows = [_chain(f'{i:02x}' * 16, 2, key=f'd{i}_') for i in range(n)]
-    _fleet, docs = _fleet_docs(pkg, doc_rows)
+    _fleet, docs = _fleet_docs(pkg, doc_rows, exact=exact)
     host, init = pkg.host, pkg.host.init_sync_state
     peers = [[host.apply_changes(host.init(), [_change(
         f'{0xa0 + i:02x}{j:02x}' * 8, 1, 1, [], f'p{i}_{j}', 100 * i + j)])[0]
@@ -232,7 +234,7 @@ def _drive_links(pkg, fused, n=3, k=3, rounds=5):
     peer_states = [[init() for _ in range(k)] for _ in range(n)]
     transcript = []
     for r in range(rounds):
-        if r == 2:
+        if r == 2 and k > 1:
             pkg.hi.release_sync_state(states[0][1])
             states[0][1], peers[0][1] = init(), host.init()
             peer_states[0][1] = init()
@@ -302,6 +304,19 @@ def test_fabric_rounds_with_disconnect_and_reset_match_reference():
     assert states[2][0]['sentHashes'] == set()
     assert len({s.sid for s in spaces}) == len(spaces)
     assert states[0][1]['sentHashes'].sid >= len(sent)   # a fresh space
+
+
+def test_fabric_rounds_in_exact_mode_match_reference():
+    """The same rounds over exact-device fleets (the register engine
+    behind the docs), as tests/test_sync_fabric.py runs its 'exact'
+    mode, with one peer per doc (so no disconnect; the reset reconnect
+    stays): every message and the final heads equal the reference's."""
+    want, want_heads, _ = _drive_links(REF, fused=True, k=1, rounds=4,
+                                       exact=True)
+    got, got_heads, _ = _drive_links(PORT, fused=True, k=1, rounds=4,
+                                     exact=True)
+    assert got == want
+    assert got_heads == want_heads
 
 
 @pytest.mark.parametrize('call', [
