@@ -1,12 +1,14 @@
 """The fleet engine on torch: batched CRDT computation over document
-fleets, with the LWW merge, the multi-value register scan and the sync
-plane's Bloom and hash-index kernels as hand-written CUDA kernels.
+fleets, with the LWW merge, the multi-value register scan, the RGA
+sequence scan and the sync plane's Bloom and hash-index kernels as
+hand-written CUDA kernels.
 
 The port carries the LWW grid, the exact-device register engine
-(`DocFleet(exact_device=True)`, over `registers`), the turbo apply seam
+(`DocFleet(exact_device=True)`, over `registers`), the Text/list
+sequence engine (`sequence`, in both device modes), the turbo apply seam
 (`backend.apply_changes_docs`, and its pipelined form) and the batched
-sync plane (`sync_driver`, over `bloom` and `hashindex`); sequences,
-storage and multi-device sharding are later slices (ROADMAP.md Queue 1).
+sync plane (`sync_driver`, over `bloom` and `hashindex`); storage and
+multi-device sharding are later slices (ROADMAP.md Queue 1).
 """
 
 from .tensor_doc import (FleetState, OpBatch, TOMBSTONE, pack_op_id,
@@ -14,6 +16,8 @@ from .tensor_doc import (FleetState, OpBatch, TOMBSTONE, pack_op_id,
 from .apply import apply_op_batch
 from .registers import (RegisterOpBatch, RegisterState, apply_register_batch,
                         register_state_from_numpy, register_state_to_numpy)
+from .sequence import (SeqOpBatch, SeqState, apply_seq_batch, linearize,
+                       materialize, visible_text)
 from .bloom import build_bloom_filters, probe_bloom_filters, bloom_filter_bytes
 from .sync_driver import (generate_sync_messages_docs,
                           receive_sync_messages_docs)
@@ -27,6 +31,8 @@ __all__ = [
     'apply_op_batch',
     'RegisterState', 'RegisterOpBatch', 'apply_register_batch',
     'register_state_from_numpy', 'register_state_to_numpy',
+    'SeqState', 'SeqOpBatch', 'apply_seq_batch', 'linearize', 'materialize',
+    'visible_text',
     'build_bloom_filters', 'probe_bloom_filters', 'bloom_filter_bytes',
     'generate_sync_messages_docs', 'receive_sync_messages_docs',
 ]

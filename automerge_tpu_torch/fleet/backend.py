@@ -5,12 +5,14 @@ grids are torch tensors on one device (`DocFleet(device=...)`, CUDA by
 default). Every LWW merge dispatch is the hand-written CUDA merge kernel
 (fleet/merge_kernel.py); with `exact_device=True` the fleet keeps the
 multi-value register state instead, and every dispatch is the
-hand-written CUDA register scan (fleet/register_kernel.py). The module
-is a copy of the reference with the device calls swapped; paths that
-belong to later slices of the port (ROADMAP.md "Queue 1") raise
-NotImplementedError naming their item: sharded meshes, Text/list
-sequences, durability journals and the storage tier
-(park/load/rebuild).
+hand-written CUDA register scan (fleet/register_kernel.py). Text and
+list objects live in size-class pools of sequence rows
+(fleet/sequence.py), and every sequence dispatch is the hand-written CUDA
+RGA scan (fleet/seq_kernel.py), in both device modes. The module is a
+copy of the reference with the device calls swapped; paths that belong
+to later slices of the port (ROADMAP.md "Queue 1") raise
+NotImplementedError naming their item: sharded meshes, durability
+journals and the storage tier (park/load/rebuild).
 
 The reference's description follows.
 
@@ -82,7 +84,6 @@ from .ingest import KeyInterner
 
 # Later slices of the port (ROADMAP.md Queue 1): their paths raise
 _MULTI_DEVICE = 'multi-device (fleet/sharding.py, fleet/exchange.py)'
-_SEQUENCE = 'Text/list sequences (fleet/sequence.py)'
 _STORAGE = 'storage and durability (fleet/loader.py, fleet/durability.py)'
 
 
@@ -100,6 +101,15 @@ _SEQ_MAKE = ('makeText', 'makeList')
 # rowmap overhead on write-only workloads that never read history).
 _SEAM_FOLD_LIMIT = 64
 
+
+
+def _code_points(vals):
+    """''.join(chr(v) for v in vals) for an int array of code points,
+    decoded in one call (a whole text row at once)."""
+    try:
+        return np.asarray(vals, dtype='<u4').tobytes().decode('utf-32-le')
+    except UnicodeDecodeError:
+        return ''.join(chr(int(v)) for v in vals)
 
 
 class _Unsupported(Exception):
@@ -382,9 +392,13 @@ class DocFleet:
         self._counters_touched = False
         self.metrics = Metrics()  # per-dispatch counters (observability.py)
         _live_fleets.add(self)    # memory-watermark tier (perf.py)
-        # Sequence-object fleet (Text/list rows) is a later slice of the
-        # port: the bookkeeping stays empty and every path that would
-        # allocate a sequence row raises
+        # Sequence-object fleet: one device row per (doc slot, objectId).
+        # Text/list CRDT state lives in pow2 size-class pools of SeqStates
+        # (fleet/sequence.py SeqPools) so memory follows each document's
+        # own length — one long document no longer pads the whole fleet.
+        from .sequence import SeqPools
+        self.seq_elem_cap = 64    # base (smallest) class capacity
+        self.seq_pools = SeqPools(self.seq_elem_cap, device=self.device)
         self.seq_rows = []        # row -> {'slot','object_id','type'} | None
         self.seq_place = []       # row -> (cls, idx) | None (unwritten)
         self.seq_len = []         # row -> host upper bound on elements
@@ -447,7 +461,16 @@ class DocFleet:
                 sum(p[1].nbytes for p in self._op_index_pending))
         if self.reg_state is not None:
             out['registers'] = self.reg_state.nbytes()
-        out['total'] = out.get('lww_grid', 0) + out.get('registers', 0)
+        pools = {}
+        for cls, st in sorted(self.seq_pools.pools.items()):
+            pools[cls] = {'capacity': st.capacity,
+                          'rows': int(st.elem_id.shape[0]),
+                          'actor_lanes': int(st.actor_slots),
+                          'bytes': st.nbytes()}
+        if pools:
+            out['seq_pools'] = pools
+        out['total'] = out.get('lww_grid', 0) + out.get('registers', 0) + \
+            sum(p['bytes'] for p in pools.values())
         out['value_table_entries'] = len(self.value_table)
         return out
 
@@ -573,6 +596,21 @@ class DocFleet:
         src_idx = self._op_index.get(src)
         if src_idx is not None:
             self._op_index[dst] = src_idx.copy()
+        copies = {}    # cls -> ([src idx], [dst idx])
+        lanes = self._seq_lane_width()
+        for oid, row in list(self.slot_seq.get(src, {}).items()):
+            info = self.seq_rows[row]
+            dst_row = self._alloc_seq_row(dst, oid, info['type'])
+            place = self.seq_place[row]
+            if place is not None:
+                idx = self.seq_pools.alloc(place[0], lanes)
+                self.seq_place[dst_row] = (place[0], idx)
+                self.seq_len[dst_row] = self.seq_len[row]
+                srcs, dsts = copies.setdefault(place[0], ([], []))
+                srcs.append(place[1])
+                dsts.append(idx)
+        for cls, (srcs, dsts) in copies.items():
+            self.seq_pools.copy_rows(cls, srcs, cls, dsts)
         if self.state is not None and src < self.state.winners.shape[0]:
             self._ensure_capacity(n_docs=dst + 1, n_keys=len(self.keys))
             for t in self.state.tensors():
@@ -609,14 +647,94 @@ class DocFleet:
                                            torch.from_numpy(sel))
                 self.metrics.dispatches += 1
 
-    # -- sequence rows (a later slice of the port) ---------------------
+    # -- sequence rows ---------------------------------------------------
 
     def _alloc_seq_row(self, slot, object_id, type_):
-        raise _later(_SEQUENCE)
+        info = {'slot': slot, 'object_id': object_id, 'type': type_}
+        if self.seq_free:
+            row = self.seq_free.pop()
+            self.seq_rows[row] = info
+            self.seq_place[row] = None
+            self.seq_len[row] = 0
+        else:
+            row = len(self.seq_rows)
+            self.seq_rows.append(info)
+            self.seq_place.append(None)
+            self.seq_len.append(0)
+        self.slot_seq.setdefault(slot, {})[object_id] = row
+        return row
+
+    def _seq_lane_width(self):
+        return _pow2(max(len(self.actors), 4))
+
+    def _seq_need(self, row, need_len):
+        """(size class, performs-a-fresh-pool-alloc) for placing `row` at
+        need_len elements — the ONE sizing policy driving both the
+        reserve() pre-pass and _place_seq_row, so they cannot drift."""
+        need_cls = self.seq_pools.cls_for(
+            max(self.seq_len[row], need_len, 1))
+        place = self.seq_place[row]
+        return need_cls, place is None or need_cls > place[0]
+
+    def _place_seq_row(self, row, need_len):
+        """Ensure row has a device placement with capacity >= need_len,
+        migrating up a size class when it outgrows its current one.
+        Returns (cls, idx)."""
+        need_cls, _ = self._seq_need(row, need_len)
+        self.seq_len[row] = max(self.seq_len[row], need_len, 1)
+        pools = self.seq_pools
+        place = self.seq_place[row]
+        lanes = self._seq_lane_width()
+        if place is None:
+            idx = pools.alloc(need_cls, lanes)
+            place = (need_cls, idx)
+        elif need_cls > place[0]:
+            idx = pools.migrate(place[0], place[1], need_cls, lanes)
+            place = (need_cls, idx)
+        self.seq_place[row] = place
+        return place
+
+    def seq_row_inexact(self, row):
+        """Host read of one device row's inexact flag (False when the row
+        was never written)."""
+        place = self.seq_place[row] if row < len(self.seq_place) else None
+        if place is None:
+            return False
+        st = self.seq_pools.state(place[0])
+        return bool(st.inexact[place[1]])
 
     def _zero_seq_rows(self, rows):
-        if rows:
-            raise _later(_SEQUENCE)
+        by_cls = {}
+        for row in rows:
+            place = self.seq_place[row] if row < len(self.seq_place) \
+                else None
+            if place is not None:
+                by_cls.setdefault(place[0], []).append(place[1])
+                self.seq_place[row] = None
+            if row < len(self.seq_len):
+                self.seq_len[row] = 0
+        if by_cls:
+            self.seq_pools.release_rows(by_cls)
+
+    @_spanned('actor_remap')
+    def _remap_seq_actors(self, perm):
+        """Renumber the actor bits of packed elemIds/register opIds in every
+        sequence pool after a sorted-order actor insertion, permuting the
+        actor-lane axis the same way (lanes are indexed by actor number,
+        like _remap_reg_actors; machinery shared via _lane_permutation)."""
+        if not self.seq_pools.pools:
+            return
+        from .sequence import SeqState
+        # Grow every pool's lane axis FIRST (same rationale as
+        # _remap_reg_actors)
+        self.seq_pools.ensure_lanes(self._seq_lane_width())
+        self.metrics.remaps += 1
+        for cls, st in list(self.seq_pools.pools.items()):
+            move, renum = self._lane_permutation(perm, st.reg.shape[2])
+            self.seq_pools.pools[cls] = SeqState(
+                renum(st.elem_id), st.nxt,
+                renum(move(st.reg, 0)), move(st.killed, False),
+                move(st.val, 0), move(st.counter, 0), st.n, st.inexact)
 
     def _intern_value(self, value):
         """Inline int32 in [0, 2^31) or a value-table ref -(i + 2)."""
@@ -626,7 +744,22 @@ class DocFleet:
         return self._intern_value_boxed(value)
 
     def _intern_seq_value(self, type_, op):
-        raise _later(_SEQUENCE)
+        """Sequence-element payload: text rows store single-char codepoints
+        inline (table refs are negative, so the two never collide); list
+        rows store plain non-negative int32s inline; everything else goes
+        through the value table. uint/counter/timestamp/float64 payloads
+        box with their datatype (TypedValue) so device-served patches keep
+        exact datatype leaves — the same rule as the map register paths."""
+        value = op.get('value')
+        datatype = op.get('datatype')
+        if type_ == 'text' and datatype is None and \
+                isinstance(value, str) and len(value) == 1:
+            return ord(value)
+        if type_ == 'text' and datatype in (None, 'int'):
+            # non-char text payloads box raw (never inline: a text lane's
+            # non-negative ints mean code points)
+            return self._intern_value_boxed(value)
+        return self._intern_typed(value, datatype)
 
     def _intern_value_boxed(self, value):
         return -(self.value_table.intern(value) + 2)
@@ -664,14 +797,196 @@ class DocFleet:
         return self._intern_value_boxed(_MapLink(oid, type_name))
 
     def _pack_seq_op(self, row, info, op, packed, op_id=None):
-        raise _later(_SEQUENCE)
+        """One decoded sequence op -> (row, kind, ref, packed, value,
+        pred0..predD-1, flag) with packed opIds in fleet actor numbering."""
+        from .sequence import INSERT, SET, DEL, PAD, SEQ_PRED_LANES
+        from .tensor_doc import pack_op_id
+        from ..common import parse_op_id
 
+        def pack_ref(eid):
+            if eid in (None, '_head'):
+                return 0
+            ctr, actor = parse_op_id(eid)
+            return pack_op_id(ctr, self.actors.intern(actor))
+
+        action = op['action']
+        flag = False
+        lanes = [0] * SEQ_PRED_LANES
+        pred_ids = op.get('pred', [])
+        if len(pred_ids) > SEQ_PRED_LANES:
+            flag = True
+            pred_ids = pred_ids[:SEQ_PRED_LANES]
+        for i, p in enumerate(pred_ids):
+            lanes[i] = pack_ref(p)
+        if action == 'inc':
+            # Exact on device: the INC kind accumulates into the pred'd
+            # counter lane with Lamport-max attribution (new.js:937-965).
+            # The lane bit-packs (sum << 2) | count-bits, so deltas are
+            # bounded at +/-2^29 — larger ones flag the row inexact
+            # instead of wrapping.
+            from .sequence import INC
+            kind = INC
+            delta = op.get('value', 0)
+            if isinstance(delta, int) and not isinstance(delta, bool) and \
+                    -(1 << 29) < delta < (1 << 29):
+                value = delta
+            else:
+                kind, value, flag = PAD, 0, True   # unencodable delta
+        elif action == 'del':
+            kind, value = DEL, 0
+        elif action in _SEQ_MAKE or action in _MAP_MAKE:
+            # Nested object as a sequence element (rows-in-lists, lists in
+            # lists; ref new.js:1461-1528 objectMeta ancestry): the element
+            # value is a link to the child object, which registers like any
+            # fleet object — (objectId, key) grid columns for maps/tables,
+            # its own SeqState row for text/lists.
+            kind = INSERT if op.get('insert') else SET
+            value = self._make_link_value(info['slot'], op_id,
+                                          OBJECT_TYPE[action])
+            if info['type'] == 'text':
+                # Object elements inside Text render as spans, which stay
+                # mirror territory: flag the row so reads route there
+                flag = True
+        else:
+            kind = INSERT if op.get('insert') else SET
+            value = self._intern_seq_value(info['type'], op)
+        return (row, kind, pack_ref(op.get('elemId')), packed, value,
+                *lanes, flag)
+
+    @_spanned('dispatch_seq')
     def _dispatch_seq(self, seq_ops):
-        if len(seq_ops):
-            raise _later(_SEQUENCE)
+        """Place every touched row in a size-class pool with enough
+        capacity (migrating rows that outgrew their class) and batch-apply
+        all pending sequence ops — ONE dispatch per active size class, each
+        one launch of the sequence scan on the fleet's device.
+        seq_ops rows are (row, kind, ref, packed, value, pred0..D-1, flag)."""
+        from .sequence import SeqOpBatch, apply_seq_batch_donated, \
+            INSERT, \
+            SEQ_PRED_LANES
+        if len(self.seq_rows) == 0 or len(seq_ops) == 0:
+            return
+        # Widen every pool's lane axis FIRST: a new actor whose hex sorts
+        # after all existing ones produces no remap (identity perm), yet
+        # its lane must exist before its ops apply
+        self.seq_pools.ensure_lanes(self._seq_lane_width())
+        D = SEQ_PRED_LANES
+        arr = np.asarray(seq_ops, dtype=np.int64)   # [M, 6 + D] op tuples
+        row_a = arr[:, 0]
+        n_rows = len(self.seq_rows)
+        counts = np.bincount(row_a, minlength=n_rows)
+        ins = np.bincount(row_a[arr[:, 1] == INSERT], minlength=n_rows)
+        # Placement pass: host-tracked element counts give each row's
+        # needed capacity class without any device reads. Reserve each
+        # pool's capacity ONCE for all rows landing in it this dispatch
+        # (per-alloc pow2 growth would copy the pool once per step).
+        pools = self.seq_pools
+        lanes = self._seq_lane_width()
+        uniq_rows = [int(r) for r in np.unique(row_a)]
+        new_by_cls = {}
+        for row in uniq_rows:
+            need_cls, fresh = self._seq_need(
+                row, self.seq_len[row] + int(ins[row]))
+            if fresh:
+                new_by_cls[need_cls] = new_by_cls.get(need_cls, 0) + 1
+        for cls, count in new_by_cls.items():
+            pools.reserve(cls, count, lanes)
+        cls_of = {}
+        for row in uniq_rows:
+            cls_of[row], _ = self._place_seq_row(
+                row, self.seq_len[row] + int(ins[row]))
+        # One batch per active class, rows addressed by pool index
+        by_cls = {}
+        for row, cls in cls_of.items():
+            by_cls.setdefault(cls, []).append(row)
+        order = np.argsort(row_a, kind='stable')
+        row_sorted = row_a[order]
+        pos_in_row = np.arange(len(row_sorted)) - \
+            np.searchsorted(row_sorted, row_sorted, side='left')
+        for cls, rows in by_cls.items():
+            st = self.seq_pools.state(cls)
+            r_cap = st.elem_id.shape[0]
+            sel = np.isin(row_sorted, rows)
+            sub = order[sel]
+            idx_of = np.zeros(n_rows, dtype=np.int64)
+            for row in rows:
+                idx_of[row] = self.seq_place[row][1]
+            rows_idx = idx_of[row_sorted[sel]]
+            pos = pos_in_row[sel]
+            width = max(int(counts[rows].max()), 1)
+            cols = {name: np.zeros((r_cap, width), dtype=np.int32)
+                    for name in ('kind', 'ref', 'packed', 'value')}
+            preds = np.zeros((r_cap, width, D), dtype=np.int32)
+            flag = np.zeros((r_cap, width), dtype=bool)
+            for j, name in enumerate(('kind', 'ref', 'packed', 'value')):
+                cols[name][rows_idx, pos] = arr[sub, j + 1]
+            for d in range(D):
+                preds[rows_idx, pos, d] = arr[sub, 5 + d]
+            flag[rows_idx, pos] = arr[sub, 5 + D] != 0
+            batch = SeqOpBatch(cols['kind'], cols['ref'], cols['packed'],
+                               cols['value'], preds, flag)
+            apply_seq_batch_donated(st, batch.to(self.device))
+            self.metrics.dispatches += 1
+        self.metrics.device_ops += len(seq_ops)
 
     def render_seq_all(self):
-        raise _later(_SEQUENCE)
+        """Render every live sequence row: {row: str/list}, with None for
+        rows whose device state is inexact (host mirror must serve those
+        reads). One materialize + transfer per ACTIVE size class."""
+        from .sequence import materialize as seq_materialize
+        from .registers import TypedValue
+        out = {}
+        per_cls = {}
+        for row, info in enumerate(self.seq_rows):
+            if info is None:
+                continue
+            place = self.seq_place[row]
+            if place is None:
+                out[row] = '' if info['type'] == 'text' else []
+            else:
+                per_cls.setdefault(place[0], []).append(row)
+        mats = {}
+        for cls in per_cls:
+            st = self.seq_pools.state(cls)
+            vals, cnts, vis, _n = seq_materialize(st)
+            cap = vals.shape[1]
+            host = torch.cat([vals, cnts, vis.to(torch.int32),
+                              st.inexact.to(torch.int32).unsqueeze(1)],
+                             dim=1).cpu().numpy()
+            mats[cls] = (host[:, :cap], host[:, cap:2 * cap],
+                         host[:, 2 * cap:3 * cap] != 0, host[:, -1] != 0)
+
+        def unbox(v, c):
+            boxed = self.value_table[-v - 2]
+            if isinstance(boxed, TypedValue):
+                # counter display = set base + accumulated inc deltas
+                # (ref new.js:937-965)
+                return boxed.value + c if boxed.datatype == 'counter' \
+                    else boxed.value
+            return boxed
+
+        for cls, rows in per_cls.items():
+            vals, cnts, vis, inexact = mats[cls]
+            for row in rows:
+                idx = self.seq_place[row][1]
+                if inexact[idx]:
+                    out[row] = None
+                    continue
+                row_vals = vals[idx][vis[idx]]
+                if self.seq_rows[row]['type'] == 'text' and \
+                        (row_vals >= 0).all():
+                    out[row] = _code_points(row_vals)
+                    continue
+                # counter lanes bit-pack (sum << 2) | count-bits
+                items = [(int(v), int(c) >> 2) for v, c in
+                         zip(row_vals, cnts[idx][vis[idx]])]
+                if self.seq_rows[row]['type'] == 'text':
+                    out[row] = ''.join(
+                        chr(v) if v >= 0 else str(unbox(v, c))
+                        for v, c in items)
+                else:
+                    out[row] = [v if v >= 0 else unbox(v, c)
+                                for v, c in items]
+        return out
 
     # -- ingest ---------------------------------------------------------
 
@@ -1124,6 +1439,7 @@ class DocFleet:
                 self._remap_reg_actors(perm)
             else:
                 self._remap_actors(perm)
+            self._remap_seq_actors(perm)
         n_docs = self.n_slots
         per_doc = [[] for _ in range(n_docs)]
         for slot, buffers in self.pending:
@@ -1199,8 +1515,8 @@ class DocFleet:
 
     def _flush_exact_mixed(self, per_doc, n_docs):
         """Mixed-content flush for exact-device mode: flat rows (with pred
-        lists) into the register engine. Sequence ops belong to a later
-        slice of the port and raise."""
+        lists) into the register engine, sequence ops into the SeqState
+        fleet."""
         from .registers import (apply_register_batch_donated,
                                 rows_to_register_batch)
         from .tensor_doc import pack_op_id
@@ -1213,14 +1529,22 @@ class DocFleet:
 
         out_doc, out_key, out_packed, out_val, out_flags = [], [], [], [], []
         pred_off, preds = [0], []
+        seq_ops = []
         for d, op_id, op in changes_to_decoded_ops(per_doc):
             obj = op['obj']
             action = op['action']
             packed = pack(op_id)
-            if obj != '_root' and obj in self.slot_seq.get(d, {}) or \
-                    action in _SEQ_MAKE:
-                raise _later(_SEQUENCE)
-            if action in _MAP_MAKE:
+            if obj != '_root' and obj in self.slot_seq.get(d, {}):
+                row = self.slot_seq[d][obj]
+                seq_ops.append(self._pack_seq_op(row, self.seq_rows[row],
+                                                 op, packed, op_id=op_id))
+                continue
+            if action in _SEQ_MAKE:
+                self._alloc_seq_row(
+                    d, op_id, 'text' if action == 'makeText' else 'list')
+                val_idx, flags = \
+                    self._intern_value_boxed(_SeqLink(op_id)), 1
+            elif action in _MAP_MAKE:
                 val_idx, flags = self._intern_value_boxed(
                     _MapLink(op_id, OBJECT_TYPE[action])), 1
             elif action == 'del':
@@ -1263,6 +1587,7 @@ class DocFleet:
                                          batch.to(self.device))
             self.metrics.dispatches += 1
             self.metrics.device_ops += len(out_doc)
+        self._dispatch_seq(seq_ops)
 
     def inexact_slots(self):
         """Slots whose histories fell outside the register engine's exact
@@ -2172,10 +2497,6 @@ class _FlatEngine(HashGraph):
             # _Unsupported promotion path — so a bogus change cannot cost
             # the document its device slot (see PARITY.md).
             raise ValueError('link operations are not supported')
-        if action in _SEQ_MAKE:
-            # Text/list documents raise (before any state mutates) rather
-            # than promoting to the host engine
-            raise _later(_SEQUENCE)
         if op['obj'] == '_root' or op['obj'] in made_map:
             if op.get('insert') or op.get('key') is None:
                 raise _Unsupported()
@@ -2260,17 +2581,13 @@ class _FlatEngine(HashGraph):
             return None
 
     def _device_patch_diffs(self):
-        """Assemble the whole-doc diff tree from device register lanes via
-        the host patch machinery (the map half of the reference's:
-        sequence rows are a later slice of the port and raise). Raises
-        _Unsupported for any shape the lanes can't serve exactly (callers
-        use the mirror)."""
+        """Assemble the whole-doc diff tree from device register/sequence
+        lanes via the host patch machinery. Raises _Unsupported for any
+        shape the lanes can't serve exactly (callers use the mirror)."""
         from ..backend.op_set import OpSet, ObjState, _utf16_key, root_meta
         from ..common import lamport_key
         from .registers import _patch_leaf
         from .tensor_doc import unpack_op_id
-        if self.seq_objects:
-            raise _later(_SEQUENCE)
         fleet = self.fleet
         n_keys = len(fleet.keys)
         reg, killed, value, counter = (
@@ -2282,18 +2599,27 @@ class _FlatEngine(HashGraph):
             ctr, num = unpack_op_id(int(packed))
             return f'{ctr}@{fleet.actors.actors[num]}'
 
-        def lane_row(packed, raw, cnt, base):
-            """Pseudo op row for one live register lane."""
+        def lane_row(packed, raw, cnt, base, char=None):
+            """Pseudo op row for one live register lane. `char` carries an
+            inline text code point already decoded (so reads never intern
+            into the shared value table)."""
             row = dict(base)
             row['id'] = op_id_str(packed)
             row['succ'] = []
+            if char is not None:
+                row['action'] = 'set'
+                row['value'] = char
+                return row, None
             boxed = fleet.value_table[-raw - 2] if raw <= -2 else raw
+            if isinstance(boxed, _SeqLink):
+                oid = boxed.object_id
+                row['action'] = 'makeText' \
+                    if self.seq_objects.get(oid) == 'text' else 'makeList'
+                return row, oid
             if isinstance(boxed, _MapLink):
                 row['action'] = 'makeTable' if boxed.kind == 'table' \
                     else 'makeMap'
-                return row
-            if isinstance(boxed, _SeqLink):
-                raise _later(_SEQUENCE)
+                return row, boxed.object_id
             leaf = _patch_leaf(int(raw), int(cnt), fleet.value_table)
             if leaf is None:
                 raise _Unsupported('payload outside device lanes')
@@ -2301,7 +2627,7 @@ class _FlatEngine(HashGraph):
             row['value'] = leaf['value']
             if 'datatype' in leaf:
                 row['datatype'] = leaf['datatype']
-            return row
+            return row, None
 
         # group this doc's live cells by (object, key)
         cells = {}                  # object_id -> {key: [(packed, lane)]}
@@ -2315,7 +2641,7 @@ class _FlatEngine(HashGraph):
         # cells are fleet-global: keep only THIS doc's objects (root keys
         # are per-slot because register rows are per-slot; nested keys are
         # (oid, key) and oids are globally unique)
-        mine = {'_root'} | set(self.map_objects)
+        mine = {'_root'} | set(self.map_objects) | set(self.seq_objects)
         cells = {obj: kv for obj, kv in cells.items() if obj in mine}
 
         # reachability from root through live make lanes
@@ -2323,23 +2649,166 @@ class _FlatEngine(HashGraph):
         shim.objects = {'_root': ObjState('map')}
         for oid, typ in self.map_objects.items():
             shim.objects[oid] = ObjState(typ)
-        object_order = ['_root'] + sorted(self.map_objects, key=lamport_key)
+        for oid, typ in self.seq_objects.items():
+            shim.objects[oid] = ObjState(typ)
+
+        seq_rows_data = self._fetch_seq_rows()
+        object_order = ['_root'] + sorted(
+            set(self.map_objects) | set(self.seq_objects), key=lamport_key)
         object_meta = {'_root': root_meta()}
         patches = {'_root': {'objectId': '_root', 'type': 'map',
                              'props': {}}}
         for object_id in object_order:
-            if object_id != '_root' and object_id not in object_meta:
-                continue          # unreachable (overwritten) object
+            obj = shim.objects[object_id]
             prop_state = {}
-            for key_str in sorted(cells.get(object_id, {}), key=_utf16_key):
-                for packed, s, k in cells[object_id][key_str]:
-                    row = lane_row(packed, int(value[k, s]),
-                                   int(counter[k, s]),
-                                   {'key': key_str, 'insert': False})
-                    shim._update_patch_property(
-                        patches, object_id, row, prop_state, 0, 0,
-                        object_meta, whole_doc=True)
+            if obj.is_seq:
+                if object_id not in object_meta:
+                    continue          # unreachable (overwritten) object
+                data = seq_rows_data.get(object_id)
+                if data is None:
+                    raise _Unsupported('sequence rows unavailable')
+                list_index = 0
+                for elem_packed, elem_lanes in data:
+                    elem_str = op_id_str(elem_packed)
+                    vis_elem = False
+                    for packed, raw, cnt, char, n_incs, dead in elem_lanes:
+                        # object elements (rows-in-lists) flow through the
+                        # same make-row path the map cells use: the child
+                        # registers in object_meta and its own rows link
+                        # in when its (later) object_id is processed
+                        base = {'insert': True} if packed == elem_packed \
+                            else {'insert': False, 'elemId': elem_str}
+                        if n_incs == 0:
+                            row, _child = lane_row(packed, raw, cnt, base,
+                                                   char)
+                            shim._update_patch_property(
+                                patches, object_id, row, prop_state,
+                                list_index, 0, object_meta, whole_doc=True)
+                        else:
+                            # Replay the reference's counterStates walk
+                            # (new.js:936-965): the counter set with its
+                            # inc succs, then the incs — the edit shape
+                            # (insert for one consumed inc, the transient
+                            # remove->update for two or more, the phantom
+                            # remove of a deleted inc'd counter) falls
+                            # out of the same ported machinery. A dead
+                            # lane gets an extra never-consumed del succ
+                            # so its counter state never completes.
+                            opid = op_id_str(packed)
+                            base_row, _child = lane_row(packed, raw, 0,
+                                                        base, char)
+                            if base_row.get('datatype') != 'counter':
+                                raise _Unsupported('inc on non-counter')
+                            succs = [f'{opid}+inc{i}'
+                                     for i in range(n_incs)]
+                            all_succs = succs + ([f'{opid}+del'] if dead
+                                                 else [])
+                            base_row['succ'] = all_succs
+                            shim._update_patch_property(
+                                patches, object_id, base_row, prop_state,
+                                list_index, len(all_succs), object_meta,
+                                whole_doc=True)
+                            for i, sid in enumerate(succs):
+                                inc_row = {
+                                    'id': sid, 'succ': [], 'action': 'inc',
+                                    'insert': False, 'elemId': elem_str,
+                                    'value': cnt if i == n_incs - 1 else 0,
+                                }
+                                shim._update_patch_property(
+                                    patches, object_id, inc_row,
+                                    prop_state, list_index, 0, object_meta,
+                                    whole_doc=True)
+                        # a dead inc'd counter lane still counts: its inc
+                        # rows are succ-free, so the host walk treats the
+                        # element as visible and bumps the index past the
+                        # phantom remove
+                        vis_elem = True
+                    if vis_elem:
+                        list_index += 1
+            else:
+                if object_id != '_root' and object_id not in object_meta:
+                    continue          # unreachable (overwritten) object
+                for key_str in sorted(cells.get(object_id, {}),
+                                      key=_utf16_key):
+                    for packed, s, k in cells[object_id][key_str]:
+                        row, _child = lane_row(packed, int(value[k, s]),
+                                               int(counter[k, s]),
+                                               {'key': key_str,
+                                                'insert': False})
+                        shim._update_patch_property(
+                            patches, object_id, row, prop_state, 0, 0,
+                            object_meta, whole_doc=True)
         return patches['_root']
+
+    def _fetch_seq_rows(self):
+        """Read this doc's sequence rows off the device: {objectId:
+        [(elem packed id, [(packed, raw, counter_sum, char, n_incs,
+        dead)])] in RGA order}. `char` is the decoded inline text code
+        point (None for table-boxed payloads — reads never write the
+        shared value table); `n_incs` is the consumed-inc count (0, 1,
+        or 2 meaning "two or more"); `dead` marks killed inc'd counter
+        lanes, which ride along because the reference's dangling inc
+        rows still shape the whole-doc patch. Raises _Unsupported when
+        a row is device-inexact."""
+        from .sequence import HEAD, END
+        fleet = self.fleet
+        rows_map = fleet.slot_seq.get(self.slot, {})
+        out = {}
+        if not rows_map:
+            return out
+        for oid, row in rows_map.items():
+            place = fleet.seq_place[row]
+            if place is None:
+                out[oid] = []          # allocated but never written: empty
+                continue
+            st = fleet.seq_pools.state(place[0])
+            idx = place[1]
+            if bool(st.inexact[idx]):
+                raise _Unsupported('sequence row inexact')
+            # one transfer for the row's six arrays (not six round-trips)
+            nodes, a = st.reg.shape[1:]
+            host = torch.cat([st.elem_id[idx].unsqueeze(1),
+                              st.nxt[idx].unsqueeze(1), st.reg[idx],
+                              st.killed[idx].to(torch.int32), st.val[idx],
+                              st.counter[idx]], dim=1).cpu().numpy()
+            elem_id, nxt = host[:, 0], host[:, 1]
+            reg, killed, val, cnt = (host[:, 2 + k * a:2 + (k + 1) * a]
+                                     for k in range(4))
+            killed = killed != 0
+            is_text = self.seq_objects.get(oid) == 'text'
+            elems = []
+            node = int(nxt[HEAD])
+            hops = 0
+            limit = elem_id.shape[0]
+            while node != END and hops <= limit:
+                lanes = []
+                live = (reg[node] != 0) & ~killed[node]
+                # Dead lanes whose op consumed incs still shape the
+                # whole-doc patch: the reference's dangling inc rows emit
+                # a phantom remove (converted to update by a surviving
+                # lane), so they ride along marked dead
+                dead_incd = (reg[node] != 0) & killed[node] & \
+                    ((cnt[node] & 3) != 0)
+                for s in np.flatnonzero(live | dead_incd):
+                    raw = int(val[node, s])
+                    char = chr(raw) if is_text and raw >= 0 else None
+                    # counter lanes bit-pack (sum << 2) | count-bits
+                    # (0, 1, or 3; 3 = two or more); the count rides along
+                    # so the patch walk can replay the reference's
+                    # counterStates edit shapes
+                    bits = int(cnt[node, s]) & 3
+                    lanes.append((int(reg[node, s]), raw,
+                                  int(cnt[node, s]) >> 2, char,
+                                  2 if bits == 3 else bits,
+                                  bool(dead_incd[s])))
+                lanes.sort(key=lambda lane: lane[0])
+                elems.append((int(elem_id[node]), lanes))
+                node = int(nxt[node])
+                hops += 1
+            if hops > limit:
+                raise _Unsupported('corrupt sequence chain')
+            out[oid] = elems
+        return out
 
     def materialize(self):
         """Exact current {key: value} view (LWW winner per key,
@@ -2774,6 +3243,8 @@ def _fleet_bytes(fleet):
     for state in (fleet.state, fleet.reg_state):
         if state is not None:
             total += state.nbytes()
+    for state in list(fleet.seq_pools.pools.values()):
+        total += state.nbytes()
     if fleet.host_winners is not None:
         total += fleet.host_winners.nbytes
     return total
@@ -3439,10 +3910,6 @@ def _apply_changes_turbo_inner(handles, per_doc_changes, ps, parsed=None):
     seq_sel = (flags_all >= 3) & (flags_all <= 6)
     make_sel = (flags_all >= 7) & (flags_all <= 10)
     seq_make_sel = flags_all >= 11      # makes inside sequences (11-14)
-    if seq_sel.any() or seq_make_sel.any() or \
-            ((flags_all == 7) | (flags_all == 8)).any():
-        # Text/list rows (element ops, makeText/makeList): a later slice
-        raise _later(_SEQUENCE)
     nested_sel = (flags_all <= 2) & (rows['obj'] != 0)
     if seq_sel.any() or make_sel.any() or nested_sel.any() or \
             seq_make_sel.any():
@@ -3817,6 +4284,7 @@ def _apply_changes_turbo_inner(handles, per_doc_changes, ps, parsed=None):
             fleet._remap_reg_actors(perm)
         else:
             fleet._remap_actors(perm)
+        fleet._remap_seq_actors(perm)
     # -1 marks actors the fleet has never registered: ops' own actors are
     # always registered (applied_actor_ids above), so -1 can only surface
     # through pred/ref columns, where it flags the doc/row inexact instead
@@ -3826,6 +4294,7 @@ def _apply_changes_turbo_inner(handles, per_doc_changes, ps, parsed=None):
     slot_of_doc = np.array([e.slot for e in engines], dtype=np.int64)
 
     keep_root = keep & ~seq_sel & ~seq_make_sel
+    keep_seq = keep & (seq_sel | seq_make_sel)
 
     # Make ops: register the object with its engine (plus its device row
     # for sequences) and substitute the grid value with a link table ref.
@@ -3856,7 +4325,13 @@ def _apply_changes_turbo_inner(handles, per_doc_changes, ps, parsed=None):
             _mk_memo[(p, mk)] = memo
         oid, typ, boxed = memo
         d = change_doc[int(rows['doc'][ri])]
-        engines[d].map_objects[oid] = typ
+        if typ in ('text', 'list'):
+            engines[d].seq_objects[oid] = typ
+            slot = engines[d].slot
+            if oid not in fleet.slot_seq.get(slot, {}):
+                fleet._alloc_seq_row(slot, oid, typ)
+        else:
+            engines[d].map_objects[oid] = typ
         # kept_vals_all carries the boxed link for BOTH make kinds; makes
         # inside sequences (mk >= 11) keep their wire insert bit in
         # rows['value'] and route to the seq dispatch, while map-key makes
@@ -3905,6 +4380,117 @@ def _apply_changes_turbo_inner(handles, per_doc_changes, ps, parsed=None):
                     for g in uniq_g.tolist()]
         kept_vals_all[boxed_idx] = np.asarray(vids, dtype=np.int32)[
             np.searchsorted(uniq_g, gids)]
+
+    def dispatch_seq_rows():
+        """Kept sequence rows -> one SeqState dispatch (fleet numbering)."""
+        if not keep_seq.any():
+            return
+        from .sequence import INC, INSERT, SET, DEL, PAD, SEQ_PRED_LANES
+        sflags = rows['flags'][keep_seq]
+        svtype = rows['vtype'][keep_seq]
+        is_mk = sflags >= 11            # make element rows (11-14)
+        s_insert = rows['value'][keep_seq] != 0   # wire insert bit (makes)
+        svalue = rows['value'][keep_seq].astype(np.int64)
+        if is_mk.any():
+            # make rows carry their boxed link value, not the insert bit
+            svalue[is_mk] = kept_vals_all[keep_seq][is_mk]
+        sdoc = change_doc[rows['doc'][keep_seq]]
+        sobj = rows['obj'][keep_seq].astype(np.int64)
+
+        def remap_ids(p):
+            # Unknown-actor refs/preds map to -1: never matches an element,
+            # so the op drops and the row flags inexact (mirror serves it)
+            a = actor_map[p & (_MA - 1)].astype(np.int64)
+            return np.where(p != 0,
+                            np.where(a >= 0, (p >> 8 << 8) | a, -1),
+                            0).astype(np.int64)
+
+        spacked = remap_ids(rows['packed'][keep_seq].astype(np.int64))
+        sref = remap_ids(rows['ref'][keep_seq].astype(np.int64))
+        pred_counts = np.diff(rows['pred_off'])
+        n_seq = int(keep_seq.sum())
+        D = SEQ_PRED_LANES
+        counts_seq = pred_counts[keep_seq]
+        off_seq = rows['pred_off'][:-1][keep_seq]
+        pred_lanes = np.zeros((n_seq, D), dtype=np.int64)
+        pred_col = rows['pred']
+        for d in range(D):
+            has = counts_seq > d
+            if has.any():
+                # gather THEN remap: only the kept seq rows' lanes, not the
+                # whole batch's pred column
+                pred_lanes[has, d] = remap_ids(
+                    pred_col[off_seq[has] + d].astype(np.int64))
+        pred_overflow = counts_seq > D
+        # resolve device rows per unique (doc, objectId) — packed into one
+        # int64 so the unique is a 1D sort, not np.unique(axis=0)'s
+        # void-view compare (doc < 2^31, packed objectId < 2^31)
+        combo = (sdoc << 32) | sobj
+        uniq, inv = np.unique(combo, return_inverse=True)
+        urow = np.empty(len(uniq), dtype=np.int64)
+        oid_memo = {}
+        for i, cv in enumerate(uniq.tolist()):
+            d, obj_nat = cv >> 32, cv & 0xffffffff
+            oid = oid_memo.get(obj_nat)
+            if oid is None:
+                oid = f'{obj_nat >> 8}@{nat_actors[obj_nat & (_MA - 1)]}'
+                oid_memo[obj_nat] = oid
+            urow[i] = fleet.slot_seq[int(slot_of_doc[d])][oid]
+        srow = urow[inv]
+        kind_lut = np.zeros(15, dtype=np.int64)
+        kind_lut[3], kind_lut[4] = INSERT, SET
+        kind_lut[5], kind_lut[6] = DEL, INC
+        skind = kind_lut[sflags]
+        if is_mk.any():
+            skind[is_mk] = np.where(s_insert[is_mk], INSERT, SET)
+        is_text = np.array([info is not None and info['type'] == 'text'
+                            for info in fleet.seq_rows], dtype=bool)
+        txt = is_text[srow]
+        # host-side inexact flags: pred lists past the lane width, object
+        # elements inside Text rows (span rendering is mirror territory —
+        # same rule as _pack_seq_op), and inc deltas past the bit-packed
+        # counter lane's +/-2^29 envelope; counters in sequences are
+        # otherwise exact (INC kind + per-lane counter registers)
+        val_op = (sflags == 3) | (sflags == 4)
+        hflag = pred_overflow | (is_mk & txt) | \
+            ((sflags == 6) & (np.abs(svalue) >= (1 << 29)))
+        # Re-intern every payload the device lane can't carry inline
+        # through _intern_seq_value — THE shared sequence-value rule:
+        # text rows inline single code points, lists inline plain ints,
+        # everything else (arena-boxed strings/bools/floats, datatyped
+        # ints) boxes into the value table
+        svlen = vlen_all[keep_seq]
+        seq_ri = np.flatnonzero(keep_seq)
+        tag_names = {3: 'uint', 4: 'int', 8: 'counter', 9: 'timestamp'}
+        inline_ok = (svlen == 0) & np.where(txt, svtype == 6, svtype == 4)
+        rebox = np.flatnonzero(val_op & ~hflag & ~inline_ok)
+        seq_memo = {}
+        for i in rebox.tolist():
+            ln, vt = int(svlen[i]), int(svtype[i])
+            if ln > 0 or vt in (0, 1, 2):
+                # pre-validated: decode_sel covers every arena row here
+                gid = int(decoded_gid[int(seq_ri[i])])
+                if gid < 0:
+                    raise AssertionError(
+                        'undecoded arena payload in turbo seq batch')
+                decoded = decoded_vals[gid]
+                mk = (gid, bool(txt[i]))
+            else:
+                decoded = {'value': int(svalue[i]),
+                           'datatype': tag_names.get(vt)}
+                mk = (decoded['value'], decoded['datatype'], bool(txt[i]))
+            vid = seq_memo.get(mk)
+            if vid is None:
+                vid = fleet._intern_seq_value(
+                    'text' if txt[i] else 'list',
+                    {'value': decoded['value'],
+                     'datatype': decoded.get('datatype')})
+                seq_memo[mk] = vid
+            svalue[i] = vid
+        fleet._dispatch_seq(np.stack(
+            [srow, skind, sref, spacked, svalue,
+             *(pred_lanes[:, d] for d in range(D)),
+             hflag.astype(np.int64)], axis=1))
 
     n_kept_root = int(keep_root.sum())
     doc_arr = change_doc[rows['doc'][keep_root]].astype(np.int32)
@@ -3963,6 +4549,7 @@ def _apply_changes_turbo_inner(handles, per_doc_changes, ps, parsed=None):
             apply_register_batch_donated(fleet.reg_state,
                                          reg_batch.to(fleet.device))
             fleet.metrics.dispatches += 1
+        dispatch_seq_rows()
         fleet.metrics.device_ops += int(keep.sum())
         return result
 
@@ -4049,6 +4636,7 @@ def _apply_changes_turbo_inner(handles, per_doc_changes, ps, parsed=None):
                                    packed[set_sel], slots[inc_sel],
                                    key[inc_sel], inc_preds,
                                    kill_doc, kill_key_f, kill_packed_f)
+    dispatch_seq_rows()
     fleet.metrics.device_ops += int(keep.sum())
     return result
 

@@ -5,10 +5,10 @@
 
 Phases (any failure exits non-zero):
 
-1. build: the native codec (g++) and the four CUDA sources (nvcc,
-   sm_90a: the LWW merge, the register scan, the Bloom pair, the
-   hash-index pair) are compiled from this checkout's sources, all at
-   once;
+1. build: the native codec (g++) and the five CUDA sources (nvcc,
+   sm_90a: the LWW merge, the register scan, the RGA sequence scan, the
+   Bloom pair, the hash-index pair) are compiled from this checkout's
+   sources, all at once;
 2. kernel vs plain: seeded inputs go through each CUDA kernel and its
    plain torch version on the card and must agree exactly. The merge:
    int32 equality on the real key columns and the valid-lane count,
@@ -27,7 +27,12 @@ Phases (any failure exits non-zero):
    filter sizes (equal bytes and answers); the register scan on every
    corner of fleet/register_cases.py at P = 0, 1 and 20 (8 actor slots)
    and at 256 actor slots, and at P = 3000 (all five arrays and the lane
-   count equal);
+   count equal); the sequence scan on every corner of
+   fleet/seq_cases.py (a row at capacity, unknown referents, a cyclic
+   chain, duplicate and dead preds, wrapping counters, lanes past the
+   width, ...) at P = 0, 1, 20 and 512 at 4 actor lanes and at P = 1
+   and 20 at 256 (all eight arrays and the applied count equal), and on
+   a class of 1,025 rows x 8,195 nodes x 256 lanes, past 2^31 cells;
 3. main paths, each with every launch count set to 0 just before it and
    read just after:
    - seam: the fleet backend seam at full size (10,000 docs x 1,000 keys
@@ -53,6 +58,17 @@ Phases (any failure exits non-zero):
      docs' device-served get_patch() equal the host's patch, save()
      round-trips, nothing inexact; changes/s of its first batch beside
      the LWW seam's, in turns;
+   - text seam (seam-text-2k): DocFleet(doc_capacity=2,000) ->
+     init_docs -> one apply_changes_docs(mirror=False) of BASELINE
+     config 2's trace (fleet/seq_cases.py text_changes: a makeText and
+     10,000 ops, ~80 % inserts, ~20 % deletes, 3 actors taking turns on
+     one chain, 32 ops per change) for every doc, then 2 incremental
+     batches of 256 ops; dispatches [2, 1, 1] (the root key's merge and
+     one sequence dispatch per batch, one size class active), one
+     seq_scan launch per batch; every doc's text equals the host OpSet's,
+     4 sampled docs' get_patch() and save() equal the host's and save()
+     round-trips, nothing inexact, no fallbacks; the same once more in
+     exact-device mode; ops/s (median of 5 warm reps);
    - sync: a hub of 4 docs (chains of depth 8) serving 100,000 peer
      links (bench.py's fabric sweep, top leg) with its frontier index at
      2^21 slots: a cold round, a round that lands the staged sent sets,
@@ -78,10 +94,15 @@ Phases (any failure exits non-zero):
    held to its plain version there, timed beside its plain version and
    its bound; the register scan on the largest batch the exact seam
    handed it (held to its plain version there; L2 warm and flushed,
-   each launch on the touched rows restored off the clock); traced
-   breakdowns of the seam, the pipelined seam, the exact seam and one
-   steady sync round; the grid bytes, and the card's name and power
-   limit.
+   each launch on the touched rows restored off the clock); the sequence
+   scan held to its plain version on every batch the text seam handed it,
+   in full (all rows, all columns, all eight arrays and the count), then
+   timed on the largest (L2 warm and flushed, the state restored off the
+   clock) beside that batch's plain time and its bound; the torch-op
+   linearize and materialize on the text seam's size
+   classes; traced breakdowns of the seam, the pipelined seam, the exact
+   seam, the text seam and one steady sync round; the grid bytes, and
+   the card's name and power limit.
 
     python3 chip_smoke.py --baseline DIR
 
@@ -138,7 +159,7 @@ def card_line():
 def build_all(baseline=None):
     from automerge_tpu_torch import native
     from automerge_tpu_torch.fleet import (merge_kernel, register_kernel,
-                                           sync_kernels)
+                                           seq_kernel, sync_kernels)
     times, errors = {}, []
 
     def run(name, fn):
@@ -154,6 +175,7 @@ def build_all(baseline=None):
     jobs = [('native_codec', native.available),
             ('lww_merge', lambda: merge_kernel.build() is not None),
             ('registers', lambda: register_kernel.build() is not None),
+            ('sequence', lambda: seq_kernel.build() is not None),
             ('bloom', lambda: sync_kernels.build_bloom() is not None),
             ('hashindex', lambda: sync_kernels.build_hashindex() is not None)]
     if baseline is not None:
@@ -371,6 +393,78 @@ def register_kernel_vs_plain():
         log(f'kernel == plain: register_scan, {name} (P = 0, 1, 20 and '
             f'3000 at 8 slots; P = 20 at 256 slots)')
     return max_err
+
+
+def seq_kernel_vs_plain():
+    """The sequence scan against its plain version on the card on every
+    corner of fleet/seq_cases.py (among them a row at capacity, unknown
+    referents, a cyclic chain), at P = 0, 1, 20 and 512 op lanes at 4
+    actor lanes and at P = 1 and 20 at 256, exactly (all eight arrays and
+    the applied count); then a fleet whose rows x nodes x lanes pass
+    2^31 cells. (The plain version costs ~8 ms a column on the card
+    whatever the rows, so P = 512 runs once per corner.)
+    Returns the largest difference seen (0, or the script fails)."""
+    import numpy as np
+    from automerge_tpu_torch.fleet import seq_cases as sc
+    max_err = 0
+    for i, name in enumerate(sc.CASES):
+        for n, slots, lanes in ((64, 4, 0), (64, 4, 1), (64, 4, 20),
+                                (16, 4, 512), (16, 256, 1),
+                                (16, 256, 20)):
+            rng = np.random.default_rng(120 + i)
+            state, batch = sc.case(name, rng, n, 64, slots, lanes)
+            got = sc.both(state, batch, DEVICE)
+            max_err = max(max_err, got['max_abs_err'])
+            if got['differ'] or got['max_abs_err']:
+                fail(f'seq_scan != plain on {name} at P = {lanes}, '
+                     f'A = {slots}: {got}')
+        log(f'kernel == plain: seq_scan, {name} (P = 0, 1, 20 and 512 at '
+            f'4 lanes; P = 1 and 20 at 256 lanes)')
+    return max(max_err, seq_wide_offsets())
+
+
+def seq_wide_offsets():
+    """seq_scan on a class of 1,025 rows x 8,195 nodes x 256 lanes (2.15e9
+    cells per lane array, past 2^31: int64 offsets) whose last two rows
+    carry a batch: those rows must equal the plain version's on a
+    two-row state of the same inputs."""
+    import numpy as np
+    import torch
+    from automerge_tpu_torch.fleet import seq_cases as sc
+    from automerge_tpu_torch.fleet import seq_kernel
+    from automerge_tpu_torch.fleet.sequence import (SeqOpBatch, SeqState,
+                                                    seq_state_from_numpy)
+    rows, cap, a, p = 1025, 8192, 256, 64
+    if rows * (cap + 3) * a <= 2 ** 31:
+        fail('the wide case does not pass 2^31 cells')
+    small, batch = sc.case('random', np.random.default_rng(7), 2, cap, a, p)
+    want = seq_state_from_numpy(*small, device=DEVICE)
+    n_want = int(seq_kernel.seq_scan_plain(want, batch.to(DEVICE)))
+    big = SeqState.empty(rows, cap, a, device=DEVICE)
+    tail = slice(rows - 2, rows)
+    for t, x in zip(big.tensors(), seq_state_from_numpy(
+            *small, device=DEVICE).tensors()):
+        t[tail] = x
+    cols = []
+    for c in batch.columns():
+        full = np.zeros((rows,) + c.shape[1:], c.dtype)
+        full[rows - 2:] = c
+        cols.append(full)
+    n_got = int(seq_kernel.seq_scan(big, SeqOpBatch(*cols).to(DEVICE)))
+    err = abs(n_got - n_want)
+    for name, x, y in zip(sc.NAMES, big.tensors(), want.tensors()):
+        d = int((x[tail].long() - y.long()).abs().max())
+        if d:
+            fail(f'seq_scan != plain past 2^31 cells: {name} ({d})')
+        err = max(err, d)
+    if big.inexact[:rows - 2].any() or big.n[:rows - 2].any():
+        fail('seq_scan wrote rows without ops past 2^31 cells')
+    log(f'kernel == plain: seq_scan on [{rows}, {cap + 3}, {a}] '
+        f'({rows * (cap + 3) * a} cells per lane array), rows '
+        f'{rows - 2}-{rows - 1}, {n_got} ops applied')
+    del big
+    torch.cuda.empty_cache()
+    return err
 
 
 # ---- phase 3 ---------------------------------------------------------------
@@ -751,6 +845,165 @@ def _op_name(fleet, packed):
     from automerge_tpu_torch.fleet.tensor_doc import unpack_op_id
     ctr, num = unpack_op_id(int(packed))
     return f'{ctr}@{fleet.actors.actors[num]}'
+
+
+# ---- the text seam -----------------------------------------------------------
+
+TEXT_DOCS, TEXT_OPS, TEXT_MORE = 2_000, 10_000, (256, 256)
+
+
+class SeqRecorder:
+    """While on, keeps a copy of every batch the fleet hands the sequence
+    scan and of the state before that call, so phase 4 can hold the
+    kernel to its plain version on each of the main path's own inputs and
+    time it on the largest. The wrapper still counts its launches as
+    before."""
+
+    def __init__(self):
+        self.saved = []
+
+    def __enter__(self):
+        from automerge_tpu_torch.fleet import sequence
+        self._real = sequence.seq_scan
+
+        def call(state, ops):
+            self.saved.append((sequence.SeqState(
+                *(t.clone() for t in state.tensors())),
+                sequence.SeqOpBatch(*ops.columns())))
+            return self._real(state, ops)
+        sequence.seq_scan = call
+        return self
+
+    def __exit__(self, *exc):
+        from automerge_tpu_torch.fleet import sequence
+        sequence.seq_scan = self._real
+
+
+def run_text_seam(batches, exact=False, split=None):
+    """One text seam run on a fresh fleet: DocFleet(exact_device=exact),
+    init_docs(TEXT_DOCS), then one apply_changes_docs(mirror=False) call
+    per batch (every doc gets the same bytes), up to a sync. `split` (a
+    dict) receives the seconds of fleet + init_docs and of the applies.
+    Returns the fleet, the handles, and the dispatches and seq_scan
+    launches of each batch."""
+    import torch
+    from automerge_tpu_torch.fleet import seq_kernel
+    from automerge_tpu_torch.fleet.backend import (
+        DocFleet, apply_changes_docs, init_docs)
+    t0 = time.perf_counter()
+    fleet = DocFleet(doc_capacity=TEXT_DOCS, key_capacity=4,
+                     exact_device=exact, device=DEVICE)
+    handles = init_docs(TEXT_DOCS, fleet)
+    t1 = time.perf_counter()
+    dispatches, launches = [], []
+    for batch in batches:
+        d0, l0 = fleet.metrics.dispatches, seq_kernel.LAUNCHES['seq_scan']
+        handles, _ = apply_changes_docs(
+            handles, [list(batch) for _ in range(TEXT_DOCS)], mirror=False)
+        dispatches.append(fleet.metrics.dispatches - d0)
+        launches.append(seq_kernel.LAUNCHES['seq_scan'] - l0)
+    torch.cuda.synchronize()
+    if split is not None:
+        split['init_s'] = t1 - t0
+        split['apply_s'] = time.perf_counter() - t1
+    return fleet, handles, dispatches, launches
+
+
+def pool_bytes(fleet):
+    return {cls: (tuple(st.reg.shape), st.nbytes())
+            for cls, st in sorted(fleet.seq_pools.pools.items())}
+
+
+def check_text_seam(fleet, handles, dispatches, launches, want, tag):
+    """The text seam's checks at full size (see the module docstring)."""
+    from automerge_tpu_torch.columnar import decode_document
+    from automerge_tpu_torch.fleet.backend import get_patch, materialize_docs
+    want_doc, want_patch, want_save, hashes = want
+    if dispatches != [2, 1, 1] or launches != [1, 1, 1]:
+        fail(f'{tag}: dispatches {dispatches}, seq_scan launches '
+             f'{launches} per batch (want [2, 1, 1] and one launch each)')
+    if fleet.metrics.fallbacks:
+        fail(f'{tag}: {fleet.metrics.fallbacks} fallbacks')
+    for cls, st in fleet.seq_pools.pools.items():
+        if st.elem_id.device.type != DEVICE or bool(st.inexact.any()):
+            fail(f'{tag}: class {cls} on {st.elem_id.device}, inexact rows '
+                 f'{int(st.inexact.sum())}')
+    if fleet.exact_device and fleet.inexact_slots():
+        fail(f'{tag}: inexact slots {sorted(fleet.inexact_slots())[:8]}')
+    docs = materialize_docs(handles)
+    if len(docs) != TEXT_DOCS or any(doc != want_doc for doc in docs):
+        bad = next(i for i, doc in enumerate(docs) if doc != want_doc)
+        fail(f'{tag}: doc {bad} text != the host OpSet\'s')
+    for d in (0, 1, TEXT_DOCS // 2, TEXT_DOCS - 1):
+        if get_patch(handles[d]) != want_patch:
+            fail(f'{tag}: doc {d} get_patch() != the host patch')
+        saved = bytes(handles[d]['state'].save())
+        if saved != want_save or sorted(
+                ch['hash'] for ch in decode_document(saved)) != hashes:
+            fail(f'{tag}: doc {d} save() != the host\'s or does not '
+                 f'round-trip')
+
+
+def text_path():
+    """The text seam at full size (see the module docstring). Returns the
+    launches of every kernel, the scan's recorded input, the final LWW
+    fleet's pool states and the batches."""
+    from automerge_tpu_torch import backend as host
+    from automerge_tpu_torch.columnar import decode_change_meta
+    from automerge_tpu_torch.fleet import (merge_kernel, register_kernel,
+                                           seq_cases, seq_kernel)
+    from automerge_tpu_torch.fleet.backend import _leaf_value
+    batches = seq_cases.text_changes(TEXT_OPS, more=TEXT_MORE)
+    n_ops = TEXT_OPS + sum(TEXT_MORE)
+    hb = host.init()
+    for batch in batches:
+        hb, _ = host.apply_changes(hb, batch)
+    want_patch = host.get_patch(hb)
+    want = (_leaf_value(want_patch['diffs']), want_patch,
+            bytes(host.save(hb)),
+            sorted(decode_change_meta(b, True)['hash']
+                   for batch in batches for b in batch))
+    for mod in (merge_kernel, register_kernel, seq_kernel):
+        mod.reset_launches()
+    with SeqRecorder() as rec:
+        fleet, handles, dispatches, launches = run_text_seam(batches)
+    kernel_launches = {**merge_kernel.LAUNCHES, **seq_kernel.LAUNCHES}
+    if kernel_launches['seq_scan'] < 1 or kernel_launches['lww_merge'] < 1:
+        fail(f'the text seam never launched a kernel: {kernel_launches}')
+    check_text_seam(fleet, handles, dispatches, launches, want, 'text seam')
+    text_len = len(want[0]['t'])
+    log(f'text seam: {TEXT_DOCS} docs x {n_ops} ops ({len(batches[0])} + '
+        f'{len(batches[1])} + {len(batches[2])} changes, 3 actors; text of '
+        f'{text_len} chars), dispatches {dispatches}, seq_scan launches '
+        f'{launches}, kernel launches {kernel_launches}; pools '
+        f'(shape, bytes) {pool_bytes(fleet)}; all {TEXT_DOCS} texts == host '
+        f'OpSet, 4 sampled get_patch() and save() == host, save() '
+        f'round-trips, nothing inexact, no fallbacks')
+    pools = dict(fleet.seq_pools.pools)
+    del fleet, handles
+    register_kernel.reset_launches()
+    l0 = seq_kernel.LAUNCHES['seq_scan']
+    xfleet, xhandles, xdisp, xlaunch = run_text_seam(batches, exact=True)
+    if register_kernel.LAUNCHES['register_scan'] < 1 or \
+            seq_kernel.LAUNCHES['seq_scan'] - l0 < 1:
+        fail('the exact text seam never launched register_scan / seq_scan')
+    check_text_seam(xfleet, xhandles, xdisp, xlaunch, want,
+                    'exact text seam')
+    log(f'exact text seam: dispatches {xdisp}, seq_scan launches '
+        f'{xlaunch}, register_scan launches '
+        f'{register_kernel.LAUNCHES["register_scan"]}; all {TEXT_DOCS} '
+        f'texts == host OpSet, 4 sampled device-served get_patch() and '
+        f'save() == host, nothing inexact, no fallbacks')
+    del xfleet, xhandles
+    rates = []
+    for _ in range(5):
+        gc.collect()        # the last run's fleet returns its memory first
+        t0 = time.perf_counter()
+        run_text_seam(batches)
+        rates.append(TEXT_DOCS * n_ops / (time.perf_counter() - t0))
+    log(f'text seam ops/s (median of 5 warm reps): '
+        f'{statistics.median(rates):.1f}  reps {[round(r) for r in rates]}')
+    return kernel_launches, rec.saved, pools, batches
 
 
 # ---- the sync plane's main path --------------------------------------------
@@ -1193,22 +1446,27 @@ def kernel_numbers(grid_shape, baseline=None):
     return out
 
 
-def time_restored(fn, restore, reps=20):
+def time_restored(fn, restore, reps=20, flush=None):
     """Device ms of `fn()` (median of `reps` calls), each call on the
     state `restore()` puts back first, off the clock: for a kernel that
-    changes its inputs, as the hash-index insert does."""
+    changes its inputs, as the hash-index insert and the scans do. The
+    calls are queued behind a sleep kernel, so the host's launch cost is
+    off the clock; with `flush` (as for time_ms) each restore is followed
+    by a write that evicts the L2."""
     import torch
     restore()
     fn()
-    pairs = []
-    for _ in range(reps):
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(SLEEP_CYCLES)
+    for start, end in pairs:
         restore()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+        if flush is not None:
+            flush.fill_(1)
         start.record()
         fn()
         end.record()
-        pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
@@ -1391,31 +1649,15 @@ def register_numbers(saved):
             t.view(-1, a)[rows] = snap
         got.inexact.copy_(state0.inexact)
 
-    def queued(fn, reps=20, flush=None):
-        restore()
-        fn()
-        torch.cuda.synchronize()
-        pairs = [(torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-        torch.cuda._sleep(SLEEP_CYCLES)
-        for start, end in pairs:
-            restore()
-            if flush is not None:
-                flush.fill_(1)
-            start.record()
-            fn()
-            end.record()
-        torch.cuda.synchronize()
-        return statistics.median(s.elapsed_time(e) for s, e in pairs)
-
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32,
                         device=ops.kind.device)
     nums = dict(
         shape=f'[{n}, {k1}, {a}] state, {p} lanes x {d} preds per doc '
               f'({int(live.sum())} live)',
         max_abs_err=err,
-        ms=queued(lambda: rk.register_scan(got, ops)),
-        cold_ms=queued(lambda: rk.register_scan(got, ops), flush=flush),
+        ms=time_restored(lambda: rk.register_scan(got, ops), restore),
+        cold_ms=time_restored(lambda: rk.register_scan(got, ops), restore,
+                              flush=flush),
         plain_ms=time_restored(lambda: rk.register_scan_plain(got, ops),
                                restore, reps=3))
     del flush
@@ -1454,6 +1696,135 @@ def exact_breakdown(batches):
     log(f'breakdown, exact seam (traced run, first batch, wall '
         f'{wall * 1e3:.1f} ms): init_docs {split["init_s"] * 1e3:.1f} ms, '
         f'apply {split["apply_s"] * 1e3:.1f} ms; ' +
+        ', '.join(f'{name} {phases.get(name, 0) * 1e3:.1f} ms'
+                  for name in order))
+    device_line(wall, rows)
+
+
+def seq_numbers(saved, pools):
+    """The sequence scan on every batch the text seam handed it (each
+    recorded with the state before the call), in full: all rows and all
+    op columns through the kernel and through its plain version, each on
+    its own copy of the state, equal in all eight arrays and the applied
+    count; the plain version's time is taken there (host-issued, one
+    run). On the largest batch the kernel is then timed (device ms;
+    launches queued behind a sleep, each on the state restored from the
+    recording first, off the clock: L2 warm, and with the L2 flushed
+    after the restore) beside its bound and that batch's plain time. The
+    bound counts what the batch needs: every lane's kind and flag; each
+    live lane's ref, packed id, value and D preds; the elem_id of every
+    slot allocated before the call (read to build the index); the older
+    cells the ops name (an insert's referent's nxt; an update's target
+    lanes of reg, killed and counter); every array element the launch
+    changes, written once. Cells the launch writes before it reads them
+    are not read from memory. Operations: ~30 integer operations per
+    live op. No single PyTorch call computes the scan (library_ms null).
+    Then the torch-op linearize and materialize on each of the path's
+    size classes."""
+    import torch
+    from automerge_tpu_torch.fleet import seq_kernel as sk
+    from automerge_tpu_torch.fleet.sequence import (SeqState, linearize,
+                                                    materialize)
+
+    def copy(state):
+        return SeqState(*(t.clone() for t in state.tensors()))
+
+    err, plain = 0, []
+    for b, (state0, ops) in enumerate(saved):
+        got, want = copy(state0), copy(state0)
+        n_got = int(sk.seq_scan(got, ops))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        n_want = sk.seq_scan_plain(want, ops)
+        end.record()
+        torch.cuda.synchronize()
+        plain.append(start.elapsed_time(end))
+        e = abs(n_got - int(n_want))
+        for x, y in zip(got.tensors(), want.tensors()):
+            e = max(e, int((x.long() - y.long()).abs().max()))
+        del got, want
+        log(f'seq_scan == plain on the text seam\'s batch {b}: '
+            f'{list(state0.reg.shape)} state, {list(ops.preds.shape)} '
+            f'lanes x preds ({int((ops.kind != 0).sum())} live, applied '
+            f'{n_got}): max abs err {e}, plain {plain[-1]:.4f} ms')
+        if e:
+            fail(f'seq_scan != plain on the text seam\'s batch {b} (max abs '
+                 f'err {e})')
+        err = max(err, e)
+
+    big = max(range(len(saved)), key=lambda i: int((saved[i][1].kind != 0)
+                                                   .sum()))
+    state0, ops = saved[big]
+    r, nodes, a = state0.reg.shape
+    p, d = ops.preds.shape[1:]
+    got = copy(state0)
+
+    def restore():
+        for t, t0 in zip(got.tensors(), state0.tensors()):
+            t.copy_(t0)
+
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32,
+                        device=ops.kind.device)
+    live = ops.kind != 0
+    n_live = int(live.sum())
+    nums = dict(
+        shape=f'[{r}, {nodes}, {a}] state, {p} lanes x {d} preds per row '
+              f'({n_live} live)',
+        max_abs_err=err,
+        ms=time_restored(lambda: sk.seq_scan(got, ops), restore, reps=5),
+        cold_ms=time_restored(lambda: sk.seq_scan(got, ops), restore,
+                              reps=5, flush=flush),
+        plain_ms=plain[big])
+    del flush
+    restore()
+    applied = int(sk.seq_scan(got, ops))
+    written = sum(int((x != y).sum()) * x.element_size()
+                  for x, y in zip(got.tensors(), state0.tensors()))
+    del got
+    # the older cells the ops name: ref 0 (the head) or an elem_id the row
+    # held before the call
+    held = state0.elem_id.sort(dim=1).values
+    at = torch.searchsorted(held, ops.ref).clamp(max=nodes - 1)
+    older = live & ((ops.ref == 0) |
+                    (held.gather(1, at) == ops.ref))
+    del held, at
+    row = torch.arange(r, device=ops.kind.device).view(-1, 1).expand(r, p)
+    cell = row.long() << 32 | (ops.ref.long() & 0xFFFFFFFF)
+    ins = older & (ops.kind == sk.INSERT)
+    upd = older & (ops.kind != sk.INSERT) & (ops.ref != 0)
+    named = (int(torch.unique(cell[ins]).numel()) * 4 +
+             int(torch.unique(cell[upd]).numel()) * 9 * a)
+    touched = live.any(dim=1)
+    index_bytes = 4 * int(state0.n[touched].long().sum())
+    n_bytes = r * p * 5 + n_live * (12 + 4 * d) + index_bytes + named + \
+        written
+    nums.update(bound_of(n_bytes, n_live * 30), applied=applied,
+                written_bytes=written, index_bytes=index_bytes,
+                named_bytes=named, touched_rows=int(touched.sum()))
+    log(f'seq_scan at the text seam\'s largest batch, {nums["shape"]}: ' +
+        ', '.join(f'{key} {val:.4f}' if isinstance(val, float) else
+                  f'{key} {val}' for key, val in nums.items()
+                  if key != 'shape'))
+    for cls, st in sorted(pools.items()):
+        log(f'torch ops on class {cls} [{st.elem_id.shape[0]}, '
+            f'{st.elem_id.shape[1]}, {st.reg.shape[2]}]: linearize '
+            f'{time_ms(lambda: linearize(st), reps=5):.4f} ms, materialize '
+            f'{time_ms(lambda: materialize(st), reps=5):.4f} ms')
+    return nums
+
+
+def text_breakdown(batches):
+    """One traced text seam run (its three batches): seconds per seam
+    phase, and the device's busy time against the run's wall time."""
+    split = {}
+    wall, phases, rows = traced(lambda: run_text_seam(batches, split=split))
+    order = ('turbo_setup', 'turbo_parse', 'turbo_gate', 'turbo_commit',
+             'turbo_stage', 'turbo_dispatch', 'dispatch_seq', 'python_gc')
+    log(f'breakdown, text seam (traced run, wall {wall * 1e3:.1f} ms): '
+        f'init_docs {split["init_s"] * 1e3:.1f} ms, apply '
+        f'{split["apply_s"] * 1e3:.1f} ms; ' +
         ', '.join(f'{name} {phases.get(name, 0) * 1e3:.1f} ms'
                   for name in order))
     device_line(wall, rows)
@@ -1503,18 +1874,23 @@ def main():
     max_err = kernel_vs_plain()
     sync_kernel_vs_plain()
     reg_err = register_kernel_vs_plain()
+    seq_err = seq_kernel_vs_plain()
     launches, grid_bytes, grid_shape, per_doc, seam_handles = main_path()
     pipelined_path(per_doc, seam_handles)
     del seam_handles
     reg_launches, reg_input, exact_batches = exact_path(per_doc)
+    text_launches, seq_input, seq_pools, text_batches = text_path()
     sync = sync_path()
     nums = kernel_numbers(grid_shape, baseline)
     sync_nums = sync_kernel_numbers(sync.pop('inputs'))
     reg_nums = register_numbers(reg_input)
     del reg_input
+    seq_nums = seq_numbers(seq_input, seq_pools)
+    del seq_input, seq_pools
     breakdown(per_doc)
     breakdown(per_doc, 'pipelined')
     exact_breakdown(exact_batches)
+    text_breakdown(text_batches)
     sync_breakdown(sync)
     log(f'grid bytes: {grid_bytes}')
     log(f'wall: {time.perf_counter() - t_start:.1f} s')
@@ -1547,6 +1923,15 @@ def main():
         'max_abs_err': max(reg_err, reg_nums['max_abs_err']),
         'ms': reg_nums['ms'], 'plain_ms': reg_nums['plain_ms'],
         'bound_ms': reg_nums['bound_ms'], 'bound_by': reg_nums['bound_by'],
+        'library_ms': None})
+    kernels.append({
+        'name': 'seq_scan', 'route': 'cuda',
+        'source': 'automerge_tpu_torch/fleet/csrc/sequence.cu',
+        'replaces': 'automerge_tpu/fleet/sequence.py:436',
+        'launches': text_launches['seq_scan'],
+        'max_abs_err': max(seq_err, seq_nums['max_abs_err']),
+        'ms': seq_nums['ms'], 'plain_ms': seq_nums['plain_ms'],
+        'bound_ms': seq_nums['bound_ms'], 'bound_by': seq_nums['bound_by'],
         'library_ms': None})
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -6,12 +6,14 @@ also runs on a machine without jax:
 
 Each hand-written kernel is held against its plain torch version on the
 same inputs, and the seam, the pipelined seam, a sync round and an
-exact-device seam on the card against the same on the CPU. Tolerance:
-none (exact int32 equality on the merge's real key columns [:, :K],
-whose column K is the scratch column and holds garbage by contract;
-equal Bloom bytes and probe answers; equal hash-index membership and
-new-key counts, since the insert kernel's slot layout may differ where
-rows race for a slot; equal register arrays, all five)."""
+exact-device seam and a text seam (both device modes) on the card
+against the same on the CPU. Tolerance: none (exact int32 equality on
+the merge's real key columns [:, :K], whose column K is the scratch
+column and holds garbage by contract; equal Bloom bytes and probe
+answers; equal hash-index membership and new-key counts, since the
+insert kernel's slot layout may differ where rows race for a slot;
+equal register arrays, all five; equal sequence arrays, all eight, and
+applied counts)."""
 
 import numpy as np
 import pytest
@@ -22,6 +24,7 @@ from automerge_tpu_torch.backend import init_sync_state
 from automerge_tpu_torch.fleet import apply
 from automerge_tpu_torch.fleet import backend, merge_kernel
 from automerge_tpu_torch.fleet import register_cases, register_kernel
+from automerge_tpu_torch.fleet import seq_cases, seq_kernel
 from automerge_tpu_torch.fleet import sync_cases, sync_driver, sync_kernels
 from automerge_tpu_torch.fleet.merge_cases import (CORNERS, clone,
                                                    corner_cols, launch_along,
@@ -432,3 +435,64 @@ def test_exact_seam_on_the_card_matches_the_cpu(cuda):
     assert gpu[1][0] and not gpu[2]         # a conflict, nothing inexact
     for a, b in zip(cpu[5], gpu[5]):
         np.testing.assert_array_equal(b, a)
+
+
+# ---- the sequence scan ------------------------------------------------------
+
+@pytest.mark.parametrize('lanes', [0, 1, 20, 512])
+@pytest.mark.parametrize('name', seq_cases.CASES)
+def test_seq_scan_matches_plain_version(cuda, name, lanes):
+    """Every corner of fleet/seq_cases.py at P = 0, 1, 20 and 512 op lanes
+    per doc (4 actor lanes, capacity 64; the 'capacity' case fills its
+    rows). At P = 512 the plain version runs on the CPU: its Python loop
+    would issue ~60,000 small launches on the card."""
+    rng = np.random.default_rng(91 + seq_cases.CASES.index(name))
+    n_docs = 24 if lanes == 512 else 64
+    state, batch = seq_cases.case(name, rng, n_docs, 64, 4, lanes)
+    before = seq_kernel.LAUNCHES['seq_scan']
+    got = seq_cases.both(state, batch, cuda, 'cpu' if lanes == 512 else None)
+    assert got['differ'] == [] and got['max_abs_err'] == 0, got
+    assert seq_kernel.LAUNCHES['seq_scan'] == before + (1 if lanes else 0)
+
+
+@pytest.mark.parametrize('name', seq_cases.CASES)
+def test_seq_scan_at_256_actor_lanes(cuda, name):
+    rng = np.random.default_rng(97 + seq_cases.CASES.index(name))
+    state, batch = seq_cases.case(name, rng, 16, 40, 256, 20)
+    got = seq_cases.both(state, batch, cuda)
+    assert got['differ'] == [] and got['max_abs_err'] == 0, got
+
+
+@pytest.mark.parametrize('exact', [False, True])
+def test_text_seam_on_the_card_matches_the_cpu(cuda, exact):
+    """seq_cases.text_changes' trace (a makeText, then inserts and deletes
+    by 3 actors on one chain) and two incremental batches through
+    DocFleet on each device: one sequence dispatch (one launch on the
+    card) per batch, the same texts, patches, saves and pool arrays."""
+    from automerge_tpu_torch.fleet.sequence import seq_state_to_numpy
+    batches = seq_cases.text_changes(300, more=(32, 32), seed=5)
+    n_docs = 12
+    results = {}
+    for dev in ('cpu', 'cuda'):
+        fleet = backend.DocFleet(doc_capacity=n_docs, key_capacity=4,
+                                 exact_device=exact, device=dev)
+        handles = backend.init_docs(n_docs, fleet)
+        before = seq_kernel.LAUNCHES['seq_scan']
+        for batch in batches:
+            handles, _ = backend.apply_changes_docs(
+                handles, [list(batch) for _ in range(n_docs)], mirror=False)
+        launched = seq_kernel.LAUNCHES['seq_scan'] - before
+        assert launched == (len(batches) if dev == 'cuda' else 0)
+        assert fleet.metrics.fallbacks == 0
+        pools = {cls: seq_state_to_numpy(st)
+                 for cls, st in fleet.seq_pools.pools.items()}
+        results[dev] = (backend.materialize_docs(handles),
+                        [backend.get_patch(h) for h in handles[:3]],
+                        [bytes(h['state'].save()) for h in handles],
+                        fleet.metrics.dispatches, pools)
+    cpu, gpu = results['cpu'], results['cuda']
+    assert gpu[:4] == cpu[:4]
+    assert sorted(gpu[4]) == sorted(cpu[4])
+    for cls in cpu[4]:
+        for a, b in zip(cpu[4][cls], gpu[4][cls]):
+            np.testing.assert_array_equal(b, a)

@@ -147,23 +147,51 @@ def test_dead_and_unknown_spaces_answer_false():
                        [_h(1)]).tolist() == [False]
 
 
-def test_host_mode_and_device_mode_answer_identically():
+def _mode_trace():
+    """60 seeded inserts and probes over 4 spaces and 30 keys, and the
+    answers the probes must give (membership so far)."""
     rng = np.random.default_rng(7)
     trace = [(int(rng.integers(4)), _h(int(rng.integers(30))),
               bool(rng.random() < 0.5)) for _ in range(60)]
-    answers = []
-    for device_min in (10 ** 9, 1, 12):   # host, device, promoted midway
-        j, t = _pair(device_min=device_min)
-        out = []
-        for s, h, is_insert in trace:
-            if is_insert:
-                assert t.insert(s, [h]) == j.insert(s, [h])
-            else:
-                out.append(bool(_probe_both(j, t, s, [h])[0]))
-        _same_table(j, t)
-        answers.append((t.mode, out))
-    assert [a[0] for a in answers] == ['host', 'device', 'device']
-    assert answers[0][1] == answers[1][1] == answers[2][1]
+    seen, want = set(), []
+    for s, h, is_insert in trace:
+        if is_insert:
+            seen.add((s, h))
+        else:
+            want.append((s, h) in seen)
+    return trace, want
+
+
+def _answers_in_mode(device_min):
+    trace, want = _mode_trace()
+    # 16 slots: the table grows in every mode (and across the promotion)
+    j, t = _pair(device_min=device_min)
+    out = []
+    for s, h, is_insert in trace:
+        if is_insert:
+            assert t.insert(s, [h]) == j.insert(s, [h])
+        else:
+            out.append(bool(_probe_both(j, t, s, [h])[0]))
+    _same_table(j, t)
+    assert out == want
+    return t.mode, t.cap
+
+
+# One test per mode (each a family of its own in the slow audit's
+# accounting): each answers as the membership model, so all three answer
+# identically. The device tables grow from 16 to 64 slots, the promoted
+# one across its promotion.
+
+def test_host_mode_and_device_mode_answer_identically():
+    assert _answers_in_mode(10 ** 9) == ('host', 16)
+
+
+def test_device_mode_answers_as_the_host_mode():
+    assert _answers_in_mode(1) == ('device', 64)
+
+
+def test_mode_promoted_midway_answers_as_the_host_mode():
+    assert _answers_in_mode(12) == ('device', 64)
 
 
 def test_start_position_wraps_like_uint32():
@@ -326,18 +354,12 @@ def test_fleet_index_stages_commits_and_drops_freed_slots():
     _same_table(universes[0][2].table, universes[1][2].table)
 
 
-@pytest.mark.parametrize('name', ['collide', 'wrap', 'dups', 'load',
-                                  'spaces'])
-def test_shared_kernel_cases_hold_on_the_cpu(name):
+def _shared_case_holds(name, cap=None):
     """The corner inputs the card tests and chip_smoke.py hand the
     kernels (fleet/sync_cases.py), through the plain versions here: the
     colliding keys really share one start slot, the batch lands within
     the load bound, and every inserted key is then found."""
     from automerge_tpu_torch.fleet import sync_cases
-    # smaller tables than the card's (the plain claim loop walks a
-    # colliding chain one key per step); 'dups' has a fixed row count
-    cap = {'collide': 256, 'wrap': 256, 'load': 1 << 12,
-           'spaces': 1 << 12}.get(name)
     case = sync_cases.index_case(name, np.random.default_rng(41), CPU, cap)
     cap = len(case['tspace'])
     if name in ('collide', 'wrap'):
@@ -356,6 +378,30 @@ def test_shared_kernel_cases_hold_on_the_cpu(name):
     # the comparison the card runs, here with the plain versions both sides
     assert sync_cases.index_both(case) == dict(n_new=n_new, insert=0,
                                                probe=0, wrong=0)
+
+
+# Smaller tables than the card's (the plain claim loop walks a colliding
+# chain one key per step; 'dups' has a fixed row count). Each case is a
+# family of its own in the slow audit's accounting.
+
+def test_shared_kernel_cases_hold_on_the_cpu():
+    _shared_case_holds('dups')
+
+
+def test_shared_load_bound_case_holds_on_the_cpu():
+    _shared_case_holds('load', 1 << 10)
+
+
+def test_shared_many_spaces_case_holds_on_the_cpu():
+    _shared_case_holds('spaces', 1 << 10)
+
+
+def test_shared_collision_chain_case_holds_on_the_cpu():
+    _shared_case_holds('collide', 128)
+
+
+def test_shared_wrapping_chain_case_holds_on_the_cpu():
+    _shared_case_holds('wrap', 128)
 
 
 def test_index_wrappers_refuse_malformed_inputs():

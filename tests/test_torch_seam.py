@@ -220,29 +220,28 @@ def test_state_from_numpy_carries_a_grid_across():
 
 
 def test_text_documents_raise_not_implemented():
+    """Text documents were a later slice of the port and raised here; they
+    now apply on both paths in both device modes and read as the
+    reference reads them (tests/test_torch_text_seam.py holds them to the
+    reference in depth)."""
     text = encode_change({
         'actor': A, 'seq': 1, 'startOp': 1, 'time': 0, 'message': '',
         'deps': [], 'ops': [{'action': 'makeText', 'obj': '_root',
                              'key': 't', 'pred': []}]})
-    for mirror in (False, True):
-        fleet = torch_backend.DocFleet(device='cpu')
-        handles = torch_backend.init_docs(2, fleet)
-        with pytest.raises(NotImplementedError, match='sequence'):
-            torch_backend.apply_changes_docs(handles, [[text], []],
-                                             mirror=mirror)
-
-
-def _exact_fleet_fed_text():
-    fleet = torch_backend.DocFleet(device='cpu', exact_device=True)
-    handles = torch_backend.init_docs(1, fleet)
-    torch_backend.apply_changes_docs(handles, [[encode_change({
-        'actor': A, 'seq': 1, 'startOp': 1, 'time': 0, 'message': '',
-        'deps': [], 'ops': [{'action': 'makeText', 'obj': '_root',
-                             'key': 't', 'pred': []}]})]], mirror=False)
+    for exact in (False, True):
+        for mirror in (False, True):
+            docs = []
+            for be, kw in ((jax_backend, {}), (torch_backend,
+                                               {'device': 'cpu'})):
+                fleet = be.DocFleet(exact_device=exact, **kw)
+                handles = be.init_docs(2, fleet)
+                handles, _ = be.apply_changes_docs(handles, [[text], []],
+                                                   mirror=mirror)
+                docs.append(be.materialize_docs(handles))
+            assert docs[1] == docs[0] == [{'t': ''}, {}]
 
 
 @pytest.mark.parametrize('call', [
-    _exact_fleet_fed_text,
     lambda: torch_backend.DocFleet(device='cpu', mesh=object()),
     lambda: torch_driver.generate_sync_messages_mixed(None, [], []),
     lambda: torch_backend.DocFleet(device='cpu').attach_journal(object()),
