@@ -22,11 +22,22 @@ and chip_smoke.py.
   reclaiming an inc'd lane), 'flags' (host flags, on PAD lanes too),
   'capacity' (a row one slot below capacity and rows at capacity: the
   cursor clamp), 'cyclic' (a cycle of nodes whose ids exceed every insert:
-  the hop backstop) and 'kinds' (unknown op kinds).
-- `both(state, batch, device, plain_device)`: the case through `seq_scan`
-  (the kernel on a CUDA device) and `seq_scan_plain`, each on its own
+  the hop backstop), 'kinds' (unknown op kinds); and the corners of the
+  kernel's parallel resolution: 'later_ref' (ops naming an id that an
+  insert at a later column of the batch brings: a miss), 'dup_ids'
+  (inserts whose id an allocated element or an earlier insert already
+  holds: the lowest node wins), 'hot_node' (an insert and up to 31 sets,
+  deletes and incs of its element inside one 32-column chunk) and
+  'serial' (an insert that fails mid-row, then inserts and ops naming
+  the shifted slots: the kernel's serial route).
+- GLOBAL_CAPACITY: a class whose rows do not fit a CTA's shared memory
+  (the kernel's 'global' route).
+- `both(state, batch, device, plain_device, route)`: the case through the
+  kernel on a CUDA device (along `route`, or the wrapper's own plan) or
+  `seq_scan` on the CPU, and through `seq_scan_plain`, each on its own
   copy; returns the names of the arrays that differ, the two applied
-  counts and the largest difference.
+  counts, the largest difference, the route and the rows that took the
+  serial route.
 - `TextTrace(seed)` / `text_changes(n_ops, more, seed)`: the text seam's
   editing trace (BASELINE config 2: one makeText, ~80 % inserts, ~20 % deletes, 3
   actors taking turns on one causal chain, 32 ops per change) as change
@@ -34,16 +45,20 @@ and chip_smoke.py.
 """
 
 import numpy as np
+import torch
 
 from ..columnar import decode_change_meta, encode_change
-from .seq_kernel import (END, INC, INSERT, PAD, SET, SLOT0,
+from . import seq_kernel
+from .seq_kernel import (DEL, END, INC, INSERT, PAD, SET, SLOT0,
                          seq_scan, seq_scan_plain)
 from .sequence import (SEQ_PRED_LANES, SeqOpBatch, SeqState,
                        seq_state_from_numpy, seq_state_to_numpy)
 
 CASES = ('random', 'typing', 'concurrent_head', 'dup_preds', 'dead_max_inc',
          'lanes_oob', 'wrap', 'unknown_ref', 'self_conflict', 'flags',
-         'capacity', 'cyclic', 'kinds')
+         'capacity', 'cyclic', 'kinds', 'later_ref', 'dup_ids', 'hot_node',
+         'serial')
+GLOBAL_CAPACITY = 65536
 NAMES = ('elem_id', 'nxt', 'reg', 'killed', 'val', 'counter', 'n',
          'inexact')
 _KINDS = {'random': (0.1, 0.45, 0.15, 0.15, 0.15),
@@ -52,7 +67,10 @@ _KINDS = {'random': (0.1, 0.45, 0.15, 0.15, 0.15),
           'dead_max_inc': (0.05, 0.3, 0.1, 0.1, 0.45),
           'wrap': (0.05, 0.3, 0.1, 0.05, 0.5),
           'self_conflict': (0.05, 0.3, 0.5, 0.05, 0.1),
-          'capacity': (0.0, 0.9, 0.05, 0.05, 0.0)}
+          'capacity': (0.0, 0.9, 0.05, 0.05, 0.0),
+          'later_ref': (0.05, 0.5, 0.15, 0.15, 0.15),
+          'dup_ids': (0.05, 0.6, 0.1, 0.1, 0.15),
+          'serial': (0.0, 0.7, 0.1, 0.1, 0.1)}
 
 
 def _packed(ctr, actor):
@@ -230,7 +248,102 @@ def case(name, rng, n_docs, capacity, n_slots, lanes):
         odd = (rng.random(kind.shape) < 0.15)
         kind[...] = np.where(odd, rng.choice([5, 7, -1, -3], kind.shape),
                              kind)
+    elif name == 'later_ref':
+        _later_refs(rng, kind, ref, packed)
+    elif name == 'dup_ids':
+        _dup_ids(rng, arrays, kind, ref, packed)
+    elif name == 'hot_node':
+        _hot_node(rng, arrays, kind, ref, packed, value, preds)
+    elif name == 'serial':
+        _failing_insert(rng, kind, ref, packed)
     return arrays, batch
+
+
+def _later_refs(rng, kind, ref, packed):
+    """Point a quarter of the live ops at the id an insert at a later
+    column brings (sets, deletes and incs only on even rows, whose
+    inserts all still resolve; inserts too on odd rows)."""
+    for d in range(kind.shape[0]):
+        ins = np.flatnonzero(kind[d] == INSERT)
+        for i in np.flatnonzero(kind[d] != PAD):
+            later = ins[ins > i]
+            if not len(later) or rng.random() >= 0.25 or \
+                    (d % 2 == 0 and kind[d, i] == INSERT):
+                continue
+            ref[d, i] = packed[d, int(rng.choice(later))]
+
+
+def _dup_ids(rng, arrays, kind, ref, packed):
+    """Give a fifth of the inserts an id an allocated element or an
+    earlier insert of the row already holds; later ops that named the
+    insert's own id name the shared one, which resolves to its lowest
+    node."""
+    elem_id, n = arrays[0], arrays[6]
+    for d in range(kind.shape[0]):
+        held = [int(e) for e in elem_id[d, SLOT0:SLOT0 + n[d]] if e]
+        for i in np.flatnonzero(kind[d] == INSERT):
+            earlier = [int(x) for x in packed[d, :i][kind[d, :i] == INSERT]]
+            pool = held + earlier
+            if pool and rng.random() < 0.2:
+                own = packed[d, i]
+                packed[d, i] = pool[int(rng.integers(0, len(pool)))]
+                later = ref[d, i + 1:]
+                later[later == own] = packed[d, i]
+
+
+def _hot_node(rng, arrays, kind, ref, packed, value, preds):
+    """The row's last 32 columns (or all, if fewer): an insert, then
+    sets, deletes and incs of its element, each pred'ing ops standing in
+    its lanes (or its own id)."""
+    n_docs, lanes = kind.shape
+    a = arrays[2].shape[2]
+    if not lanes:
+        return
+    c0 = max(0, lanes - 32)
+    ctr = int(max(packed.max(initial=0), arrays[0].max(initial=0),
+                  arrays[2].max(initial=0)) >> 8) + 2
+    for d in range(n_docs):
+        elems = [int(e) for e in arrays[0][d, SLOT0:SLOT0 + arrays[6][d]]
+                 if e] + [int(x) for x in packed[d, :c0][kind[d, :c0] ==
+                                                        INSERT]]
+        x = _packed(ctr, int(rng.integers(0, a)))
+        kind[d, c0], packed[d, c0] = INSERT, x
+        ref[d, c0] = elems[int(rng.integers(0, len(elems)))] \
+            if elems and rng.random() < 0.7 else 0
+        value[d, c0], preds[d, c0] = 65, 0
+        standing, c = [x], ctr
+        for i in range(c0 + 1, lanes):
+            if rng.random() >= 0.2:
+                c += 1
+            kd = int(rng.choice([SET, DEL, INC], p=[0.45, 0.2, 0.35]))
+            pk = _packed(c, int(rng.integers(0, a)))
+            kind[d, i], ref[d, i], packed[d, i] = kd, x, pk
+            value[d, i] = int(rng.integers(-3, 9)) if kd == INC else \
+                int(rng.integers(32, 127))
+            preds[d, i] = 0
+            cand = standing + [x]
+            for j in range(int(rng.integers(0, preds.shape[2] + 1))):
+                preds[d, i, j] = cand[int(rng.integers(0, len(cand)))]
+            named = set(preds[d, i].tolist())
+            if kd != INC:
+                standing = [s for s in standing if s not in named] + \
+                    ([pk] if kd == SET else [])
+
+
+def _failing_insert(rng, kind, ref, packed):
+    """An insert a third of the way into each row names an id nobody
+    holds, so it fails and every later insert lands one slot lower than
+    the parallel resolution assumes; on odd rows a second one fails at a
+    random column."""
+    n_docs, lanes = kind.shape
+    if not lanes:
+        return
+    for d in range(n_docs):
+        cols = [lanes // 3] + ([int(rng.integers(0, lanes))] if d % 2 else [])
+        for i in cols:
+            kind[d, i] = INSERT
+            ref[d, i] = _packed(1 << 22, 1)
+            packed[d, i] = _packed((1 << 22) + 1 + i, 0)
 
 
 def _unlink(arrays, d, node):
@@ -247,16 +360,40 @@ def _unlink(arrays, d, node):
     arrays[6][d] -= 1
 
 
-def both(state, batch, device, plain_device=None):
-    """The case through the routed `seq_scan` (the kernel on a CUDA
-    device) on `device` and through `seq_scan_plain` on `plain_device`
-    (default: the same device), each on its own copy of the state. Returns
-    {'differ': [array names], 'applied': (kernel's, plain's),
-    'max_abs_err': int}."""
+def plan_along(route, state, ops):
+    """The wrapper's launch plan for `state` and `ops`, with `route`
+    ('resident' or 'global') forced where given."""
+    r, nodes = state.elem_id.shape
+    p, d = ops.preds.shape[1:]
+    plan = seq_kernel._launch_plan(r, nodes, state.reg.shape[2], p, d)
+    if route is None or route == plan.route:
+        return plan
+    resident = route == 'resident'
+    smem = (seq_kernel.row_bytes(nodes) if resident else 0) + \
+        seq_kernel.STAGE_BYTES
+    return plan._replace(route=route, smem_bytes=smem,
+                         ctas_per_sm=seq_kernel._ctas_per_sm(smem))
+
+
+def both(state, batch, device, plain_device=None, route=None):
+    """The case on `device` (a CUDA device: the kernel, along `route` or
+    the wrapper's own plan; the CPU: `seq_scan`) and through
+    `seq_scan_plain` on `plain_device` (default: the same device), each
+    on its own copy of the state. Returns {'differ': [array names],
+    'applied': (kernel's, plain's), 'max_abs_err': int, 'route': the
+    kernel's route or None, 'serial_rows': rows on the serial route or
+    None}."""
     plain_device = plain_device or device
     got = seq_state_from_numpy(*state, device=device)
     want = seq_state_from_numpy(*state, device=plain_device)
-    n_got = int(seq_scan(got, batch.to(device)))
+    ops = batch.to(device)
+    took, serial = None, None
+    if torch.device(device).type == 'cuda':
+        plan = plan_along(route, got, ops)
+        stats = seq_kernel._launch(got, ops, plan)
+        n_got, serial, took = int(stats[0]), int(stats[1]), plan.route
+    else:
+        n_got = int(seq_scan(got, ops))
     n_want = int(seq_scan_plain(want, batch.to(plain_device)))
     differ, err = [], abs(n_got - n_want)
     for name, x, y in zip(NAMES, seq_state_to_numpy(got),
@@ -266,7 +403,8 @@ def both(state, batch, device, plain_device=None):
         if dd:
             differ.append(name)
         err = max(err, dd)
-    return {'differ': differ, 'applied': (n_got, n_want), 'max_abs_err': err}
+    return {'differ': differ, 'applied': (n_got, n_want), 'max_abs_err': err,
+            'route': took, 'serial_rows': serial}
 
 
 # ---- the text seam's editing trace -----------------------------------------

@@ -31,7 +31,17 @@ cuda_build.py); CPU tensors run `seq_scan_plain`, the same function in
 torch ops (it also runs on CUDA tensors when called by name, as
 chip_smoke.py does to hold the kernel to it). There is no fallback
 between the two: a build or launch failure raises.
-`LAUNCHES['seq_scan']` counts kernel launches and nothing else.
+`LAUNCHES['seq_scan']` counts kernel launches and nothing else;
+`ROUTE_LAUNCHES` counts them by route.
+
+The kernel (csrc/sequence.cu says why) gives each row one CTA and splits
+its work: phase A resolves every op's node in parallel (the rule is
+`resolve_plain`), phase B walks the splice chain over the row held in
+shared memory, phase C applies the register updates beside it. Rows where
+the parallel resolution is not exact (an insert over capacity or with an
+unresolved referent) take a serial route inside the same launch.
+`_launch_plan` picks the launch: 'resident' where a row's elem_id and nxt
+fit a CTA's shared memory, 'global' (the walk in device memory) above.
 
 The kernel's input contract is the state the engine itself keeps: every
 `nxt` entry lies in [0, nodes), and elem_id is 0 outside the allocated
@@ -40,6 +50,7 @@ only such states.
 """
 
 import ctypes
+from collections import namedtuple
 
 import torch
 
@@ -53,17 +64,47 @@ ACTOR_MASK = MAX_ACTORS - 1
 INT32_MAX = 2**31 - 1
 
 LAUNCHES = {'seq_scan': 0}
+ROUTE_LAUNCHES = {'resident': 0, 'global': 0}
+
+# The launch geometry, mirrored from csrc/sequence.cu.
+THREADS = 256                 # one CTA of 8 warps per row
+MAX_PREDS = 8                 # pred lanes the kernel stages
+AHEAD = 128                   # columns phase B loads ahead
+MAX_RESIDENT_NODES = 65536    # the resident route holds nxt as uint16
+STAGE_BYTES = (2 * (AHEAD + 2) + 32 * (3 + MAX_PREDS)) * 4   # phases B, C
+SMEM_LIMIT = 232_448          # shared memory a CTA may use on sm_90
+SMEM_BUDGET = SMEM_LIMIT - 1_024     # dynamic; the rest covers the static
+SM_SHARED = 233_472           # shared memory of one SM (228 KB)
+CTA_RESERVED = 1_024          # the system's share of it per CTA
+MAX_CTAS_PER_SM = 2048 // THREADS
+_ROUTES = {'resident': 0, 'global': 1}
+
+Plan = namedtuple('Plan', (
+    'route',          # 'resident' or 'global'
+    'grid',           # CTAs: one per row
+    'threads',        # threads per CTA
+    'rows_per_cta',   # rows a CTA owns (1)
+    'smem_bytes',     # dynamic shared memory per CTA
+    'ctas_per_sm',    # CTAs an SM holds at once, by shared memory
+    'table_slots'))   # entries of a row's lookup table (in shared memory
+                      # on the resident route, else in device scratch)
+
+_set_up = set()       # devices where seq_scan_setup has run
 
 
 def reset_launches():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for table in (LAUNCHES, ROUTE_LAUNCHES):
+        for name in table:
+            table[name] = 0
 
 
 def _declare(lib):
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.seq_scan_launch.argtypes = [ptr] * 16 + [i64] * 6 + [ptr]
+    lib.seq_scan_launch.argtypes = [ptr] * 17 + [i64] * 6 + \
+        [ctypes.c_int, i64, ptr]
     lib.seq_scan_launch.restype = ctypes.c_int
+    lib.seq_scan_setup.argtypes = [ctypes.c_int]
+    lib.seq_scan_setup.restype = ctypes.c_int
 
 
 def build():
@@ -72,13 +113,41 @@ def build():
 
 
 def table_slots(capacity):
-    """Slots of the per-doc elemId -> node index the kernel builds in
-    scratch: a power of two at least twice the row's capacity (load factor
-    at most one half)."""
-    t = 1
-    while t < 2 * max(capacity, 1):
-        t *= 2
-    return t
+    """Entries of the lookup table of a row of `capacity` slots (it
+    holds at most that many nodes): load factor <= 0.8."""
+    return (capacity * 5 // 4 + 7) // 8 * 8 + 8
+
+
+def _round16(n):
+    return -(-n // 16) * 16
+
+
+def row_bytes(nodes):
+    """Shared bytes of one resident row: elem_id (int32), then a region
+    that holds the lookup table (uint16 nodes) during phase A and nxt
+    (uint16) after it."""
+    return _round16(nodes * 4) + \
+        _round16(2 * max(nodes, table_slots(nodes - 3)))
+
+
+def _ctas_per_sm(smem):
+    return min(MAX_CTAS_PER_SM, SM_SHARED // (smem + CTA_RESERVED))
+
+
+def _launch_plan(rows, nodes, a, p, d):
+    """The launch of a [rows, nodes, a] class with a [rows, p, d] batch:
+    one CTA of THREADS per row; 'resident' (the row's elem_id, its lookup
+    table and then its nxt in shared memory) where they fit SMEM_BUDGET
+    beside the staging, else 'global' (all three in device memory). Which
+    rows take the serial route is decided per row inside the kernel."""
+    if not 1 <= a <= ACTOR_MASK + 1 or not 0 <= d <= MAX_PREDS:
+        raise ValueError(f'seq_scan: {a} actor lanes and {d} pred lanes are '
+                         f'outside [1, {ACTOR_MASK + 1}] x [0, {MAX_PREDS}]')
+    resident = nodes <= MAX_RESIDENT_NODES and \
+        row_bytes(nodes) + STAGE_BYTES <= SMEM_BUDGET
+    smem = (row_bytes(nodes) if resident else 0) + STAGE_BYTES
+    return Plan('resident' if resident else 'global', rows, THREADS, 1,
+                smem, _ctas_per_sm(smem), table_slots(nodes - 3))
 
 
 def _check(state, ops):
@@ -121,12 +190,30 @@ def seq_scan(state, ops):
         return seq_scan_plain(state, ops)
     if dev.type != 'cuda':
         raise ValueError(f'seq_scan: unsupported device {dev}')
+    return _launch(state, ops, _launch_plan(r, nodes, a, p, d))[0]
+
+
+def _launch(state, ops, plan):
+    """One launch of the kernel along `plan` (a route may be forced, as
+    the card tests do); returns its stats, an int32 CUDA tensor [applied
+    ops, rows that took the serial route]."""
+    dev, r, nodes, a, p, d = _check(state, ops)
+    if dev.type != 'cuda':
+        raise ValueError('seq_scan: the kernel takes CUDA tensors only')
     lib = build()
-    applied = torch.zeros(1, dtype=torch.int32, device=dev)
-    t = table_slots(nodes - 3)
-    table = torch.empty((r if r * p else 0, t), dtype=torch.int64,
-                        device=dev)
+    stats = torch.zeros(2, dtype=torch.int32, device=dev)
+    live = r if r * p else 0
+    aux = torch.empty((live, p), dtype=torch.int32, device=dev)
+    table = torch.empty((0 if plan.route == 'resident' else live,
+                         plan.table_slots), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
+        index = torch.cuda.current_device()
+        if index not in _set_up:
+            err = lib.seq_scan_setup(SMEM_BUDGET)
+            if err != 0:
+                raise RuntimeError(f'seq_scan: setting the resident route\'s '
+                                   f'shared memory failed: CUDA error {err}')
+            _set_up.add(index)
         err = lib.seq_scan_launch(
             state.elem_id.data_ptr(), state.nxt.data_ptr(),
             state.reg.data_ptr(), state.killed.data_ptr(),
@@ -134,13 +221,16 @@ def seq_scan(state, ops):
             state.n.data_ptr(), state.inexact.data_ptr(),
             ops.kind.data_ptr(), ops.ref.data_ptr(), ops.packed.data_ptr(),
             ops.value.data_ptr(), ops.preds.data_ptr(), ops.flag.data_ptr(),
-            applied.data_ptr(), table.data_ptr(), r, nodes, a, p, d, t,
+            stats.data_ptr(), aux.data_ptr(), table.data_ptr(), r, nodes, a,
+            p, d, plan.table_slots, _ROUTES[plan.route], plan.smem_bytes,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f'seq_scan kernel launch failed: CUDA error {err}')
-    if r * p:
+        raise RuntimeError(f'seq_scan kernel launch failed ({plan.route} '
+                           f'route): CUDA error {err}')
+    if live:
         LAUNCHES['seq_scan'] += 1
-    return applied[0]
+        ROUTE_LAUNCHES[plan.route] += 1
+    return stats
 
 
 def check_rows(state):
@@ -153,6 +243,54 @@ def check_rows(state):
     ok_elem = ((state.elem_id == 0) | alloc).all(dim=1)
     ok_n = (state.n >= 0) & (state.n <= nodes - 3)
     return ok_nxt & ok_elem & ok_n
+
+
+Resolved = namedtuple('Resolved', ('node', 'slot', 'exact', 'n'))
+
+
+def resolve_plain(state, ops):
+    """Phase A's rule in torch ops (the kernel's parallel resolution, for
+    the tests; [R, P, nodes] and [R, P, P] compares, small inputs only).
+    Assuming every insert of a row applies, insert k of the row (in
+    column order) lands at `slot` SLOT0 + n0 + k, and the `node` of a
+    known op at column i is the lowest node in [SLOT0, SLOT0 + n0)
+    holding its ref, else the slot of the earliest insert at a column
+    before i with that packed id, else -1 (a miss); ref == 0 is HEAD for
+    an insert and -1 otherwise. `exact` [R] holds where the assumption
+    does (n0 + inserts <= capacity and every insert resolves): there the
+    scan ends with `n` [R] = n0 + inserts, each op's ref at its node and
+    each insert's id at its slot. Unknown kinds resolve to -1."""
+    kind, ref, packed = ops.kind, ops.ref, ops.packed
+    r, nodes = state.elem_id.shape
+    p = kind.shape[1]
+    dev = kind.device
+    is_ins = kind == INSERT
+    known = (kind >= INSERT) & (kind <= INC)
+    n0 = state.n.long()
+    before = torch.cumsum(is_ins.long(), 1) - is_ins.long()
+    slot = torch.where(is_ins, SLOT0 + n0.unsqueeze(1) + before, -1)
+    node_ids = torch.arange(nodes, device=dev)
+    alloc = (node_ids >= SLOT0) & (node_ids < SLOT0 + n0.unsqueeze(1))
+    hit = (state.elem_id.unsqueeze(1) == ref.unsqueeze(2)) & \
+        alloc.unsqueeze(1)
+    held = torch.where(hit, node_ids, nodes).min(dim=2).values \
+        if nodes else torch.full_like(ref, nodes, dtype=torch.long)
+    col = torch.arange(p, device=dev)
+    earlier = col.view(1, 1, p) < col.view(1, p, 1)       # column j < i
+    ins_hit = (packed.unsqueeze(1) == ref.unsqueeze(2)) & \
+        is_ins.unsqueeze(1) & earlier
+    first = torch.where(ins_hit, col, p).min(dim=2).values \
+        if p else torch.zeros_like(ref, dtype=torch.long)
+    inserted = torch.where(first < p,
+                           slot.gather(1, first.clamp(max=max(p - 1, 0))),
+                           -1)
+    node = torch.where(held < nodes, held, inserted)
+    node = torch.where(ref == HEAD_REF,
+                       torch.where(is_ins, HEAD, -1), node)
+    node = torch.where(known, node, -1)
+    inserts = is_ins.sum(dim=1)
+    exact = (n0 + inserts <= nodes - 3) & ~(is_ins & (node < 0)).any(dim=1)
+    return Resolved(node, slot, exact, n0 + inserts)
 
 
 def seq_scan_plain(state, ops):

@@ -30,9 +30,14 @@ Phases (any failure exits non-zero):
    count equal); the sequence scan on every corner of
    fleet/seq_cases.py (a row at capacity, unknown referents, a cyclic
    chain, duplicate and dead preds, wrapping counters, lanes past the
-   width, ...) at P = 0, 1, 20 and 512 at 4 actor lanes and at P = 1
-   and 20 at 256 (all eight arrays and the applied count equal), and on
-   a class of 1,025 rows x 8,195 nodes x 256 lanes, past 2^31 cells;
+   width, refs to later inserts, duplicate ids, one node's ops inside a
+   chunk, a failing insert mid-row, ...) at P = 0, 1, 20 and 512 at 4
+   and at 256 actor lanes along the wrapper's own route, and at P = 40
+   and 512 along the forced 'global' route (all eight arrays and the
+   applied count equal; the 'serial' and 'capacity' corners must send
+   rows to the kernel's serial route), on 3 rows of a class past the
+   resident route (the plan takes 'global') and on a class of 1,025
+   rows x 8,195 nodes x 256 lanes, past 2^31 cells;
 3. main paths, each with every launch count set to 0 just before it and
    read just after:
    - seam: the fleet backend seam at full size (10,000 docs x 1,000 keys
@@ -96,19 +101,20 @@ Phases (any failure exits non-zero):
    handed it (held to its plain version there; L2 warm and flushed,
    each launch on the touched rows restored off the clock); the sequence
    scan held to its plain version on every batch the text seam handed it,
-   in full (all rows, all columns, all eight arrays and the count), then
-   timed on the largest (L2 warm and flushed, the state restored off the
-   clock) beside that batch's plain time and its bound; the torch-op
-   linearize and materialize on the text seam's size
-   classes; traced breakdowns of the seam, the pipelined seam, the exact
+   in full (all rows, all columns, all eight arrays and the count; its
+   route and serial rows read), then timed on each (L2 warm and flushed,
+   the state restored off the clock) beside that batch's plain time and
+   its bound; the torch-op linearize and materialize on the text seam's
+   size classes beside their byte bounds; traced breakdowns of the seam, the pipelined seam, the exact
    seam, the text seam and one steady sync round; the grid bytes, and
    the card's name and power limit.
 
     python3 chip_smoke.py --baseline DIR
 
-also builds the merge kernel of another checkout (e.g. the parent
-commit, unpacked with `git archive`) and times its wrapper in phase 4
-beside this one's, by the same methods.
+also builds the merge and sequence kernels of another checkout (e.g. the
+parent commit, unpacked with `git archive`) and times its wrappers in
+phase 4 beside this one's, by the same methods (the sequence scan in
+turns on each of the text seam's batches).
 
 The last stdout line is {"ok": true, "device": {...}}. Without a CUDA
 device, or without the repository beside it, the script exits non-zero
@@ -116,6 +122,7 @@ and prints no result.
 """
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -156,7 +163,7 @@ def card_line():
 
 # ---- phase 1 ---------------------------------------------------------------
 
-def build_all(baseline=None):
+def build_all(baseline=None, baseline_seq=None):
     from automerge_tpu_torch import native
     from automerge_tpu_torch.fleet import (merge_kernel, register_kernel,
                                            seq_kernel, sync_kernels)
@@ -181,6 +188,8 @@ def build_all(baseline=None):
     if baseline is not None:
         jobs.append(('baseline lww_merge',
                      lambda: baseline.build() is not None))
+        jobs.append(('baseline sequence',
+                     lambda: baseline_seq.build() is not None))
     threads = [threading.Thread(target=run, args=a) for a in jobs]
     for t in threads:
         t.start()
@@ -395,32 +404,71 @@ def register_kernel_vs_plain():
     return max_err
 
 
+@contextlib.contextmanager
+def one_cpu_thread():
+    """torch's CPU ops on one thread while the plain versions run on the
+    host: their tensors are small, and the intra-op pool costs ~10x a
+    scan column on them."""
+    import torch
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+# (rows, actor lanes, P, route): None = the wrapper's own plan
+SEQ_CONFIGS = ((64, 4, 0, None), (64, 4, 1, None), (64, 4, 20, None),
+               (16, 4, 512, None), (16, 256, 0, None), (16, 256, 1, None),
+               (16, 256, 20, None), (16, 256, 512, None),
+               (32, 4, 40, 'global'), (16, 4, 512, 'global'))
+
+
 def seq_kernel_vs_plain():
     """The sequence scan against its plain version on the card on every
     corner of fleet/seq_cases.py (among them a row at capacity, unknown
-    referents, a cyclic chain), at P = 0, 1, 20 and 512 op lanes at 4
-    actor lanes and at P = 1 and 20 at 256, exactly (all eight arrays and
-    the applied count); then a fleet whose rows x nodes x lanes pass
-    2^31 cells. (The plain version costs ~8 ms a column on the card
-    whatever the rows, so P = 512 runs once per corner.)
-    Returns the largest difference seen (0, or the script fails)."""
+    referents, a cyclic chain, refs to later inserts, duplicate ids, one
+    node's ops inside a chunk, a failing insert mid-row), at P = 0, 1, 20
+    and 512 op lanes at 4 and at 256 actor lanes along the wrapper's own
+    route ('resident' at these classes) and at P = 40 and 512 along the
+    'global' route (forced), exactly (all eight arrays and the applied
+    count); the
+    'serial' and 'capacity' corners must send rows to the kernel's serial
+    route. At P = 512 the plain version runs on the host (one torch
+    thread): on the card its Python loop costs ~8 ms a column whatever
+    the rows. Then a class past the resident route (the wrapper's plan
+    takes 'global') and a fleet whose rows x nodes x lanes pass 2^31
+    cells. Returns the largest difference seen (0, or the script fails)."""
     import numpy as np
     from automerge_tpu_torch.fleet import seq_cases as sc
-    max_err = 0
-    for i, name in enumerate(sc.CASES):
-        for n, slots, lanes in ((64, 4, 0), (64, 4, 1), (64, 4, 20),
-                                (16, 4, 512), (16, 256, 1),
-                                (16, 256, 20)):
-            rng = np.random.default_rng(120 + i)
-            state, batch = sc.case(name, rng, n, 64, slots, lanes)
-            got = sc.both(state, batch, DEVICE)
-            max_err = max(max_err, got['max_abs_err'])
-            if got['differ'] or got['max_abs_err']:
-                fail(f'seq_scan != plain on {name} at P = {lanes}, '
-                     f'A = {slots}: {got}')
-        log(f'kernel == plain: seq_scan, {name} (P = 0, 1, 20 and 512 at '
-            f'4 lanes; P = 1 and 20 at 256 lanes)')
-    return max(max_err, seq_wide_offsets())
+    max_err, serial = 0, {}
+    with one_cpu_thread():
+        for i, name in enumerate(sc.CASES):
+            for n, slots, lanes, route in SEQ_CONFIGS:
+                rng = np.random.default_rng(120 + i)
+                state, batch = sc.case(name, rng, n, 64, slots, lanes)
+                got = sc.both(state, batch, DEVICE,
+                              'cpu' if lanes == 512 else None, route=route)
+                max_err = max(max_err, got['max_abs_err'])
+                if got['differ'] or got['max_abs_err']:
+                    fail(f'seq_scan != plain on {name} at P = {lanes}, '
+                         f'A = {slots}, {got["route"]} route: {got}')
+                serial[name] = serial.get(name, 0) + got['serial_rows']
+            log(f'kernel == plain: seq_scan, {name} (P = 0, 1, 20 and 512 '
+                f'at 4 and 256 lanes, the wrapper\'s plan; P = 40 and 512 '
+                f'along the global route; {serial[name]} rows on the serial '
+                f'route)')
+        if not serial['serial'] or not serial['capacity']:
+            fail(f'the serial route never ran: {serial}')
+        rng = np.random.default_rng(5)
+        state, batch = sc.case('random', rng, 3, sc.GLOBAL_CAPACITY, 4, 30)
+        got = sc.both(state, batch, DEVICE)
+    if got['differ'] or got['max_abs_err'] or got['route'] != 'global':
+        fail(f'seq_scan != plain on a class past the resident route: {got}')
+    log(f'kernel == plain: seq_scan on 3 rows of {sc.GLOBAL_CAPACITY + 3} '
+        f'nodes, {got["route"]} route (the wrapper\'s plan)')
+    return max(max_err, got['max_abs_err'], seq_wide_offsets())
 
 
 def seq_wide_offsets():
@@ -967,7 +1015,8 @@ def text_path():
         mod.reset_launches()
     with SeqRecorder() as rec:
         fleet, handles, dispatches, launches = run_text_seam(batches)
-    kernel_launches = {**merge_kernel.LAUNCHES, **seq_kernel.LAUNCHES}
+    kernel_launches = {**merge_kernel.LAUNCHES, **seq_kernel.LAUNCHES,
+                       'seq_scan_routes': dict(seq_kernel.ROUTE_LAUNCHES)}
     if kernel_launches['seq_scan'] < 1 or kernel_launches['lww_merge'] < 1:
         fail(f'the text seam never launched a kernel: {kernel_launches}')
     check_text_seam(fleet, handles, dispatches, launches, want, 'text seam')
@@ -1701,88 +1750,24 @@ def exact_breakdown(batches):
     device_line(wall, rows)
 
 
-def seq_numbers(saved, pools):
-    """The sequence scan on every batch the text seam handed it (each
-    recorded with the state before the call), in full: all rows and all
-    op columns through the kernel and through its plain version, each on
-    its own copy of the state, equal in all eight arrays and the applied
-    count; the plain version's time is taken there (host-issued, one
-    run). On the largest batch the kernel is then timed (device ms;
-    launches queued behind a sleep, each on the state restored from the
-    recording first, off the clock: L2 warm, and with the L2 flushed
-    after the restore) beside its bound and that batch's plain time. The
-    bound counts what the batch needs: every lane's kind and flag; each
-    live lane's ref, packed id, value and D preds; the elem_id of every
-    slot allocated before the call (read to build the index); the older
-    cells the ops name (an insert's referent's nxt; an update's target
-    lanes of reg, killed and counter); every array element the launch
-    changes, written once. Cells the launch writes before it reads them
-    are not read from memory. Operations: ~30 integer operations per
-    live op. No single PyTorch call computes the scan (library_ms null).
-    Then the torch-op linearize and materialize on each of the path's
-    size classes."""
+def seq_bound(state0, ops, got):
+    """The least bytes and operations the scan needs on one batch, as
+    {bound_ms, bytes, ops, bound_by, ...}: every lane's kind and flag;
+    each live lane's ref, packed id, value and D preds; the elem_id of
+    every slot allocated before the call (read to resolve the refs); the
+    older cells the ops name (an insert's referent's nxt; an update's
+    target lanes of reg, killed and counter); every array element the
+    launch changes (`got` against `state0`), written once. Cells the
+    launch writes before it reads them are not read from memory.
+    Operations: ~30 integer operations per live op."""
     import torch
     from automerge_tpu_torch.fleet import seq_kernel as sk
-    from automerge_tpu_torch.fleet.sequence import (SeqState, linearize,
-                                                    materialize)
-
-    def copy(state):
-        return SeqState(*(t.clone() for t in state.tensors()))
-
-    err, plain = 0, []
-    for b, (state0, ops) in enumerate(saved):
-        got, want = copy(state0), copy(state0)
-        n_got = int(sk.seq_scan(got, ops))
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        n_want = sk.seq_scan_plain(want, ops)
-        end.record()
-        torch.cuda.synchronize()
-        plain.append(start.elapsed_time(end))
-        e = abs(n_got - int(n_want))
-        for x, y in zip(got.tensors(), want.tensors()):
-            e = max(e, int((x.long() - y.long()).abs().max()))
-        del got, want
-        log(f'seq_scan == plain on the text seam\'s batch {b}: '
-            f'{list(state0.reg.shape)} state, {list(ops.preds.shape)} '
-            f'lanes x preds ({int((ops.kind != 0).sum())} live, applied '
-            f'{n_got}): max abs err {e}, plain {plain[-1]:.4f} ms')
-        if e:
-            fail(f'seq_scan != plain on the text seam\'s batch {b} (max abs '
-                 f'err {e})')
-        err = max(err, e)
-
-    big = max(range(len(saved)), key=lambda i: int((saved[i][1].kind != 0)
-                                                   .sum()))
-    state0, ops = saved[big]
     r, nodes, a = state0.reg.shape
     p, d = ops.preds.shape[1:]
-    got = copy(state0)
-
-    def restore():
-        for t, t0 in zip(got.tensors(), state0.tensors()):
-            t.copy_(t0)
-
-    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32,
-                        device=ops.kind.device)
     live = ops.kind != 0
     n_live = int(live.sum())
-    nums = dict(
-        shape=f'[{r}, {nodes}, {a}] state, {p} lanes x {d} preds per row '
-              f'({n_live} live)',
-        max_abs_err=err,
-        ms=time_restored(lambda: sk.seq_scan(got, ops), restore, reps=5),
-        cold_ms=time_restored(lambda: sk.seq_scan(got, ops), restore,
-                              reps=5, flush=flush),
-        plain_ms=plain[big])
-    del flush
-    restore()
-    applied = int(sk.seq_scan(got, ops))
     written = sum(int((x != y).sum()) * x.element_size()
                   for x, y in zip(got.tensors(), state0.tensors()))
-    del got
     # the older cells the ops name: ref 0 (the head) or an elem_id the row
     # held before the call
     held = state0.elem_id.sort(dim=1).values
@@ -1800,19 +1785,116 @@ def seq_numbers(saved, pools):
     index_bytes = 4 * int(state0.n[touched].long().sum())
     n_bytes = r * p * 5 + n_live * (12 + 4 * d) + index_bytes + named + \
         written
-    nums.update(bound_of(n_bytes, n_live * 30), applied=applied,
-                written_bytes=written, index_bytes=index_bytes,
-                named_bytes=named, touched_rows=int(touched.sum()))
-    log(f'seq_scan at the text seam\'s largest batch, {nums["shape"]}: ' +
-        ', '.join(f'{key} {val:.4f}' if isinstance(val, float) else
-                  f'{key} {val}' for key, val in nums.items()
-                  if key != 'shape'))
+    return dict(bound_of(n_bytes, n_live * 30), written_bytes=written,
+                index_bytes=index_bytes, named_bytes=named,
+                touched_rows=int(touched.sum()))
+
+
+def seq_numbers(saved, pools, baseline=None):
+    """The sequence scan on every batch the text seam handed it (each
+    recorded with the state before the call), in full: all rows and all
+    op columns through the kernel and through its plain version, each on
+    its own copy of the state, equal in all eight arrays and the applied
+    count; the plain version's time is taken there (host-issued, one
+    run), and the kernel's route and serial rows are read. Then the
+    kernel is timed on each batch (device ms; launches queued behind a
+    sleep, each on the state restored from the recording first, off the
+    clock: L2 warm, and with the L2 flushed after the restore) beside its
+    bound (`seq_bound`) and that batch's plain time; with `baseline`
+    (another checkout's seq_kernel, e.g. the parent commit's) its
+    seq_scan is timed on the same batches by the same method, in turns
+    (baseline, this, this, baseline). No single PyTorch call computes
+    the scan (library_ms null). Then the torch-op linearize and
+    materialize on each of the path's size classes, beside their byte
+    bounds. Returns the first (largest) batch's numbers, with every
+    batch's under 'batches'."""
+    import torch
+    from automerge_tpu_torch.fleet import seq_kernel as sk
+    from automerge_tpu_torch.fleet.sequence import (SeqState, linearize,
+                                                    materialize)
+
+    def copy(state):
+        return SeqState(*(t.clone() for t in state.tensors()))
+
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32,
+                        device=saved[0][1].kind.device)
+    err, out = 0, []
+    for b, (state0, ops) in enumerate(saved):
+        r, nodes, a = state0.reg.shape
+        p, d = ops.preds.shape[1:]
+        plan = sk._launch_plan(r, nodes, a, p, d)
+        got, want = copy(state0), copy(state0)
+        stats = sk._launch(got, ops, plan)
+        n_got, serial = int(stats[0]), int(stats[1])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        n_want = sk.seq_scan_plain(want, ops)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        e = abs(n_got - int(n_want))
+        for x, y in zip(got.tensors(), want.tensors()):
+            e = max(e, int((x.long() - y.long()).abs().max()))
+        del want
+        n_live = int((ops.kind != 0).sum())
+        log(f'seq_scan == plain on the text seam\'s batch {b}: '
+            f'{list(state0.reg.shape)} state, {list(ops.preds.shape)} '
+            f'lanes x preds ({n_live} live, applied {n_got}; {plan.route} '
+            f'route, {serial} rows serial): max abs err {e}, plain '
+            f'{plain_ms:.4f} ms')
+        if e:
+            fail(f'seq_scan != plain on the text seam\'s batch {b} (max abs '
+                 f'err {e})')
+        err = max(err, e)
+        bound = seq_bound(state0, ops, got)
+
+        def restore():
+            for t, t0 in zip(got.tensors(), state0.tensors()):
+                t.copy_(t0)
+
+        turns = [('', sk.seq_scan)]
+        if baseline is not None:
+            turns = [('base_', baseline.seq_scan), ('', sk.seq_scan),
+                     ('', sk.seq_scan), ('base_', baseline.seq_scan)]
+        times = {}
+        for tag, scan in turns:
+            times.setdefault(tag + 'ms', []).append(time_restored(
+                lambda: scan(got, ops), restore, reps=5))
+            times.setdefault(tag + 'cold_ms', []).append(time_restored(
+                lambda: scan(got, ops), restore, reps=5, flush=flush))
+        nums = dict(
+            batch=b, shape=f'[{r}, {nodes}, {a}] state, {p} lanes x {d} '
+            f'preds per row ({n_live} live)', route=plan.route,
+            serial_rows=serial, ctas_per_sm=plan.ctas_per_sm,
+            smem_bytes=plan.smem_bytes, applied=n_got, max_abs_err=e,
+            plain_ms=plain_ms,
+            **{k: statistics.median(v) for k, v in times.items()},
+            **bound)
+        if baseline is not None:
+            nums['base_over_new'] = nums['base_ms'] / nums['ms']
+        del got
+        log(f'seq_scan on the text seam\'s batch {b}, {nums["shape"]}: ' +
+            ', '.join(f'{key} {val:.4f}' if isinstance(val, float) else
+                      f'{key} {val}' for key, val in nums.items()
+                      if key not in ('shape', 'batch')) +
+            (f'; turns {times}' if baseline is not None else ''))
+        out.append(nums)
+    del flush
     for cls, st in sorted(pools.items()):
-        log(f'torch ops on class {cls} [{st.elem_id.shape[0]}, '
-            f'{st.elem_id.shape[1]}, {st.reg.shape[2]}]: linearize '
-            f'{time_ms(lambda: linearize(st), reps=5):.4f} ms, materialize '
-            f'{time_ms(lambda: materialize(st), reps=5):.4f} ms')
-    return nums
+        r, nodes, a = st.reg.shape
+        lin = bound_of(r * nodes * 8 + r * 4, r * nodes * 4)
+        mat = bound_of(r * nodes * 4 + r * nodes * a * 13 +
+                       r * (nodes - 3) * 9 + r * 4, r * nodes * a * 4)
+        log(f'torch ops on class {cls} [{r}, {nodes}, {a}]: linearize '
+            f'{time_ms(lambda: linearize(st), reps=5):.4f} ms (bound '
+            f'{lin["bound_ms"]:.4f} ms, {lin["bound_by"]}, {lin["bytes"]} '
+            f'B), materialize {time_ms(lambda: materialize(st), reps=5):.4f}'
+            f' ms (bound {mat["bound_ms"]:.4f} ms, {mat["bound_by"]}, '
+            f'{mat["bytes"]} B)')
+    first = dict(out[0], max_abs_err=err, batches=out)
+    return first
 
 
 def text_breakdown(batches):
@@ -1831,10 +1913,11 @@ def text_breakdown(batches):
 
 
 def load_baseline(path):
-    """The merge wrapper of another checkout of this repository (e.g. the
-    parent commit, unpacked with `git archive`). Its package is loaded
-    under a name of its own (`baseline_port`), so its imports resolve
-    inside that checkout, and it builds its own kernel source there."""
+    """The merge and sequence wrappers of another checkout of this
+    repository (e.g. the parent commit, unpacked with `git archive`). Its
+    package is loaded under a name of its own (`baseline_port`), so its
+    imports resolve inside that checkout, and it builds its own kernel
+    sources there."""
     import importlib
     import importlib.util
     pkg = os.path.join(path, 'automerge_tpu_torch')
@@ -1847,7 +1930,8 @@ def load_baseline(path):
     mod = importlib.util.module_from_spec(spec)
     sys.modules['baseline_port'] = mod
     spec.loader.exec_module(mod)
-    return importlib.import_module('baseline_port.fleet.merge_kernel')
+    return (importlib.import_module('baseline_port.fleet.merge_kernel'),
+            importlib.import_module('baseline_port.fleet.seq_kernel'))
 
 
 def main():
@@ -1863,14 +1947,15 @@ def main():
     args = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     args.add_argument('--baseline', metavar='DIR',
                       help='another checkout of this repository (e.g. the '
-                      'parent commit) whose merge wrapper phase 4 times '
-                      'beside this one, by the same method')
+                      'parent commit) whose merge and sequence wrappers '
+                      'phase 4 times beside this one, by the same methods')
     args = args.parse_args()
-    baseline = load_baseline(args.baseline) if args.baseline else None
+    baseline, baseline_seq = (load_baseline(args.baseline) if args.baseline
+                              else (None, None))
     t_start = time.perf_counter()
     log(f'torch {torch.__version__} cuda {torch.version.cuda} '
         f'python {sys.version.split()[0]}')
-    build_all(baseline)
+    build_all(baseline, baseline_seq)
     max_err = kernel_vs_plain()
     sync_kernel_vs_plain()
     reg_err = register_kernel_vs_plain()
@@ -1885,7 +1970,7 @@ def main():
     sync_nums = sync_kernel_numbers(sync.pop('inputs'))
     reg_nums = register_numbers(reg_input)
     del reg_input
-    seq_nums = seq_numbers(seq_input, seq_pools)
+    seq_nums = seq_numbers(seq_input, seq_pools, baseline_seq)
     del seq_input, seq_pools
     breakdown(per_doc)
     breakdown(per_doc, 'pipelined')
@@ -1932,7 +2017,13 @@ def main():
         'max_abs_err': max(seq_err, seq_nums['max_abs_err']),
         'ms': seq_nums['ms'], 'plain_ms': seq_nums['plain_ms'],
         'bound_ms': seq_nums['bound_ms'], 'bound_by': seq_nums['bound_by'],
-        'library_ms': None})
+        'library_ms': None,
+        'routes': {route: n for route, n in
+                   text_launches['seq_scan_routes'].items() if n},
+        'batches': [{key: nums[key] for key in
+                     ('shape', 'route', 'serial_rows', 'ms', 'cold_ms',
+                      'plain_ms', 'bound_ms', 'base_ms', 'base_cold_ms')
+                     if key in nums} for nums in seq_nums['batches']]})
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

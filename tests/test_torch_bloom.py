@@ -18,6 +18,12 @@ from automerge_tpu_torch.backend.sync import _wire_stats as torch_wire_stats
 from automerge_tpu_torch.fleet import bloom as torch_bloom
 from automerge_tpu_torch.fleet import sync_cases, sync_kernels
 
+# The tests' tensors are small: torch's intra-op thread pool costs far more
+# than it saves on them (~10x a scan column on the CPU), and more again
+# when test workers share the cores.
+torch.set_num_threads(1)
+
+
 CPU = 'cpu'
 
 

@@ -34,6 +34,12 @@ from automerge_tpu_torch.fleet.merge_kernel import (LAUNCHES, lww_merge,
 from automerge_tpu_torch.fleet.tensor_doc import (FleetState, OpBatch,
                                                   state_to_numpy)
 
+# The tests' tensors are small: torch's intra-op thread pool costs far more
+# than it saves on them (~10x a scan column on the CPU), and more again
+# when test workers share the cores.
+torch.set_num_threads(1)
+
+
 pytestmark = pytest.mark.cuda
 
 
@@ -461,6 +467,59 @@ def test_seq_scan_at_256_actor_lanes(cuda, name):
     state, batch = seq_cases.case(name, rng, 16, 40, 256, 20)
     got = seq_cases.both(state, batch, cuda)
     assert got['differ'] == [] and got['max_abs_err'] == 0, got
+
+
+def _serial_rows_expected(state, batch):
+    """Rows the kernel must send to its serial route: rows with a live op
+    where `resolve_plain` finds the parallel resolution inexact."""
+    from automerge_tpu_torch.fleet.sequence import seq_state_from_numpy
+    st = seq_state_from_numpy(*state, device='cpu')
+    ops = batch.to('cpu')
+    res = seq_kernel.resolve_plain(st, ops)
+    live = ((ops.kind >= seq_kernel.INSERT) &
+            (ops.kind <= seq_kernel.INC)).any(dim=1)
+    return int((live & ~res.exact).sum())
+
+
+@pytest.mark.parametrize('lanes', [40, 300])
+@pytest.mark.parametrize('route', ['resident', 'global'])
+@pytest.mark.parametrize('name', seq_cases.CASES)
+def test_seq_scan_routes_match_plain_version(cuda, name, route, lanes):
+    """Every corner along each route (forced), at P = 40 (two 32-column
+    chunks) and 300 (three of phase B's 128-column loads); the rows that
+    take the serial route are the ones the plain statement of the
+    parallel resolution calls inexact."""
+    rng = np.random.default_rng(131 + seq_cases.CASES.index(name))
+    state, batch = seq_cases.case(name, rng, 32 if lanes == 40 else 8, 64,
+                                  4, lanes)
+    got = seq_cases.both(state, batch, cuda, 'cpu' if lanes == 300 else None,
+                         route=route)
+    assert got['differ'] == [] and got['max_abs_err'] == 0, got
+    assert got['route'] == route
+    assert got['serial_rows'] == _serial_rows_expected(state, batch)
+
+
+def test_seq_scan_serial_and_parallel_corners_take_their_routes(cuda):
+    for name, serial in (('serial', True), ('capacity', True),
+                         ('hot_node', False), ('dup_ids', False)):
+        rng = np.random.default_rng(7)
+        state, batch = seq_cases.case(name, rng, 16, 64, 4, 40)
+        got = seq_cases.both(state, batch, cuda)
+        assert got['differ'] == [] and got['max_abs_err'] == 0, got
+        assert (got['serial_rows'] > 0) == serial, (name, got)
+
+
+def test_seq_scan_on_a_class_past_the_resident_route(cuda):
+    """Three rows of a class whose rows do not fit a CTA's shared memory:
+    the wrapper's plan takes the 'global' route."""
+    rng = np.random.default_rng(43)
+    state, batch = seq_cases.case('random', rng, 3, seq_cases.GLOBAL_CAPACITY,
+                                  4, 30)
+    before = seq_kernel.ROUTE_LAUNCHES['global']
+    got = seq_cases.both(state, batch, cuda)
+    assert got['differ'] == [] and got['max_abs_err'] == 0, got
+    assert got['route'] == 'global'
+    assert seq_kernel.ROUTE_LAUNCHES['global'] == before + 1
 
 
 @pytest.mark.parametrize('exact', [False, True])

@@ -13,6 +13,7 @@ deletes, incs, strings, a second batch whose actor sorts first)."""
 
 import numpy as np
 import pytest
+import torch
 
 import automerge_tpu.native as jax_native
 from automerge_tpu.columnar import decode_change, encode_change
@@ -21,6 +22,12 @@ import automerge_tpu_torch.native as torch_native
 from automerge_tpu_torch.fleet import backend as tb
 from automerge_tpu_torch.fleet import register_kernel
 from automerge_tpu_torch.fleet.registers import register_state_to_numpy
+
+# The tests' tensors are small: torch's intra-op thread pool costs far more
+# than it saves on them (~10x a scan column on the CPU), and more again
+# when test workers share the cores.
+torch.set_num_threads(1)
+
 
 _NATIVE_OK = torch_native.available() and jax_native.available()
 

@@ -28,6 +28,12 @@ from automerge_tpu_torch.fleet import backend as torch_backend
 from automerge_tpu_torch.fleet import hashindex as torch_hi
 from automerge_tpu_torch.fleet import sync_kernels
 
+# The tests' tensors are small: torch's intra-op thread pool costs far more
+# than it saves on them (~10x a scan column on the CPU), and more again
+# when test workers share the cores.
+torch.set_num_threads(1)
+
+
 CPU = 'cpu'
 
 

@@ -23,6 +23,12 @@ from automerge_tpu_torch.fleet.tensor_doc import OpBatch as TorchOps
 from automerge_tpu_torch.fleet.tensor_doc import (state_from_numpy,
                                                   state_to_numpy)
 
+# The tests' tensors are small: torch's intra-op thread pool costs far more
+# than it saves on them (~10x a scan column on the CPU), and more again
+# when test workers share the cores.
+torch.set_num_threads(1)
+
+
 CPU = torch.device('cpu')
 
 

@@ -15,6 +15,12 @@ from automerge_tpu_torch.fleet import merge_kernel
 from automerge_tpu_torch.fleet.merge_cases import random_cols
 from automerge_tpu_torch.fleet.tensor_doc import FleetState, OpBatch
 
+# The tests' tensors are small: torch's intra-op thread pool costs far more
+# than it saves on them (~10x a scan column on the CPU), and more again
+# when test workers share the cores.
+torch.set_num_threads(1)
+
+
 CPU = torch.device('cpu')
 
 # ---- the launch plan --------------------------------------------------------

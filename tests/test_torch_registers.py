@@ -19,6 +19,12 @@ from automerge_tpu_torch.fleet import register_cases as rc
 from automerge_tpu_torch.fleet import register_kernel
 from automerge_tpu_torch.fleet import registers as tr
 
+# The tests' tensors are small: torch's intra-op thread pool costs far more
+# than it saves on them (~10x a scan column on the CPU), and more again
+# when test workers share the cores.
+torch.set_num_threads(1)
+
+
 NAMES = ('reg', 'killed', 'value', 'counter', 'inexact')
 
 

@@ -28,6 +28,12 @@ from automerge_tpu_torch.fleet.merge_kernel import LAUNCHES
 from automerge_tpu_torch.fleet.tensor_doc import (state_from_numpy,
                                                   state_to_numpy)
 
+# The tests' tensors are small: torch's intra-op thread pool costs far more
+# than it saves on them (~10x a scan column on the CPU), and more again
+# when test workers share the cores.
+torch.set_num_threads(1)
+
+
 # Build both native codecs here, at import (collection time), so the
 # ~15 s g++ builds are not charged to a test family's time budget. The
 # reference's codec builds in place without a lock, so a worker that

@@ -18,12 +18,19 @@ each, the cases one (docs, capacity, A, P) shape per lane width."""
 
 import numpy as np
 import pytest
+import torch
 
 import jax.numpy as jnp
 from automerge_tpu.fleet import sequence as js
 from automerge_tpu_torch.fleet import seq_cases as sc
 from automerge_tpu_torch.fleet import seq_kernel
 from automerge_tpu_torch.fleet import sequence as ts
+
+# The tests' tensors are small: torch's intra-op thread pool costs far more
+# than it saves on them (~10x a scan column on the CPU), and more again
+# when test workers share the cores.
+torch.set_num_threads(1)
+
 
 A1, A2, A3 = '01234567', '89abcdef', 'fedcba98'
 
@@ -328,6 +335,33 @@ def _cases_match_jax(names, a):
         assert seq_kernel.check_rows(tst).all()     # the kernel's contract
 
 
+# The corners where the kernel's parallel resolution must give the scan's
+# answer (csrc/sequence.cu, phase A), each a family of its own; the first
+# pays the JAX compile of the shared shape.
+
+def test_later_ref_case_matches_jax():
+    """Ops naming an id an insert at a later column brings: a miss."""
+    _cases_match_jax(('later_ref',), 4)
+
+
+def test_dup_ids_case_matches_jax():
+    """Inserts whose id an allocated element or an earlier insert already
+    holds: later refs resolve to the lowest node."""
+    _cases_match_jax(('dup_ids',), 4)
+
+
+def test_hot_node_case_matches_jax():
+    """An insert and up to 31 sets, deletes and incs of its element in one
+    32-column chunk: one node's ops apply in column order."""
+    _cases_match_jax(('hot_node',), 4)
+
+
+def test_serial_case_matches_jax():
+    """An insert that fails mid-row, then ops naming the shifted slots (the
+    kernel's serial route)."""
+    _cases_match_jax(('serial',), 4)
+
+
 # One (6 docs, capacity 40, A, 30 lanes) shape per lane width; the cases
 # split over families of a few each for the slow audit.
 
@@ -346,11 +380,14 @@ def test_flag_cases_match_jax():
 
 
 def test_cases_at_256_lanes_match_jax():
-    _cases_match_jax(('random', 'lanes_oob', 'wrap', 'capacity'), 256)
+    _cases_match_jax(('random', 'lanes_oob'), 256)
 
 
-@pytest.mark.parametrize('name', sc.CASES)
-def test_seq_cases_run_on_the_cpu(name):
+def test_more_cases_at_256_lanes_match_jax():
+    _cases_match_jax(('wrap', 'capacity'), 256)
+
+
+def _runs_on_the_cpu(name):
     """`seq_cases.both` on the CPU (both sides the plain version, no
     kernel launch), at P = 0, 1 and 20."""
     before = seq_kernel.LAUNCHES['seq_scan']
@@ -359,7 +396,172 @@ def test_seq_cases_run_on_the_cpu(name):
         arrays, batch = sc.case(name, rng, 5, 24, 4, lanes)
         got = sc.both(arrays, batch, 'cpu')
         assert got['differ'] == [] and got['max_abs_err'] == 0
+        assert got['route'] is None and got['serial_rows'] is None
     assert seq_kernel.LAUNCHES['seq_scan'] == before
+
+
+# One test per corner (each its own family for the slow audit).
+
+def test_random_case_runs_on_the_cpu():
+    _runs_on_the_cpu('random')
+
+
+def test_typing_case_runs_on_the_cpu():
+    _runs_on_the_cpu('typing')
+
+
+def test_concurrent_head_case_runs_on_the_cpu():
+    _runs_on_the_cpu('concurrent_head')
+
+
+def test_dup_preds_case_runs_on_the_cpu():
+    _runs_on_the_cpu('dup_preds')
+
+
+def test_dead_max_inc_case_runs_on_the_cpu():
+    _runs_on_the_cpu('dead_max_inc')
+
+
+def test_lanes_oob_case_runs_on_the_cpu():
+    _runs_on_the_cpu('lanes_oob')
+
+
+def test_wrap_case_runs_on_the_cpu():
+    _runs_on_the_cpu('wrap')
+
+
+def test_unknown_ref_case_runs_on_the_cpu():
+    _runs_on_the_cpu('unknown_ref')
+
+
+def test_self_conflict_case_runs_on_the_cpu():
+    _runs_on_the_cpu('self_conflict')
+
+
+def test_flags_case_runs_on_the_cpu():
+    _runs_on_the_cpu('flags')
+
+
+def test_capacity_case_runs_on_the_cpu():
+    _runs_on_the_cpu('capacity')
+
+
+def test_cyclic_case_runs_on_the_cpu():
+    _runs_on_the_cpu('cyclic')
+
+
+def test_kinds_case_runs_on_the_cpu():
+    _runs_on_the_cpu('kinds')
+
+
+def test_later_ref_case_runs_on_the_cpu():
+    _runs_on_the_cpu('later_ref')
+
+
+def test_dup_ids_case_runs_on_the_cpu():
+    _runs_on_the_cpu('dup_ids')
+
+
+def test_hot_node_case_runs_on_the_cpu():
+    _runs_on_the_cpu('hot_node')
+
+
+def test_serial_case_runs_on_the_cpu():
+    _runs_on_the_cpu('serial')
+
+
+def test_every_case_has_a_cpu_test():
+    assert {f'test_{name}_case_runs_on_the_cpu' for name in sc.CASES} <= \
+        set(globals())
+
+
+# ---- the kernel's launch plan and its parallel resolution --------------------
+
+def test_class_past_the_resident_route_matches_jax():
+    """Two rows of a class whose rows do not fit a CTA's shared memory
+    (the kernel's 'global' route), held to the JAX scan."""
+    rng = np.random.default_rng(41)
+    arrays, batch = sc.case('random', rng, 2, sc.GLOBAL_CAPACITY, 4, 20)
+    assert seq_kernel._launch_plan(2, sc.GLOBAL_CAPACITY + 3, 4, 20,
+                                   4).route == 'global'
+    _apply_both(arrays, [batch], 'global class')
+
+
+def _resolution_holds(name, lanes=30):
+    """`resolve_plain` against the JAX scan on one corner: on every row it
+    calls exact, the scan's final elem_id holds each op's ref at its
+    resolved node and each insert's id at its slot, and n = n0 + inserts.
+    Returns the exact rows' mask."""
+    rng = np.random.default_rng(sc.CASES.index(name))
+    arrays, batch = sc.case(name, rng, 6, 40, 4, lanes)
+    st = ts.seq_state_from_numpy(*arrays, device='cpu')
+    res = seq_kernel.resolve_plain(st, batch.to('cpu'))
+    jst, jn = js.apply_seq_batch(_jax_state(arrays), _jax_batch(batch))
+    elem = np.asarray(jst.elem_id)
+    node, slot = res.node.numpy(), res.slot.numpy()
+    kind, ref, packed = batch.kind, batch.ref, batch.packed
+    rows = np.arange(len(node))[:, None]
+    exact = res.exact.numpy()
+    top = elem.shape[1] - 1              # slots past capacity: never exact
+    named = exact[:, None] & (node >= ts.SLOT0)
+    np.testing.assert_array_equal(elem[rows, np.clip(node, 0, top)][named],
+                                  ref[named])
+    landed = exact[:, None] & (slot >= 0)
+    np.testing.assert_array_equal(elem[rows, np.clip(slot, 0, top)][landed],
+                                  packed[landed])
+    np.testing.assert_array_equal(np.asarray(jst.n)[exact],
+                                  res.n.numpy()[exact])
+    known = (kind >= ts.INSERT) & (kind <= ts.INC)
+    np.testing.assert_array_equal(node[~known], -1)
+    if exact.all():
+        assert int(jn) == int((node >= 0).sum())
+    return exact
+
+
+def test_resolution_rule_holds_on_the_parallel_corners():
+    for name in ('random', 'typing', 'dup_ids', 'later_ref', 'hot_node',
+                 'dup_preds', 'flags'):
+        assert _resolution_holds(name).any(), name
+
+
+def test_resolution_rule_sends_failing_rows_to_the_serial_route():
+    assert not _resolution_holds('serial').any()
+    assert not _resolution_holds('capacity').any()
+    exact = _resolution_holds('unknown_ref', 20)
+    assert not exact.all()
+
+
+def test_launch_plan_routes_and_shared_bytes():
+    """The plan at the text path's classes and at the route boundary:
+    shared bytes within a CTA's 232,448, one row per CTA, and a table of
+    more entries than the row has slots (load <= 0.8)."""
+    plan = seq_kernel._launch_plan
+    # the text seam's first batch: elem_id 32,784 B, then the table (10,248
+    # uint16 entries, 20,496 B) that nxt (16,390 B) replaces, the staging
+    assert plan(2048, 8195, 4, 9999, 4) == seq_kernel.Plan(
+        'resident', 2048, 256, 1, 32784 + 20496 + 2448, 4, 10248)
+    # its two 256-column batches, one class up
+    assert plan(2048, 16387, 4, 256, 4) == seq_kernel.Plan(
+        'resident', 2048, 256, 1, 65552 + 40976 + 2448, 2, 20488)
+    assert plan(2048, 32771, 4, 256, 4).ctas_per_sm == 1
+    assert plan(3, sc.GLOBAL_CAPACITY + 3, 4, 30, 4)[:2] == ('global', 3)
+    # the largest resident row, and one node more
+    top = max(n for n in range(30000, 40000)
+              if seq_kernel.row_bytes(n) + seq_kernel.STAGE_BYTES <=
+              seq_kernel.SMEM_BUDGET)
+    assert plan(1, top, 4, 1, 4).route == 'resident'
+    assert plan(1, top + 1, 4, 1, 4).route == 'global'
+    for nodes in (4, 5, 67, 8195, 16387, top, top + 1, 65539, 131075):
+        cap = nodes - 3
+        got = plan(7, nodes, 256, 33, 8)
+        assert got.smem_bytes <= seq_kernel.SMEM_LIMIT
+        assert got.grid == 7 and got.rows_per_cta == 1
+        assert got.smem_bytes % 16 == 0 and got.ctas_per_sm >= 1
+        assert got.table_slots >= 1.25 * cap and got.table_slots > cap
+        assert got.ctas_per_sm == min(8, seq_kernel.SM_SHARED //
+                                      (got.smem_bytes + 1024))
+    with pytest.raises(ValueError):
+        plan(1, 67, 4, 8, 9)
 
 
 def test_seq_scan_refuses_mismatched_tensors():

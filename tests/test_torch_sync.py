@@ -17,6 +17,7 @@ where every kernel is its plain version."""
 import types
 
 import pytest
+import torch
 
 import automerge_tpu.native as jax_native
 import automerge_tpu_torch.native as torch_native
@@ -32,6 +33,12 @@ from automerge_tpu_torch.fleet import bloom as torch_bloom
 from automerge_tpu_torch.fleet import hashindex as torch_hi
 from automerge_tpu_torch.fleet import sync_driver as torch_driver
 from automerge_tpu_torch.fleet import sync_kernels
+
+# The tests' tensors are small: torch's intra-op thread pool costs far more
+# than it saves on them (~10x a scan column on the CPU), and more again
+# when test workers share the cores.
+torch.set_num_threads(1)
+
 
 REF = types.SimpleNamespace(name='jax', host=jax_host, fleet=jax_fleet,
                             driver=jax_driver, hi=jax_hi, bloom=jax_bloom,

@@ -23,6 +23,7 @@ the slow audit's accounting)."""
 
 import numpy as np
 import pytest
+import torch
 
 import automerge_tpu as am
 import automerge_tpu.native as jax_native
@@ -34,6 +35,12 @@ from automerge_tpu_torch.fleet import backend as tb
 from automerge_tpu_torch.fleet import seq_cases, seq_kernel
 from automerge_tpu_torch.fleet.registers import register_state_to_numpy
 from automerge_tpu_torch.fleet.sequence import seq_state_to_numpy
+
+# The tests' tensors are small: torch's intra-op thread pool costs far more
+# than it saves on them (~10x a scan column on the CPU), and more again
+# when test workers share the cores.
+torch.set_num_threads(1)
+
 
 _NATIVE_OK = torch_native.available() and jax_native.available()
 
@@ -174,10 +181,17 @@ def concurrent_inserts(be, fleet):
     return [gb]
 
 
+def _concurrent_order(exact):
+    _tf, th = _both(concurrent_inserts, exact)
+    assert tb.materialize_docs(th) == [{'t': 'bam'}]
+
+
 def test_rga_concurrent_insert_order_matches_reference():
-    for exact in (False, True):
-        _tf, th = _both(concurrent_inserts, exact)
-        assert tb.materialize_docs(th) == [{'t': 'bam'}]
+    _concurrent_order(False)
+
+
+def test_rga_concurrent_insert_order_matches_reference_exact():
+    _concurrent_order(True)
 
 
 def set_vs_del(be, fleet):
@@ -248,16 +262,22 @@ def counter_patch_shapes(turbo):
     return scenario
 
 
-@pytest.mark.parametrize('exact', [False, True])
-def test_counter_in_list_patch_shapes_per_op(exact):
+def test_counter_in_list_patch_shapes_per_op():
     """One, two and three incs on one counter element: the patch replays
     the reference's counterStates edit shapes."""
-    _both(counter_patch_shapes(False), exact)
+    _both(counter_patch_shapes(False), False)
 
 
-@pytest.mark.parametrize('exact', [False, True])
-def test_counter_in_list_patch_shapes_turbo(exact):
-    _both(counter_patch_shapes(True), exact)
+def test_counter_in_list_patch_shapes_per_op_exact():
+    _both(counter_patch_shapes(False), True)
+
+
+def test_counter_in_list_patch_shapes_turbo():
+    _both(counter_patch_shapes(True), False)
+
+
+def test_counter_in_list_patch_shapes_turbo_exact():
+    _both(counter_patch_shapes(True), True)
 
 
 def _replica_history(seed):
@@ -325,8 +345,7 @@ def _replica_history(seed):
     return reps[0], [bytes(c) for c in host_backend.get_all_changes(reps[0])]
 
 
-@pytest.mark.parametrize('exact', [False, True])
-def test_randomized_counter_history_matches_reference(exact):
+def _randomized_counter_history(exact):
     hb, history = _replica_history(7)
 
     def scenario(be, fleet):
@@ -336,6 +355,14 @@ def test_randomized_counter_history_matches_reference(exact):
     _tf, (gb,) = _both(scenario, exact, doc_capacity=2)
     assert tb.get_patch(gb) == host_backend.get_patch(hb)
     assert bytes(tb.save(gb)) == bytes(host_backend.save(hb))
+
+
+def test_randomized_counter_history_matches_reference():
+    _randomized_counter_history(False)
+
+
+def test_randomized_counter_history_matches_reference_exact():
+    _randomized_counter_history(True)
 
 
 def clone_and_free(be, fleet):
@@ -417,11 +444,18 @@ def turbo_renumber(be, fleet):
     return [g1, g2]
 
 
+def _turbo_renumbered(exact):
+    tf, th = _both(turbo_renumber, exact)
+    assert tb.materialize_docs(th) == [{'t': ''}, {'k': 1}]
+    assert not tf.seq_row_inexact(0)
+
+
 def test_turbo_renumber_remaps_seq_rows():
-    for exact in (False, True):
-        tf, th = _both(turbo_renumber, exact)
-        assert tb.materialize_docs(th) == [{'t': ''}, {'k': 1}]
-        assert not tf.seq_row_inexact(0)
+    _turbo_renumbered(False)
+
+
+def test_turbo_renumber_remaps_seq_rows_exact():
+    _turbo_renumbered(True)
 
 
 def _public_api_changes():
@@ -567,16 +601,28 @@ def _growing_steps():
     return steps
 
 
-def test_row_migrates_up_classes_preserving_content():
-    steps = _growing_steps()
-
+def _grown(steps):
     def growing_doc(be, fleet):
         gb = be.init(fleet)
         for step in steps:
             gb, _ = be.apply_changes(gb, step)
             fleet.flush()
         return [gb]
-    tf, th = _both(growing_doc, False, doc_capacity=2)
+    return _both(growing_doc, False, doc_capacity=2)
+
+
+# The row grows inside its class first (one test), then outgrows it (the
+# next, which meets the same shapes again: the reference's compiles of the
+# first steps are shared).
+
+def test_row_grows_inside_its_class_in_place():
+    tf, th = _grown(_growing_steps()[:2])
+    assert tb.materialize_docs(th) == [{'t': 'ab' + 'y' * 40}]
+    assert tf.seq_place[0][0] == 0
+
+
+def test_row_migrates_up_classes_preserving_content():
+    tf, th = _grown(_growing_steps())
     assert tb.materialize_docs(th) == [{'t': 'ab' + 'y' * 80}]
     assert tf.seq_place[0][0] > 0 and 0 in tf.seq_pools.free.get(0, [])
 
@@ -670,9 +716,12 @@ def _text_patch_changes():
     return [c1, c2]
 
 
-@pytest.mark.parametrize('turbo', [False, True])
-def test_text_patch_from_device(turbo):
-    _device_patch(_text_patch_changes(), turbo)
+def test_text_patch_from_device():
+    _device_patch(_text_patch_changes(), False)
+
+
+def test_text_patch_from_device_turbo():
+    _device_patch(_text_patch_changes(), True)
 
 
 def _list_conflict_changes():
@@ -692,9 +741,12 @@ def _list_conflict_changes():
     return [c1, c2, c3]
 
 
-@pytest.mark.parametrize('turbo', [False, True])
-def test_list_conflict_and_resurrection_patch_from_device(turbo):
-    _device_patch(_list_conflict_changes(), turbo)
+def test_list_conflict_and_resurrection_patch_from_device():
+    _device_patch(_list_conflict_changes(), False)
+
+
+def test_list_conflict_and_resurrection_patch_from_device_turbo():
+    _device_patch(_list_conflict_changes(), True)
 
 
 def _rows_in_lists_changes():
@@ -714,15 +766,21 @@ def _rows_in_lists_changes():
     return [c1, c2]
 
 
-@pytest.mark.parametrize('turbo', [False, True])
-def test_objects_inside_lists_patch_from_device(turbo):
-    tf, gb = _device_patch(_rows_in_lists_changes(), turbo)
+def _objects_inside_lists(turbo):
+    _tf, gb = _device_patch(_rows_in_lists_changes(), turbo)
     assert tb.materialize_docs([gb]) == [
         {'todo': [{'t': 'wash', 'n': 5}, [7], 3]}]
 
 
-@pytest.mark.parametrize('turbo', [False, True])
-def test_typed_list_elements_patch_from_device(turbo):
+def test_objects_inside_lists_patch_from_device():
+    _objects_inside_lists(False)
+
+
+def test_objects_inside_lists_patch_from_device_turbo():
+    _objects_inside_lists(True)
+
+
+def _typed_list_elements(turbo):
     c1 = change_buf(A, 1, 1, [
         {'action': 'makeList', 'obj': '_root', 'key': 'l', 'pred': []},
         _ins(f'1@{A}', '_head', 3, datatype='uint'),
@@ -730,6 +788,14 @@ def test_typed_list_elements_patch_from_device(turbo):
         _ins(f'1@{A}', f'3@{A}', 2.5, datatype='float64')])
     _tf, gb = _device_patch([c1], turbo)
     assert tb.materialize_docs([gb]) == [{'l': [3, 1589032171000, 2.5]}]
+
+
+def test_typed_list_elements_patch_from_device():
+    _typed_list_elements(False)
+
+
+def test_typed_list_elements_patch_from_device_turbo():
+    _typed_list_elements(True)
 
 
 def test_typed_values_survive_the_mixed_exact_flush():
@@ -760,7 +826,7 @@ def test_typed_values_survive_the_mixed_exact_flush():
 
 # ---- TestPromotion: rows in lists ------------------------------------------
 
-def test_object_inside_sequence_stays_fleet_resident():
+def _object_inside_sequence(exact):
     c1 = change_buf(A, 1, 1, [
         {'action': 'makeList', 'obj': '_root', 'key': 'l', 'pred': []},
         {'action': 'makeMap', 'obj': f'1@{A}', 'elemId': '_head',
@@ -772,13 +838,20 @@ def test_object_inside_sequence_stays_fleet_resident():
         gb = be.init(fleet)
         gb, _ = be.apply_changes(gb, [c1])
         return [gb]
-    for exact in (False, True):
-        tf, th = _both(scenario, exact, doc_capacity=2, key_capacity=2)
-        assert th[0]['state'].is_fleet and tf.metrics.promotions == 0
-        assert tb.materialize_docs(th) == [{'l': [{'row': 3}]}]
+    tf, th = _both(scenario, exact, doc_capacity=2, key_capacity=2)
+    assert th[0]['state'].is_fleet and tf.metrics.promotions == 0
+    assert tb.materialize_docs(th) == [{'l': [{'row': 3}]}]
 
 
-def test_turbo_rows_in_lists_no_fallback():
+def test_object_inside_sequence_stays_fleet_resident():
+    _object_inside_sequence(False)
+
+
+def test_object_inside_sequence_stays_fleet_resident_exact():
+    _object_inside_sequence(True)
+
+
+def _turbo_rows_in_lists(exact):
     c1, c2 = _rows_in_lists_changes()
 
     def scenario(be, fleet):
@@ -788,13 +861,20 @@ def test_turbo_rows_in_lists_no_fallback():
         return handles
     hb = host_backend.init()
     hb, _ = host_backend.apply_changes(hb, [c1, c2])
-    for exact in (False, True):
-        tf, th = _both(scenario, exact, doc_capacity=2)
-        m = tf.metrics
-        assert (m.turbo_calls, m.fallbacks, m.promotions) == (1, 0, 0)
-        assert tb.materialize_docs(th) == \
-            [{'todo': [{'t': 'wash', 'n': 5}, [7], 3]}] * 2
-        assert bytes(tb.save(th[0])) == bytes(host_backend.save(hb))
+    tf, th = _both(scenario, exact, doc_capacity=2)
+    m = tf.metrics
+    assert (m.turbo_calls, m.fallbacks, m.promotions) == (1, 0, 0)
+    assert tb.materialize_docs(th) == \
+        [{'todo': [{'t': 'wash', 'n': 5}, [7], 3]}] * 2
+    assert bytes(tb.save(th[0])) == bytes(host_backend.save(hb))
+
+
+def test_turbo_rows_in_lists_no_fallback():
+    _turbo_rows_in_lists(False)
+
+
+def test_turbo_rows_in_lists_no_fallback_exact():
+    _turbo_rows_in_lists(True)
 
 
 # ---- a small text seam -----------------------------------------------------
@@ -803,40 +883,49 @@ SEAM_DOCS = 6
 BATCHES = seq_cases.text_changes(100, more=(16, 16), seed=1)
 
 
-def text_seam(be, fleet):
-    """init_docs, the whole chain in one apply_changes_docs(mirror=False),
-    then two incremental batches; one sequence dispatch each (one size
-    class), and nothing falls back."""
-    handles = be.init_docs(SEAM_DOCS, fleet)
-    for batch in BATCHES:
-        d0 = fleet.metrics.dispatches
-        handles, patches = be.apply_changes_docs(
-            handles, [list(batch) for _ in range(SEAM_DOCS)], mirror=False)
-        assert all(p is None for p in patches)
-        # the root map's makeText lands in the grid/registers first
-        assert fleet.metrics.dispatches - d0 == (2 if batch is BATCHES[0]
-                                                 else 1)
-    assert fleet.metrics.fallbacks == 0
-    return handles
+def _text_seam_of(batches):
+    def text_seam(be, fleet):
+        """init_docs, the whole chain in one apply_changes_docs(
+        mirror=False), then the incremental batches; one sequence dispatch
+        each (one size class), and nothing falls back."""
+        handles = be.init_docs(SEAM_DOCS, fleet)
+        for batch in batches:
+            d0 = fleet.metrics.dispatches
+            handles, patches = be.apply_changes_docs(
+                handles, [list(batch) for _ in range(SEAM_DOCS)],
+                mirror=False)
+            assert all(p is None for p in patches)
+            # the root map's makeText lands in the grid/registers first
+            assert fleet.metrics.dispatches - d0 == (
+                2 if batch is batches[0] else 1)
+        assert fleet.metrics.fallbacks == 0
+        return handles
+    return text_seam
 
 
-def _host_text():
+def _host_text(batches):
     hb = host_backend.init()
-    for batch in BATCHES:
+    for batch in batches:
         hb, _ = host_backend.apply_changes(hb, batch)
     return hb
 
 
-def _small_seam(exact):
+def _small_seam(exact, batches=BATCHES):
     before = seq_kernel.LAUNCHES['seq_scan']
-    tf, th = _both(text_seam, exact, sample=(0, SEAM_DOCS - 1),
-                   doc_capacity=SEAM_DOCS)
-    hb = _host_text()
+    tf, th = _both(_text_seam_of(batches), exact,
+                   sample=(0, SEAM_DOCS - 1), doc_capacity=SEAM_DOCS)
+    hb = _host_text(batches)
     want = jb._leaf_value(host_backend.get_patch(hb)['diffs'])
     assert tb.materialize_docs(th) == [want] * SEAM_DOCS
     assert bytes(tb.save(th[0])) == bytes(host_backend.save(hb))
     assert not any(tf.seq_row_inexact(r) for r in range(SEAM_DOCS))
     assert seq_kernel.LAUNCHES['seq_scan'] == before        # the CPU
+
+
+# The first batch alone first: the whole seam then meets its shapes again.
+
+def test_small_text_seam_first_batch_matches_reference():
+    _small_seam(False, BATCHES[:1])
 
 
 def test_small_text_seam_matches_reference():
