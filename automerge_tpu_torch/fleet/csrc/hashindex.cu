@@ -12,35 +12,53 @@
 // Slots are never emptied in place (dead spaces stay until a migration),
 // so a walk that reaches an empty slot is conclusive.
 //
-// What bounds them on this card. Latency. A row's walk is a chain of
-// dependent loads, a 4 B space and a 32 B key per slot, and at the
-// sync round's load (~0.4) a chain is ~1-2 slots long. The table (75.5 MB
-// at 2^21 slots) does not fit the 50 MB L2, so each step is a device
-// memory round trip on scattered sectors. The bytes a call must move (each
-// row's key, space and flag, and one slot per row) are a small part of
-// its time.
+// What bounds them on this card. Latency and the memory system's
+// ordering work, not bytes. A row's walk is a chain of dependent accesses
+// to scattered sectors of a table (75.5 MB at 2^21 slots) that does not
+// fit the 50 MB L2; the bytes a call must move (each row's key, space and
+// flag, the sectors of its start slots, and one key and space per new
+// key) are a small part of its time. An insert adds its own protocol to
+// the walk: the claim (an atomic at the L2), the key's stores, and the
+// publication that orders them before the space. On an H100 at the sync
+// path's shape (800,000 new keys into 2^21 slots), taking each of these
+// out in turn showed the ordering costing the most, then the claims, then
+// the key stores.
 //
-// What the design does about it. One thread per row, so ~1M independent
-// walks are in flight at once and their round trips overlap; a row's key
-// is loaded once as two 16-byte vectors. The JAX kernels gather a fixed
-// window of slots and loop in whole-batch steps because XLA on the CPU
-// pays ~0.1 ms per while_loop iteration; here a thread simply walks its
-// own chain and stops.
-//
-// The insert claims an empty slot with atomicCAS(-1 -> kBusy), writes the
-// 8 key words, __threadfence(), then publishes the space with a volatile
-// store. A walker that meets a busy slot spins on a volatile load until
-// the space is published (independent thread scheduling makes this safe
-// inside a warp), fences, then compares with volatile loads of the key
-// (the L1 is not coherent with other SMs' writes). A walker whose key
-// equals a published slot's stops as a duplicate: in-batch duplicates
-// and keys already present land once. The count of new keys is one
-// atomicAdd per warp of the ballot of the warp's inserts. The walk ends
+// The insert. One thread per row, so ~1M walks are in flight at once and
+// their round trips overlap. A step reads the aligned 8-slot sector that
+// holds the walk's position (two 16-byte loads, one 32-byte sector) and
+// walks it from there, so at the table's load (<= 0.6) most walks end in
+// one step. The row's flag, key and space come in one round trip. The
+// thread claims the first empty slot in walk order (any later one would
+// leave an empty slot before the key, where both probes stop) with
+// atomicCAS(-1 -> kBusy) and writes the 32-byte key as two 16-byte
+// stores. The warp walks in turns: after each turn it publishes every
+// slot its threads claimed with one fence.acq_rel.gpu and a relaxed store
+// of each space (a release pattern: the keys become visible before their
+// spaces), so the ordering is paid once per warp and turn, not once per
+// thread. A walker that meets a claimed slot (kBusy, or a lost claim)
+// looks at it again next turn, since it may hold the row's own key; a
+// space match is re-read with an acquire load, which orders the key's
+// plain 16-byte loads behind the publication. A key already published, or
+// an in-batch twin, is found before any empty slot, so duplicates land
+// once. The count of new keys is one atomicAdd per CTA. The walk ends
 // because the caller keeps the table's load at or below load_max < 1
 // (HashIndex._ensure_capacity; the wrapper checks it). Which of two
 // in-batch claimants wins a slot is a race, so the slot layout may differ
 // from the JAX kernel's (where the lowest row wins); membership, the
 // count of new keys and the table's length do not.
+//
+// Two other designs were built and timed on an H100 at that shape, and
+// both were slower: a group of 8 threads per row (one slot each, ballots,
+// the key compared a word per thread), since one thread per row keeps 8x
+// as many rows' round trips in flight; and a release store per thread in
+// place of the warp's fence.
+//
+// The probe. One thread per row, so ~1M independent walks are in flight
+// and their round trips overlap; a row's key and each candidate slot's key
+// are two 16-byte loads. The JAX kernels gather a fixed window of slots and
+// loop in whole-batch steps because XLA on the CPU pays ~0.1 ms per
+// while_loop iteration; here a thread simply walks its own chain.
 //
 // Built by cuda_build.py with nvcc into a shared library with a plain C
 // interface (no PyTorch headers), bound with ctypes in sync_kernels.py.
@@ -69,52 +87,103 @@ __device__ __forceinline__ void load_key(const uint32_t* keys, int64_t row,
   k[4] = b.x; k[5] = b.y; k[6] = b.z; k[7] = b.w;
 }
 
-__device__ __forceinline__ bool key_equal(const volatile uint32_t* slot,
-                                          const uint32_t k[8]) {
-  bool eq = true;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) eq &= slot[i] == k[i];
-  return eq;
+__device__ __forceinline__ int32_t load_acquire(const int32_t* p) {
+  int32_t v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
 }
 
-__global__ void hashindex_insert_kernel(uint32_t* tkey, int32_t* tspace,
-                                        uint32_t mask,
-                                        const uint32_t* __restrict__ keys,
-                                        const int32_t* __restrict__ spaces,
-                                        const uint8_t* __restrict__ valid,
-                                        int64_t n, int32_t* n_new) {
+__device__ __forceinline__ int4 load_volatile4(const int32_t* p) {
+  int4 v;
+  asm volatile("ld.volatile.global.v4.s32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_relaxed(int32_t* p, int32_t v) {
+  asm volatile("st.relaxed.gpu.global.b32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+// With a relaxed store after it, a release: the thread's earlier writes
+// become visible before that store to any thread that acquires it.
+__device__ __forceinline__ void fence_acq_rel() {
+  asm volatile("fence.acq_rel.gpu;" ::: "memory");
+}
+
+__global__ void __launch_bounds__(kThreads)
+hashindex_insert_kernel(uint32_t* tkey, int32_t* tspace, uint32_t mask,
+                        const uint32_t* __restrict__ keys,
+                        const int32_t* __restrict__ spaces,
+                        const uint8_t* __restrict__ valid, int64_t n,
+                        int32_t* n_new) {
   const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
-  bool inserted = false;
-  if (row < n && valid[row]) {
-    uint32_t k[8];
+  uint32_t k[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  int32_t space = 0;
+  bool done = true;
+  if (row < n) {
+    // the flag, key and space in one round trip (padding rows are zeros)
+    done = !valid[row];
     load_key(keys, row, k);
-    const int32_t space = spaces[row];
-    volatile int32_t* vspace = tspace;
-    volatile uint32_t* vkey = tkey;
-    for (uint32_t pos = start_pos(k[0], space, mask);;
-         pos = (pos + 1) & mask) {
-      int32_t s = vspace[pos];
-      if (s == kEmpty) {
-        s = atomicCAS(tspace + pos, kEmpty, kBusy);
+    space = spaces[row];
+  }
+  uint32_t pos = start_pos(k[0], space, mask);
+  bool inserted = false, publish = false;
+  uint32_t claimed = 0;
+  // A warp-wide loop: each turn, every thread still walking takes one
+  // step; then the warp publishes the slots its threads claimed, behind
+  // one fence for the warp.
+  while (__any_sync(kAll, !done)) {
+    if (!done) {
+      const uint32_t base = pos & ~7u;
+      const int4 lo = load_volatile4(tspace + base);
+      const int4 hi = load_volatile4(tspace + base + 4);
+      const int32_t sec[8] = {lo.x, lo.y, lo.z, lo.w,
+                              hi.x, hi.y, hi.z, hi.w};
+      bool wait = false;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (done || wait || base + i < pos) continue;
+        const uint32_t slot = base + i;
+        int32_t s = sec[i];
         if (s == kEmpty) {
-          uint4* dst = reinterpret_cast<uint4*>(tkey + pos * 8ull);
-          dst[0] = make_uint4(k[0], k[1], k[2], k[3]);
-          dst[1] = make_uint4(k[4], k[5], k[6], k[7]);
-          __threadfence();
-          vspace[pos] = space;
-          inserted = true;
-          break;
+          s = atomicCAS(tspace + slot, kEmpty, kBusy);
+          if (s == kEmpty) {
+            uint4* dst = reinterpret_cast<uint4*>(tkey + slot * 8ull);
+            dst[0] = make_uint4(k[0], k[1], k[2], k[3]);
+            dst[1] = make_uint4(k[4], k[5], k[6], k[7]);
+            claimed = slot;
+            inserted = publish = done = true;
+            continue;
+          }
+          // lost the claim: the winner's space or kBusy, looked at below
+        }
+        if (s == kBusy) {             // look again next turn
+          pos = slot;
+          wait = true;
+          continue;
+        }
+        if (s == space && load_acquire(tspace + slot) == space) {
+          const uint4* src =
+              reinterpret_cast<const uint4*>(tkey + slot * 8ull);
+          const uint4 a = src[0], b = src[1];
+          done = a.x == k[0] && a.y == k[1] && a.z == k[2] && a.w == k[3] &&
+                 b.x == k[4] && b.y == k[5] && b.z == k[6] && b.w == k[7];
         }
       }
-      while (s == kBusy) s = vspace[pos];
-      __threadfence();
-      if (s == space && key_equal(vkey + pos * 8ull, k)) break;
+      if (!done && !wait) pos = (base + 8) & mask;
+    }
+    if (__any_sync(kAll, publish)) {
+      fence_acq_rel();
+      if (publish) store_relaxed(tspace + claimed, space);
+      publish = false;
     }
   }
-  const unsigned ballot = __ballot_sync(kAll, inserted);
-  if ((threadIdx.x & 31) == 0 && ballot)
-    atomicAdd(n_new, __popc(ballot));
+  const int count = __syncthreads_count(inserted);
+  if (threadIdx.x == 0 && count) atomicAdd(n_new, count);
 }
 
 __global__ void hashindex_probe_kernel(const uint32_t* __restrict__ tkey,
@@ -157,14 +226,15 @@ unsigned int blocks_for(int64_t n) {
 }  // namespace
 
 // Inserts the valid rows of (spaces [n] int32, keys [n, 8] uint32) into
-// the table (tkey [cap, 8], tspace [cap], cap a power of two) in place
-// and adds the number of keys newly landed to *n_new. Returns the CUDA
-// error code of the launch (0 = cudaSuccess).
+// the table (tkey [cap, 8], tspace [cap], cap a power of two >= 8) in
+// place and adds the number of keys newly landed to *n_new. Returns the
+// CUDA error code of the launch (0 = cudaSuccess).
 extern "C" int hashindex_insert_launch(void* tkey, void* tspace, int64_t cap,
                                        const void* keys, const void* spaces,
                                        const void* valid, int64_t n,
                                        void* n_new, void* stream) {
   if (n <= 0) return 0;
+  if (cap < 8) return static_cast<int>(cudaErrorInvalidValue);
   hashindex_insert_kernel<<<blocks_for(n), kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint32_t*>(tkey), static_cast<int32_t*>(tspace),

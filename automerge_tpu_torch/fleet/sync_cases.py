@@ -6,15 +6,20 @@ versions (fleet/sync_kernels.py), shared by the card tests
   'collide' (every key starts its walk at one slot), 'wrap' (the same,
   at slot cap - 1, so the chain wraps), 'dups' (in-batch duplicates and
   keys already in the table), 'load' (a quarter-full table filled to
-  the 0.6 load bound), 'spaces' (many spaces, keys shared across them).
+  the 0.6 load bound), 'spaces' (many spaces, keys shared across them),
+  and the insert's 8-slot windows: 'window_wrap', 'claim_race',
+  'busy_twin', 'one_batch' (see `index_case`).
 - `index_both(case)`: the case's insert, then a probe, through the
   kernels and through the plain versions; returns the disagreements.
 - `members(tkey, tspace)` / `same_members(...)`: a table's (space, key)
   rows, sorted: the kernel's slot layout may differ from the plain
   version's where rows race for a slot, its membership may not.
 - `bloom_both(rng, counts, device)`: filters for hash lists of the given
-  entry counts (skewed sizes, empty rows) built and probed through the
-  kernels and through the plain versions; returns the disagreements.
+  entry counts (`BLOOM_COUNTS`: skewed sizes, empty rows, rows on and
+  across 16-byte edges, padding rows and a zero tail, the longest row
+  one shared-memory window holds and a longer one) built and
+  probed through the kernels and through the plain versions; returns the
+  disagreements. `bloom_layout(counts)` is the flat layout alone.
 """
 
 import numpy as np
@@ -54,18 +59,27 @@ def _tensors(words, spaces, valid, device):
             torch.from_numpy(np.asarray(valid, dtype=bool)).to(device))
 
 
-INDEX_CASES = ('collide', 'wrap', 'dups', 'load', 'spaces')
+INDEX_CASES = ('collide', 'wrap', 'dups', 'load', 'spaces', 'window_wrap',
+               'claim_race', 'busy_twin', 'one_batch')
 
 
 INDEX_CAPS = {'collide': 1024, 'wrap': 1024, 'dups': 4096, 'load': 1 << 16,
-              'spaces': 1 << 14}
+              'spaces': 1 << 14, 'window_wrap': 1024, 'claim_race': 1024,
+              'busy_twin': 4096, 'one_batch': 1 << 18}
 
 
 def index_case(name, rng, device, cap=None):
     """dict(tkey, tspace, keys, spaces, valid, occupied): a starting
     table (`occupied` slots in use) and a batch to insert into it. The
     table has INDEX_CAPS[name] slots unless `cap` (a power of two) says
-    otherwise."""
+    otherwise. Beyond the corners named in the module docstring:
+    'window_wrap' (keys starting in each of the last 7 slots, so the
+    insert's first 8-slot window wraps at cap - 1), 'claim_race' (three
+    slots in use, then keys starting at each of them, all racing for the
+    first empty slot after them), 'busy_twin' (colliding keys, each 8
+    times in the batch, so twins meet each other's claimed, unpublished
+    slot) and 'one_batch' (an empty table filled to the 0.6 load bound
+    in one batch)."""
     cap = cap or INDEX_CAPS[name]
     tkey, tspace = empty_table(cap, device)
     occupied = 0
@@ -92,6 +106,30 @@ def index_case(name, rng, device, cap=None):
         occupied = quarter
         n = int(LOAD_MAX * cap) - quarter
         words, spaces = random_words(rng, n), rng.integers(0, 8, n)
+    elif name == 'window_wrap':
+        per = max(1, int(LOAD_MAX * cap) // 14)
+        words = np.concatenate([colliding_words(rng, per, cap, cap - k, 5)
+                                for k in range(1, 8)])
+        spaces = np.full(len(words), 5, np.int32)
+    elif name == 'claim_race':
+        pos = cap // 2
+        pre = _tensors(colliding_words(rng, 3, cap, pos, 7),
+                       np.full(3, 7, np.int32), np.ones(3, bool), device)
+        sync_kernels.hashindex_insert_plain(tkey, tspace, *pre)
+        occupied = 3
+        per = max(1, int(LOAD_MAX * cap) // 6)
+        words = np.concatenate([colliding_words(rng, per, cap, pos + k, 7)
+                                for k in range(3)])
+        spaces = np.full(len(words), 7, np.int32)
+    elif name == 'busy_twin':
+        distinct = colliding_words(rng, int(LOAD_MAX * cap) // 16, cap, 100,
+                                   2)
+        words = distinct[rng.permutation(np.repeat(np.arange(len(distinct)),
+                                                   8))]
+        spaces = np.full(len(words), 2, np.int32)
+    elif name == 'one_batch':
+        n = int(LOAD_MAX * cap)
+        words, spaces = random_words(rng, n), rng.integers(0, 1000, n)
     else:
         n = int(0.5 * cap)
         shared = random_words(rng, n // 16)
@@ -110,8 +148,9 @@ def index_both(case):
     each on its own copy of the table. Returns the kernels' new-key count
     and the disagreements, each 0 when the kernels hold: 'insert' (the
     new-key counts or the memberships differ), 'probe' (rows whose
-    answers differ) and 'wrong' (rows the kernel's probe answers wrongly:
-    an inserted key not found, an absent key found)."""
+    answers differ) and 'wrong' (rows that the kernel's probe, or the
+    plain probe on the kernel's table, answers wrongly: an inserted key
+    not found, an absent key found)."""
     absent = case['keys'].clone()
     absent[:, 5] ^= 1
     probe = (torch.cat([case['keys'], absent]),
@@ -123,6 +162,7 @@ def index_both(case):
         kt, ks, *insert, case['occupied'] + int(case['valid'].sum()),
         LOAD_MAX))
     hit = sync_kernels.hashindex_probe(kt, ks, *probe)
+    plain_on_kernel = sync_kernels.hashindex_probe_plain(kt, ks, *probe)
     pt, ps = case['tkey'].clone(), case['tspace'].clone()
     pn = int(sync_kernels.hashindex_insert_plain(pt, ps, *insert))
     plain_hit = sync_kernels.hashindex_probe_plain(pt, ps, *probe)
@@ -130,7 +170,8 @@ def index_both(case):
     return dict(n_new=kn,
                 insert=int(kn != pn or not same_members(kt, ks, pt, ps)),
                 probe=int((hit != plain_hit).sum()),
-                wrong=int((hit != expect).sum()))
+                wrong=int((hit != expect).sum() +
+                          (plain_on_kernel != expect).sum()))
 
 
 def members(tkey, tspace):
@@ -149,13 +190,37 @@ def same_members(tkey_a, tspace_a, tkey_b, tspace_b):
 BLOOM_COUNTS = {
     'skewed': [1, 300, 7, 0, 42, 0, 0, 150, 3, 64, 9, 0, 1, 2, 255, 1000],
     'uniform': [8] * 5000,
+    # H = 2,048: one row per build CTA (sync_kernels.bloom_plan), rows of
+    # 2,048 B (1,638 entries) and around it, so CTA edges fall at and
+    # beside 16-byte edges and rows straddle them
+    'cta_edges': [1638, 1638, 8, 1636, 3, 1639, 2, 0, 1, 820, 818, 1638],
+    # one row of 15,000 B, between small ones
+    'spanning': [3, 12000, 5, 0, 17],
+    # 9 rows padded to 16 with empty rows, and a zero tail past the rows
+    # (2,066 B of filters in a 4,096 B output)
+    'padding': [1] * 9 + [1638],
+    # the longest row one shared-memory window holds (WINDOW_CAP - 16
+    # bytes), 12 bytes from a 16-byte edge; and a longer one that takes
+    # two windows
+    'window_cap': [9, 163827, 1],
+    'past_cap': [200000, 2, 0, 4],
 }
+
+
+def bloom_layout(counts):
+    """(row_bits, bit_off, total_bits, H) of the flat layout the batched
+    build gives lists of these entry counts (bloom.flat_build_lanes)."""
+    _w, _v, row_bits, bit_off, total_bits, _b = bloom.flat_build_lanes(
+        [['00' * 32] * c for c in counts])
+    return (torch.from_numpy(row_bits.astype(np.int64)),
+            torch.from_numpy(bit_off.astype(np.int64)), total_bits,
+            _w.shape[1])
 
 
 def bloom_both(rng, counts, device):
     """Filters for random hash lists of the given entry counts, built,
-    then probed with each row's members and as many strangers, by the
-    kernels and by the plain versions. Returns the filter count and
+    then probed (the kernel's filters) with each row's members and as
+    many strangers, by the kernels and by the plain versions. Returns the filter count and
     bytes, and the disagreements, each 0 when the kernels hold: 'build'
     (the largest difference of a packed byte), 'probe' (lanes whose
     answers differ) and 'missed' (members the kernel's probe did not
@@ -171,7 +236,7 @@ def bloom_both(rng, counts, device):
     want = sync_kernels.bloom_build_plain(words, valid, row_bits, bit_off,
                                           total_bits)
     probe_lists = [row + [rng.bytes(32).hex() for _ in row] for row in lists]
-    filters = [want[off:off + bloom.num_filter_bits(len(row)) // 8]
+    filters = [got[off:off + bloom.num_filter_bits(len(row)) // 8]
                .cpu().numpy() for off, row in zip(byte_off, lists)]
     flat, words, valid, row_bits, byte_off = bloom.flat_probe_lanes(
         filters, probe_lists)

@@ -7,7 +7,12 @@ and what their design does about it):
 
 - `bloom_build(words, valid, row_bits, bit_off, total_bits)`: the flat
   packed Bloom build (automerge_tpu/fleet/bloom.py `_build_flat_packed`).
-  Returns the [total_bits / 8] uint8 LSB-first packed filters.
+  Returns the [total_bits / 8] uint8 LSB-first packed filters. Rows are
+  whole bytes in bit_off order without overlap, padded rows at the end
+  (bloom.flat_build_lanes), and H is a power of two: each CTA of the
+  kernel builds a group of rows in shared memory and stores its bytes
+  once (`bloom_plan`, `bloom_groups_plain`), so the output is allocated
+  with torch.empty. `probe_indexes_stepped` is its modulo rule.
 - `bloom_probe(flat, row_bits, byte_off, words, valid)`: the flat packed
   probe (bloom.py `_probe_flat_packed`). Returns [rows, H] bool.
 - `hashindex_insert(tkey, tspace, keys, spaces, valid, max_occupancy,
@@ -32,9 +37,11 @@ and nothing else.
 
 The plain insert reproduces the JAX claim loop (a scatter-min claim per
 empty slot, lowest row wins), so on the CPU its tables equal the JAX
-package's slot for slot; the kernel's slot layout may differ where two
+package's slot for slot. The kernel claims each key's first empty slot
+in walk order with an atomic, so its slot layout may differ where two
 rows of one batch race for a slot, while membership, the count of new
-keys and the table's length agree.
+keys and the table's length agree, and both probes find every key it
+placed.
 """
 
 import ctypes
@@ -46,6 +53,10 @@ from . import cuda_build
 NUM_PROBES = 7
 GOLD = 0x9E3779B9        # Fibonacci-hash mix of the space id
 _M32 = 0xFFFFFFFF
+BITS_PER_ENTRY = 10      # the reference's filter sizing (bloom.py)
+BUILD_LANES = 1024       # lanes per CTA of the build kernel (4 a thread)
+BUILD_THREADS = 256      # threads per CTA of the build kernel
+WINDOW_CAP = 200 * 1024  # the build's shared-memory window, at most
 
 LAUNCHES = {'bloom_build': 0, 'bloom_probe': 0, 'hashindex_insert': 0,
             'hashindex_probe': 0}
@@ -58,7 +69,8 @@ def reset_launches():
 
 def _declare_bloom(lib):
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.bloom_build_launch.argtypes = [ptr] * 5 + [i64, i64, ptr]
+    lib.bloom_build_launch.argtypes = [ptr] * 5 + [i64, ctypes.c_int, i64,
+                                                   i64, i64, ptr]
     lib.bloom_build_launch.restype = ctypes.c_int
     lib.bloom_probe_launch.argtypes = [ptr] * 6 + [i64, i64, ptr]
     lib.bloom_probe_launch.restype = ctypes.c_int
@@ -120,26 +132,46 @@ def _check_bloom(words, valid, row_bits, offs):
     return dev, rows, h
 
 
+def bloom_plan(rows, h):
+    """The build kernel's launch: (group, window, ctas). One CTA per
+    `group` rows (BUILD_LANES / H of them, 1 to BUILD_THREADS); `window`
+    bytes of shared memory each, enough for a group of the longest rows a
+    hash axis of H lanes admits (BITS_PER_ENTRY bits an entry) from any
+    byte alignment, rounded to 16 bytes, at most WINDOW_CAP: a longer row
+    takes one pass over its lanes per window."""
+    group = max(1, min(BUILD_THREADS, BUILD_LANES // h))
+    longest = (h * BITS_PER_ENTRY + 7) // 8
+    window = min(WINDOW_CAP, (group * longest + 15 + 15) // 16 * 16)
+    return group, window, max(1, -(-rows // group))
+
+
 def bloom_build(words, valid, row_bits, bit_off, total_bits):
     """The packed flat filters: bit bit_off[r] + p of a [total_bits]
-    vector is set for every probe p of every valid lane of row r."""
+    vector is set for every probe p of every valid lane of row r. Rows
+    are whole bytes, laid out in bit_off order without overlap, as
+    bloom.flat_build_lanes lays them out (padded rows start at
+    total_bits); H is a power of two."""
     dev, rows, h = _check_bloom(words, valid, row_bits, bit_off)
     total_bits = int(total_bits)
     if total_bits % 32 or total_bits <= 0:
         raise ValueError('bloom_build: total_bits must be a positive '
                          'multiple of 32 (a power of two >= 64)')
+    if h <= 0 or h & (h - 1):
+        raise ValueError(f'bloom_build: the hash axis ({h} lanes) must be a '
+                         f'power of two')
     if not _route(dev, 'bloom_build'):
         return bloom_build_plain(words, valid, row_bits, bit_off, total_bits)
     lib = build_bloom()
-    out = torch.zeros(total_bits // 8, dtype=torch.uint8, device=dev)
+    group, window, _ctas = bloom_plan(rows, h)
+    out = torch.empty(total_bits // 8, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         err = lib.bloom_build_launch(
             words.data_ptr(), valid.data_ptr(), row_bits.data_ptr(),
-            bit_off.data_ptr(), out.data_ptr(), rows, h,
+            bit_off.data_ptr(), out.data_ptr(), rows, h.bit_length() - 1,
+            group, total_bits // 8, window,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, 'bloom_build')
-    if rows * h:
-        LAUNCHES['bloom_build'] += 1
+    LAUNCHES['bloom_build'] += 1
     return out
 
 
@@ -176,6 +208,57 @@ def probe_indexes_plain(words, row_bits):
         y = ((y + z) & _M32) % m
         probes.append(x)
     return torch.stack(probes, dim=-1)
+
+
+def probe_indexes_stepped(words, row_bits):
+    """probe_indexes_plain by the build kernel's rule: after the three
+    first moduli, a step (x + y) % m with x, y < m is x + y - m where
+    x + y >= m, exact while m <= 2^31 (the sum stays below 2^32); a row
+    with m > 2^31 keeps the modulo of the uint32 sum, which wraps first.
+    Returns the same [rows, H, 7] int64 positions."""
+    m = row_bits.view(-1, 1)
+    w = words.long() & _M32
+    x, y, z = w[..., 0] % m, w[..., 1] % m, w[..., 2] % m
+    small = m <= 1 << 31
+
+    def step(a, b):
+        s = a + b
+        return torch.where(small, torch.where(s >= m, s - m, s),
+                           (s & _M32) % m)
+
+    probes = [x]
+    for _ in range(1, NUM_PROBES):
+        x, y = step(x, y), step(y, z)
+        probes.append(x)
+    return torch.stack(probes, dim=-1)
+
+
+def bloom_groups_plain(bit_off, row_bits, total_bits, group):
+    """The build kernel's split of the output among its CTAs, in torch
+    ops: CTA c holds rows [c * group, (c + 1) * group) and writes bytes
+    [own_lo[c], own_hi[c]), from its first row's start (0 for the first
+    CTA) to the next CTA's first row's start (the output's end for the
+    last), clipped to the output; [own_lo[c], rows_end[c]) through its
+    shared-memory window, up to the end of its last live row (a row that
+    starts inside the output), and zeros after it. Returns (own_lo,
+    rows_end, own_hi), [ctas] int64 each."""
+    total = int(total_bits) // 8
+    rows = len(bit_off)
+    starts = (bit_off >> 3).clamp(max=total)
+    ends = (bit_off + row_bits) >> 3
+    first = torch.arange(0, max(rows, 1), group, dtype=torch.int64,
+                         device=bit_off.device)
+    after = (first + group).clamp(max=rows)
+    edge = torch.cat([starts, starts.new_full((1,), total)])
+    own_lo = edge[first.clamp(max=rows)]
+    own_lo[0] = 0
+    own_hi = edge[after]
+    # live rows (starting inside the output) counted per group
+    live = torch.cat([starts.new_zeros(1), (starts < total).long().cumsum(0)])
+    n_live = live[after] - live[first.clamp(max=rows)]
+    rows_end = torch.where(n_live > 0, ends[(first + n_live - 1).clamp(
+        min=0, max=max(rows - 1, 0))] if rows else own_lo, own_lo)
+    return own_lo, rows_end, own_hi
 
 
 def bloom_build_plain(words, valid, row_bits, bit_off, total_bits):
@@ -238,6 +321,9 @@ def hashindex_insert(tkey, tspace, keys, spaces, valid, max_occupancy,
                          f'the load bound {load_max} of {cap} slots')
     if not _route(dev, 'hashindex_insert'):
         return hashindex_insert_plain(tkey, tspace, keys, spaces, valid)
+    if cap < 8:
+        raise ValueError('hashindex_insert: the kernel walks 8-slot '
+                         f'sectors and needs at least 8 slots, not {cap}')
     lib = build_hashindex()
     n_new = torch.zeros(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):

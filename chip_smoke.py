@@ -21,10 +21,16 @@ Phases (any failure exits non-zero):
    duplicate delivery with counter keep/reset over 3 rounds; P = 3000;
    and the full seam shape. The sync kernels (fleet/sync_cases.py): the
    hash-index insert and probe with every key at one start slot, a chain
-   wrapping at cap - 1, in-batch duplicates, the 0.6 load bound and many
-   spaces (equal membership and new-key counts: the insert's slot layout
-   may differ where rows race); the Bloom build and probe over skewed
-   filter sizes (equal bytes and answers); the register scan on every
+   wrapping at cap - 1, in-batch duplicates, the 0.6 load bound, many
+   spaces, 8-slot sectors that wrap at cap - 1, a race for the first
+   empty slot after three used ones, twins that meet each other's
+   claimed slot and a table filled to 0.6 in one batch (equal membership
+   and new-key counts: the insert's slot layout may differ where rows
+   race; both probes find every inserted key); the Bloom build and probe
+   over skewed filter sizes, rows at and across 16-byte edges, padding
+   rows and a zero tail, a row over many CTAs' worth of bytes, the
+   longest row one shared-memory window holds and a longer one (equal
+   bytes and answers); the register scan on every
    corner of fleet/register_cases.py at P = 0, 1 and 20 (8 actor slots)
    and at 256 actor slots, and at P = 3000 (all five arrays and the lane
    count equal); the sequence scan on every corner of
@@ -96,8 +102,11 @@ Phases (any failure exits non-zero):
    both ways (queued, and issued call by call from the host); each
    beside its plain version and its bound; then each sync kernel on the
    largest inputs the sync path handed it (recorded during the path),
-   held to its plain version there, timed beside its plain version and
-   its bound; the register scan on the largest batch the exact seam
+   held to its plain version there (and both probes find every key the
+   insert placed), timed beside its plain version and its bound (the
+   build also after an L2 eviction that leaves no dirty line, the insert
+   on its table restored before each call, and also followed by such an
+   eviction); the register scan on the largest batch the exact seam
    handed it (held to its plain version there; L2 warm and flushed,
    each launch on the touched rows restored off the clock); the sequence
    scan held to its plain version on every batch the text seam handed it,
@@ -105,16 +114,21 @@ Phases (any failure exits non-zero):
    route and serial rows read), then timed on each (L2 warm and flushed,
    the state restored off the clock) beside that batch's plain time and
    its bound; the torch-op linearize and materialize on the text seam's
-   size classes beside their byte bounds; traced breakdowns of the seam, the pipelined seam, the exact
-   seam, the text seam and one steady sync round; the grid bytes, and
-   the card's name and power limit.
+   size classes beside their byte bounds; the torch ops that stand for
+   the JAX package's other XLA kernels (the doc and register row
+   zeroings, the register read and lane permutation, the uniform Bloom
+   pair, the frontier compare) at their paths' shapes beside their byte bounds and their
+   calls on the main paths; traced breakdowns of the seam, the pipelined
+   seam, the exact seam, the text seam and one steady sync round; the
+   grid bytes, and the card's name and power limit.
 
     python3 chip_smoke.py --baseline DIR
 
-also builds the merge and sequence kernels of another checkout (e.g. the
-parent commit, unpacked with `git archive`) and times its wrappers in
-phase 4 beside this one's, by the same methods (the sequence scan in
-turns on each of the text seam's batches).
+also builds the merge, sequence, Bloom and hash-index kernels of another
+checkout (e.g. the parent commit, unpacked with `git archive`) and times
+its wrappers in phase 4 beside this one's, by the same methods (the
+sequence scan, the Bloom build and the hash-index insert in turns:
+baseline, this, this, baseline).
 
 The last stdout line is {"ok": true, "device": {...}}. Without a CUDA
 device, or without the repository beside it, the script exits non-zero
@@ -163,7 +177,7 @@ def card_line():
 
 # ---- phase 1 ---------------------------------------------------------------
 
-def build_all(baseline=None, baseline_seq=None):
+def build_all(baseline=None):
     from automerge_tpu_torch import native
     from automerge_tpu_torch.fleet import (merge_kernel, register_kernel,
                                            seq_kernel, sync_kernels)
@@ -186,10 +200,15 @@ def build_all(baseline=None, baseline_seq=None):
             ('bloom', lambda: sync_kernels.build_bloom() is not None),
             ('hashindex', lambda: sync_kernels.build_hashindex() is not None)]
     if baseline is not None:
-        jobs.append(('baseline lww_merge',
-                     lambda: baseline.build() is not None))
-        jobs.append(('baseline sequence',
-                     lambda: baseline_seq.build() is not None))
+        jobs += [
+            ('baseline lww_merge',
+             lambda: baseline['merge'].build() is not None),
+            ('baseline sequence',
+             lambda: baseline['seq'].build() is not None),
+            ('baseline bloom',
+             lambda: baseline['sync'].build_bloom() is not None),
+            ('baseline hashindex',
+             lambda: baseline['sync'].build_hashindex() is not None)]
     threads = [threading.Thread(target=run, args=a) for a in jobs]
     for t in threads:
         t.start()
@@ -1319,12 +1338,28 @@ SLEEP_CYCLES = 40_000_000      # ~20 ms: the host queues every timed call
 FLUSH_BYTES = 256 << 20        # > the H100's 50 MB L2
 
 
+def evict(flush):
+    """Evict the L2 before a timed call: `flush` is an int32 buffer of
+    FLUSH_BYTES, written whole (the lines it leaves are dirty), or a
+    callable (`clean_evictor`)."""
+    if callable(flush):
+        flush()
+    else:
+        flush.fill_(1)
+
+
+def clean_evictor(buf):
+    """An L2 eviction that leaves no dirty line: a read of the whole
+    buffer, so a timed call that follows pays no write-back of the lines
+    an earlier write (a restore) left."""
+    return lambda: buf.sum()
+
+
 def time_ms(fn, reps=50, flush=None):
     """Device ms per call of `fn`. The calls are queued behind a sleep
-    kernel, so the host's launch cost is off the clock. With `flush` (an
-    int32 buffer of FLUSH_BYTES), each call follows a write of the whole
-    buffer, which evicts the L2, and only the call is timed (median of
-    the calls)."""
+    kernel, so the host's launch cost is off the clock. With `flush`
+    (see `evict`), each call follows an eviction of the L2, and only the
+    call is timed (median of the calls)."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -1339,7 +1374,7 @@ def time_ms(fn, reps=50, flush=None):
         pairs[0][1].record()
     else:
         for start, end in pairs:
-            flush.fill_(1)
+            evict(flush)
             start.record()
             fn()
             end.record()
@@ -1501,7 +1536,7 @@ def time_restored(fn, restore, reps=20, flush=None):
     changes its inputs, as the hash-index insert and the scans do. The
     calls are queued behind a sleep kernel, so the host's launch cost is
     off the clock; with `flush` (as for time_ms) each restore is followed
-    by a write that evicts the L2."""
+    by an eviction of the L2."""
     import torch
     restore()
     fn()
@@ -1512,7 +1547,7 @@ def time_restored(fn, restore, reps=20, flush=None):
     for start, end in pairs:
         restore()
         if flush is not None:
-            flush.fill_(1)
+            evict(flush)
         start.record()
         fn()
         end.record()
@@ -1541,11 +1576,31 @@ SYNC_KERNELS = {
 }
 
 
-def sync_kernel_numbers(inputs):
+def turns_of(module, baseline):
+    """The modules to time in turns: this checkout's alone, or with
+    `baseline` (another checkout's module of the same name) as
+    (baseline, this, this, baseline), tagged 'base_' and ''."""
+    if baseline is None:
+        return [('', module)]
+    return [('base_', baseline), ('', module), ('', module),
+            ('base_', baseline)]
+
+
+def sync_kernel_numbers(inputs, baseline=None):
     """Each sync kernel on the largest inputs the sync path handed its
     wrapper: held to its plain version there, and timed (device ms;
     queued behind a sleep, or per call on a restored table for the
-    insert) beside its plain version and its bound. The bounds count
+    insert) beside its plain version and its bound. The build is timed
+    with the L2 warm and after a clean eviction (`clean_evictor`,
+    cold_ms), beside a floor (zero_ms: one zero_() of its output); the
+    insert on the table restored before each call, as
+    is (ms: the restore's 72 MB of writes are still dirty in the L2) and
+    followed by a clean eviction (clean_ms), beside a floor of its key
+    stores (key_scatter_ms: torch's index_copy_ of the new keys to the
+    slots the kernel gave them). With `baseline` (another
+    checkout's sync_kernels, e.g. the parent commit's) its build and
+    insert are timed by the same methods in turns (baseline, this,
+    this, baseline; base_*). The bounds count
     what this run's data needs: the valid flag (and the probes' output
     byte) of every lane, the words or key and space of valid lanes only,
     the per-row int64s of rows that hold a valid lane only, and the
@@ -1560,6 +1615,8 @@ def sync_kernel_numbers(inputs):
     from automerge_tpu_torch.fleet import sync_cases
     from automerge_tpu_torch.fleet import sync_kernels as sk
     out = {}
+    buf = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=DEVICE)
+    clean = clean_evictor(buf)
 
     def space_sectors(slots):
         return int(torch.unique(slots // 8).numel()) * 32
@@ -1570,11 +1627,21 @@ def sync_kernel_numbers(inputs):
     r, h = words.shape[:2]
     v = int(valid.sum())
     live = int(valid.any(dim=1).sum())
+    times = {}
+    for tag, mod in turns_of(sk, baseline):
+        def build():
+            return mod.bloom_build(words, valid, row_bits, bit_off,
+                                   total_bits)
+        times.setdefault(tag + 'ms', []).append(time_ms(build))
+        times.setdefault(tag + 'cold_ms', []).append(
+            time_ms(build, reps=20, flush=clean))
+    err = int((got.int() - want.int()).abs().max())
     out['bloom_build'] = dict(
         shape=f'{r} rows x {h} lanes ({v} valid) -> {total_bits // 8} B',
-        max_abs_err=int((got.int() - want.int()).abs().max()),
-        ms=time_ms(lambda: sk.bloom_build(words, valid, row_bits, bit_off,
-                                          total_bits)),
+        max_abs_err=err,
+        **{k: statistics.median(t) for k, t in times.items()},
+        # a floor: one launch that writes the output once
+        zero_ms=time_ms(got.zero_),
         plain_ms=time_ms(lambda: sk.bloom_build_plain(
             words, valid, row_bits, bit_off, total_bits), reps=5),
         **bound_of(r * h + v * 12 + live * 16 + total_bits // 8, v * 22))
@@ -1617,13 +1684,32 @@ def sync_kernel_numbers(inputs):
     new_slots = torch.nonzero((tspace >= 0) & (tspace0 < 0)).flatten()
     n_bytes = (n + v * 36 + space_sectors(starts) + n_new * 32 +
                space_sectors(new_slots))
-    del starts, new_slots
+    # a floor of the insert's key stores: torch's scatter of the new keys
+    # to the slots the kernel gave them, on a scratch table
+    new_keys, scratch = tkey[new_slots].clone(), tkey0.clone()
+    key_scatter_ms = time_ms(
+        lambda: scratch.index_copy_(0, new_slots, new_keys), reps=20)
+    del starts, new_slots, new_keys, scratch
+    # both probes find every key the kernel placed
+    missed = 0
+    for probe in (sk.hashindex_probe, sk.hashindex_probe_plain):
+        missed += int((probe(tkey, tspace, keys, spaces, valid) !=
+                       valid).sum())
+    times = {}
+    for tag, mod in turns_of(sk, baseline):
+        def insert():
+            return mod.hashindex_insert(tkey, tspace, keys, spaces, valid,
+                                        **kw)
+        times.setdefault(tag + 'ms', []).append(
+            time_restored(insert, restore))
+        times.setdefault(tag + 'clean_ms', []).append(
+            time_restored(insert, restore, flush=clean))
     out['hashindex_insert'] = dict(
         shape=f'{n} rows ({v} valid, {n_new} new) into {len(tspace)} slots '
               f'({int((tspace0 >= 0).sum())} in use)',
-        max_abs_err=abs(n_new - p_new) + (0 if same else 1),
-        ms=time_restored(lambda: sk.hashindex_insert(
-            tkey, tspace, keys, spaces, valid, **kw), restore),
+        max_abs_err=abs(n_new - p_new) + (0 if same else 1) + missed,
+        **{k: statistics.median(t) for k, t in times.items()},
+        key_scatter_ms=key_scatter_ms,
         plain_ms=time_restored(lambda: sk.hashindex_insert_plain(
             tkey, tspace, keys, spaces, valid), restore, reps=3),
         **bound_of(n_bytes, v * 16))
@@ -1649,6 +1735,7 @@ def sync_kernel_numbers(inputs):
             tkey, tspace, keys, spaces, valid, **kw), reps=3),
         **bound_of(n_bytes, v * 16))
 
+    del buf
     for name, nums in out.items():
         log(f'{name} at the sync path\'s shape, {nums["shape"]}: ' +
             ', '.join(f'{key} {val:.4f}' if isinstance(val, float) else
@@ -1658,6 +1745,149 @@ def sync_kernel_numbers(inputs):
             fail(f'{name} != plain at the sync path\'s shape '
                  f'(max abs err {nums["max_abs_err"]})')
     return out
+
+
+# The JAX package's XLA kernels that the port runs as torch ops and no
+# main path times on its own: (module, name, JAX kernel).
+TORCH_OPS = (
+    ('apply', 'zero_doc_rows_donated',
+     'automerge_tpu/fleet/apply.py:226 _zero_doc_rows_impl'),
+    ('registers', 'zero_register_rows_donated',
+     'automerge_tpu/fleet/registers.py:232 _zero_register_rows_impl'),
+    ('registers', 'visible_registers',
+     'automerge_tpu/fleet/registers.py:247 _visible_registers_impl'),
+    ('bloom', '_build_varsize', 'automerge_tpu/fleet/bloom.py:162'),
+    ('bloom', '_probe_varsize', 'automerge_tpu/fleet/bloom.py:171'),
+    ('hashindex', '_compare',
+     'automerge_tpu/fleet/hashindex.py:311 _compare_kernel'),
+    ('backend', 'DocFleet._remap_reg_actors',
+     'automerge_tpu/fleet/backend.py inline jnp (register lane '
+     'permutation)'),
+)
+
+
+class CallCounter:
+    """While on, counts the calls of each TORCH_OPS function (each call
+    is one or more torch launches), through the module attribute every
+    caller looks up at call time."""
+
+    def __init__(self):
+        self.calls = {name: 0 for _mod, name, _src in TORCH_OPS}
+        self._real = {}
+
+    def __enter__(self):
+        import importlib
+        for mod, name, _src in TORCH_OPS:
+            owner = importlib.import_module(
+                f'automerge_tpu_torch.fleet.{mod}')
+            *outer, attr = name.split('.')
+            for part in outer:          # a method: patch its class
+                owner = getattr(owner, part)
+            real = getattr(owner, attr)
+            self._real[(owner, attr)] = real
+            setattr(owner, attr, self._wrap(name, real))
+        return self
+
+    def __exit__(self, *exc):
+        for (owner, attr), real in self._real.items():
+            setattr(owner, attr, real)
+
+    def _wrap(self, name, real):
+        def call(*args, **kwargs):
+            self.calls[name] += 1
+            return real(*args, **kwargs)
+        return call
+
+
+FREED_DOCS = 1_000      # a 10 % churn of the seam's 10,000 docs
+
+
+def torch_op_numbers(grid_shape, reg_shape, sync_bloom, calls):
+    """Each TORCH_OPS function timed (device ms, queued behind a sleep,
+    L2 warm) at the shapes its path uses, beside its byte bound and its
+    calls on the main paths (`calls`, from a CallCounter): the two row
+    zeroings freeing FREED_DOCS docs of the seam's grids and of the
+    exact seam's register state; the register read on that state, and
+    its lane permutation after a new actor sorts first (every lane moves
+    up one; the four lane arrays read and written); the
+    uniform Bloom pair on the sync path's 131,072 x 8 lanes (one 80-bit
+    filter per row, as `build_bloom_filters` lays them); the frontier
+    compare on as many rows as the sync hub has links, pow2-padded.
+    Bytes: each input read once, each output written once (the zeroed
+    rows written once)."""
+    import numpy as np
+    import torch
+    import types
+    from automerge_tpu_torch.fleet import apply, bloom, hashindex, registers
+    from automerge_tpu_torch.fleet.backend import DocFleet
+    from automerge_tpu_torch.fleet.registers import RegisterState
+    from automerge_tpu_torch.fleet.tensor_doc import FleetState
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(7)
+    out = {}
+    n, k1 = grid_shape
+    idx = torch.arange(0, n, n // FREED_DOCS, device=dev)[:FREED_DOCS]
+    grids = FleetState.empty(n, k1 - 1, dev)
+    out['zero_doc_rows_donated'] = (
+        time_ms(lambda: apply.zero_doc_rows_donated(grids, idx)),
+        bound_of(FREED_DOCS * (8 + 3 * k1 * 4), 0),
+        f'{FREED_DOCS} of [{n}, {k1}] x3 int32')
+    del grids
+    rn, rk1, a = reg_shape
+    state = RegisterState.empty(rn, rk1 - 1, a, dev)
+    cell = 4 + 1 + 4 + 4                      # reg, killed, value, counter
+    out['zero_register_rows_donated'] = (
+        time_ms(lambda: registers.zero_register_rows_donated(state, idx)),
+        bound_of(FREED_DOCS * (8 + rk1 * a * cell + 1), 0),
+        f'{FREED_DOCS} of [{rn}, {rk1}, {a}]')
+    out['visible_registers'] = (
+        time_ms(lambda: registers.visible_registers(state), reps=10),
+        bound_of(rn * rk1 * (a * (4 + 1 + 1) + 4 + 4), rn * rk1 * a * 6),
+        f'[{rn}, {rk1}, {a}]')
+    move, renum = DocFleet._lane_permutation(
+        types.SimpleNamespace(device=dev), np.arange(1, a), a)
+    out['DocFleet._remap_reg_actors'] = (
+        time_ms(lambda: (renum(move(state.reg, 0)),
+                         move(state.killed, False), move(state.value, 0),
+                         move(state.counter, 0)), reps=5),
+        bound_of(rn * rk1 * a * cell * 2, rn * rk1 * a * 8),
+        f'[{rn}, {rk1}, {a}]')
+    del state
+    words, valid, _row_bits, _bit_off, _total = sync_bloom
+    r, h = valid.shape
+    b = bloom.num_filter_bits(h)
+    row_bits = torch.full((r,), b, dtype=torch.int64, device=dev)
+    init = torch.zeros((r, b), dtype=torch.bool, device=dev)
+    v = int(valid.sum())
+    bits = bloom._build_varsize(words, valid, row_bits, init)
+    out['_build_varsize'] = (
+        time_ms(lambda: bloom._build_varsize(words, valid, row_bits, init),
+                reps=10),
+        bound_of(r * h + v * 12 + r * 8 + r * b, v * 22),
+        f'{r} rows x {h} lanes ({v} valid) -> [{r}, {b}] bool')
+    out['_probe_varsize'] = (
+        time_ms(lambda: bloom._probe_varsize(bits, row_bits, words, valid),
+                reps=10),
+        bound_of(r * h * 2 + v * 12 + r * 8 + r * b, v * 22),
+        f'{r} rows x {h} lanes ({v} valid) over [{r}, {b}] bool')
+    del bits, init
+    k = 1 << (LINKS - 1).bit_length()
+    cur = torch.from_numpy(rng.integers(0, 256, (k, 32), dtype=np.uint8))
+    cols = (cur.to(dev), torch.ones(k, dtype=torch.int32, device=dev),
+            cur.to(dev), torch.ones(k, dtype=torch.int32, device=dev))
+    out['_compare'] = (
+        time_ms(lambda: hashindex._compare(*cols)),
+        bound_of(k * (32 * 2 + 4 * 2 + 1), k * 40),
+        f'{k} rows')
+    nums = {}
+    for mod, name, src in TORCH_OPS:
+        ms, bound, shape = out[name]
+        nums[name] = dict(ms=ms, calls=calls[name], replaces=src,
+                          shape=shape, **bound)
+        log(f'torch op {mod}.{name} ({src}) at {shape}: {ms:.4f} ms, '
+            f'bound {bound["bound_ms"]:.4f} ms ({bound["bound_by"]}, '
+            f'{bound["bytes"]} B), calls on the main paths {calls[name]}')
+    return nums
 
 
 def register_numbers(saved):
@@ -1854,16 +2084,13 @@ def seq_numbers(saved, pools, baseline=None):
             for t, t0 in zip(got.tensors(), state0.tensors()):
                 t.copy_(t0)
 
-        turns = [('', sk.seq_scan)]
-        if baseline is not None:
-            turns = [('base_', baseline.seq_scan), ('', sk.seq_scan),
-                     ('', sk.seq_scan), ('base_', baseline.seq_scan)]
         times = {}
-        for tag, scan in turns:
+        for tag, mod in turns_of(sk, baseline):
             times.setdefault(tag + 'ms', []).append(time_restored(
-                lambda: scan(got, ops), restore, reps=5))
+                lambda: mod.seq_scan(got, ops), restore, reps=5))
             times.setdefault(tag + 'cold_ms', []).append(time_restored(
-                lambda: scan(got, ops), restore, reps=5, flush=flush))
+                lambda: mod.seq_scan(got, ops), restore, reps=5,
+                flush=flush))
         nums = dict(
             batch=b, shape=f'[{r}, {nodes}, {a}] state, {p} lanes x {d} '
             f'preds per row ({n_live} live)', route=plan.route,
@@ -1913,11 +2140,11 @@ def text_breakdown(batches):
 
 
 def load_baseline(path):
-    """The merge and sequence wrappers of another checkout of this
-    repository (e.g. the parent commit, unpacked with `git archive`). Its
-    package is loaded under a name of its own (`baseline_port`), so its
-    imports resolve inside that checkout, and it builds its own kernel
-    sources there."""
+    """The merge, sequence and sync kernel modules of another checkout of
+    this repository (e.g. the parent commit, unpacked with `git
+    archive`), as {'merge', 'seq', 'sync'}. Its package is loaded under a
+    name of its own (`baseline_port`), so its imports resolve inside that
+    checkout, and it builds its own kernel sources there."""
     import importlib
     import importlib.util
     pkg = os.path.join(path, 'automerge_tpu_torch')
@@ -1930,8 +2157,10 @@ def load_baseline(path):
     mod = importlib.util.module_from_spec(spec)
     sys.modules['baseline_port'] = mod
     spec.loader.exec_module(mod)
-    return (importlib.import_module('baseline_port.fleet.merge_kernel'),
-            importlib.import_module('baseline_port.fleet.seq_kernel'))
+    return {name: importlib.import_module(f'baseline_port.fleet.{module}')
+            for name, module in (('merge', 'merge_kernel'),
+                                 ('seq', 'seq_kernel'),
+                                 ('sync', 'sync_kernels'))}
 
 
 def main():
@@ -1947,30 +2176,36 @@ def main():
     args = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     args.add_argument('--baseline', metavar='DIR',
                       help='another checkout of this repository (e.g. the '
-                      'parent commit) whose merge and sequence wrappers '
-                      'phase 4 times beside this one, by the same methods')
+                      'parent commit) whose merge, sequence, Bloom build '
+                      'and hash-index insert wrappers phase 4 times beside '
+                      'this one, by the same methods')
     args = args.parse_args()
-    baseline, baseline_seq = (load_baseline(args.baseline) if args.baseline
-                              else (None, None))
+    baseline = load_baseline(args.baseline) if args.baseline else None
+    base = baseline or {}
     t_start = time.perf_counter()
     log(f'torch {torch.__version__} cuda {torch.version.cuda} '
         f'python {sys.version.split()[0]}')
-    build_all(baseline, baseline_seq)
+    build_all(baseline)
     max_err = kernel_vs_plain()
     sync_kernel_vs_plain()
     reg_err = register_kernel_vs_plain()
     seq_err = seq_kernel_vs_plain()
-    launches, grid_bytes, grid_shape, per_doc, seam_handles = main_path()
-    pipelined_path(per_doc, seam_handles)
-    del seam_handles
-    reg_launches, reg_input, exact_batches = exact_path(per_doc)
-    text_launches, seq_input, seq_pools, text_batches = text_path()
-    sync = sync_path()
-    nums = kernel_numbers(grid_shape, baseline)
-    sync_nums = sync_kernel_numbers(sync.pop('inputs'))
+    with CallCounter() as counter:
+        launches, grid_bytes, grid_shape, per_doc, seam_handles = \
+            main_path()
+        pipelined_path(per_doc, seam_handles)
+        del seam_handles
+        reg_launches, reg_input, exact_batches = exact_path(per_doc)
+        text_launches, seq_input, seq_pools, text_batches = text_path()
+        sync = sync_path()
+    nums = kernel_numbers(grid_shape, base.get('merge'))
+    sync_inputs = sync.pop('inputs')
+    sync_nums = sync_kernel_numbers(sync_inputs, base.get('sync'))
     reg_nums = register_numbers(reg_input)
-    del reg_input
-    seq_nums = seq_numbers(seq_input, seq_pools, baseline_seq)
+    torch_op_numbers(grid_shape, tuple(reg_input[1].reg.shape),
+                     sync_inputs['bloom_build'][0], counter.calls)
+    del reg_input, sync_inputs
+    seq_nums = seq_numbers(seq_input, seq_pools, base.get('seq'))
     del seq_input, seq_pools
     breakdown(per_doc)
     breakdown(per_doc, 'pipelined')
@@ -1999,7 +2234,10 @@ def main():
             'max_abs_err': k['max_abs_err'],
             'ms': k['ms'], 'plain_ms': k['plain_ms'],
             'bound_ms': k['bound_ms'], 'bound_by': k['bound_by'],
-            'library_ms': None})
+            'library_ms': None,
+            **{key: k[key] for key in ('cold_ms', 'clean_ms', 'base_ms',
+                                       'base_cold_ms', 'base_clean_ms')
+               if key in k}})
     kernels.append({
         'name': 'register_scan', 'route': 'cuda',
         'source': 'automerge_tpu_torch/fleet/csrc/registers.cu',

@@ -159,11 +159,22 @@ def test_plain_kernels_match_the_jax_kernels_at_padded_shapes():
     np.testing.assert_array_equal(got_hit.numpy(), want_hit)
 
 
-@pytest.mark.parametrize('counts', sorted(sync_cases.BLOOM_COUNTS))
+@pytest.mark.parametrize('counts', ['skewed', 'uniform'])
 def test_shared_bloom_cases_hold_on_the_cpu(counts):
     """The build-and-probe comparison the card tests and chip_smoke.py
     run (fleet/sync_cases.py), with the plain versions on both sides
     here: every member is found, and it launches nothing."""
+    _shared_bloom_case_holds(counts)
+
+
+@pytest.mark.parametrize('counts', ['padding', 'spanning', 'cta_edges'])
+def test_shared_bloom_build_corners_hold_on_the_cpu(counts):
+    """The same for the build kernel's corners (the card also runs
+    'window_cap' and 'past_cap', too large for the plain build here)."""
+    _shared_bloom_case_holds(counts)
+
+
+def _shared_bloom_case_holds(counts):
     before = dict(sync_kernels.LAUNCHES)
     # the first 1,000 filters of each case (the card runs them all)
     sizes = sync_cases.BLOOM_COUNTS[counts][:1000]
@@ -190,6 +201,63 @@ def test_probe_indexes_wrap_like_uint32():
     assert (got.numpy() >= 1 << 31).any()          # the wrap was exercised
 
 
+@pytest.mark.parametrize('m', [8, 80, 10_000, (1 << 31) - 8, 1 << 31,
+                               3 << 30])
+def test_stepped_probe_rule_matches_reference(m):
+    """The build kernel's modulo rule (conditional subtraction while
+    m <= 2^31, the uint32 modulo chain above) against JAX's
+    `_probe_indexes` at capacities below, at and above 2^31 (whole
+    bytes, as the reference's filters are)."""
+    rng = np.random.default_rng(13)
+    words = rng.integers(0, 1 << 32, (3, 256, 3), dtype=np.uint64) \
+        .astype(np.uint32)
+    row_bits = np.full(3, m, dtype=np.uint32)
+    want = np.asarray(jax_bloom._probe_indexes(words, row_bits[:, None]))
+    t = (torch.from_numpy(words.view(np.int32)),
+         torch.from_numpy(row_bits.astype(np.int64)))
+    got = sync_kernels.probe_indexes_stepped(*t)
+    np.testing.assert_array_equal(got.numpy().astype(np.uint32),
+                                  want.view(np.uint32))
+    assert torch.equal(got, sync_kernels.probe_indexes_plain(*t))
+    assert int(got.max()) < m
+
+
+@pytest.mark.parametrize('counts', sorted(sync_cases.BLOOM_COUNTS))
+def test_build_groups_cover_the_rows_once(counts):
+    """The build kernel's split of the output (`bloom_groups_plain` at
+    `bloom_plan`'s group) against the rows' byte spans: the CTAs' bytes
+    cover the output once, in order; each live row lies whole inside its
+    CTA's window bytes, and no row's byte lies in a CTA's zero part.
+    Every case but 'past_cap' fits each CTA's window bytes in one
+    shared-memory window."""
+    row_bits, bit_off, total_bits, h = sync_cases.bloom_layout(
+        sync_cases.BLOOM_COUNTS[counts])
+    total = total_bits // 8
+    group, window, ctas = sync_kernels.bloom_plan(len(row_bits), h)
+    assert window % 16 == 0 and window <= sync_kernels.WINDOW_CAP
+    own_lo, rows_end, own_hi = sync_kernels.bloom_groups_plain(
+        bit_off, row_bits, total_bits, group)
+    assert len(own_lo) == ctas
+    assert int(own_lo[0]) == 0 and int(own_hi[-1]) == total
+    assert torch.equal(own_lo[1:], own_hi[:-1])
+    assert bool((own_lo <= rows_end).all() and (rows_end <= own_hi).all())
+    starts, ends = bit_off // 8, (bit_off + row_bits) // 8
+    live = starts < total
+    assert bool((starts[live][1:] >= ends[live][:-1]).all())
+    covered = torch.zeros(total, dtype=torch.int64)
+    for r in torch.nonzero(live).flatten().tolist():
+        c = r // group
+        assert int(own_lo[c]) <= int(starts[r])
+        assert int(ends[r]) <= int(rows_end[c])
+        covered[int(starts[r]):int(ends[r])] += 1
+    for c in range(ctas):
+        assert int(covered[int(rows_end[c]):int(own_hi[c])].sum()) == 0
+    assert int(covered.max()) == 1
+    # one window holds a CTA's window bytes, from its 16-byte aligned start
+    need = int((rows_end - (own_lo & ~15)).max())
+    assert (need > window) == (counts == 'past_cap')
+
+
 def test_kernel_wrappers_refuse_malformed_inputs():
     words = torch.zeros((2, 8, 3), dtype=torch.int32)
     valid = torch.ones((2, 8), dtype=torch.bool)
@@ -201,6 +269,9 @@ def test_kernel_wrappers_refuse_malformed_inputs():
         sync_kernels.bloom_build(words, valid, bits.int(), offs, 256)
     with pytest.raises(ValueError, match='total_bits'):
         sync_kernels.bloom_build(words, valid, bits, offs, 200)
+    with pytest.raises(ValueError, match='power of two'):
+        sync_kernels.bloom_build(words[:, :6].contiguous(),
+                                 valid[:, :6].contiguous(), bits, offs, 256)
     with pytest.raises(ValueError, match='valid'):
         sync_kernels.bloom_probe(torch.zeros(64, dtype=torch.uint8), bits,
                                  offs, words, valid[:, :4])

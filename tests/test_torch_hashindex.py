@@ -410,6 +410,22 @@ def test_shared_wrapping_chain_case_holds_on_the_cpu():
     _shared_case_holds('wrap', 128)
 
 
+def test_shared_window_wrap_case_holds_on_the_cpu():
+    _shared_case_holds('window_wrap', 128)
+
+
+def test_shared_claim_race_case_holds_on_the_cpu():
+    _shared_case_holds('claim_race', 128)
+
+
+def test_shared_busy_twin_case_holds_on_the_cpu():
+    _shared_case_holds('busy_twin', 256)
+
+
+def test_shared_one_batch_case_holds_on_the_cpu():
+    _shared_case_holds('one_batch', 1 << 10)
+
+
 def test_index_wrappers_refuse_malformed_inputs():
     tkey = torch.zeros((12, 8), dtype=torch.int32)
     tspace = torch.full((12,), -1, dtype=torch.int32)
