@@ -54,11 +54,26 @@
 // as many rows' round trips in flight; and a release store per thread in
 // place of the warp's fence.
 //
-// The probe. One thread per row, so ~1M independent walks are in flight
-// and their round trips overlap; a row's key and each candidate slot's key
-// are two 16-byte loads. The JAX kernels gather a fixed window of slots and
-// loop in whole-batch steps because XLA on the CPU pays ~0.1 ms per
-// while_loop iteration; here a thread simply walks its own chain.
+// The probe. One thread per row, so ~1M independent walks are in flight.
+// A walk reads the row's flag, space and first key half together (the
+// start slot needs only word 0), then the start slot's space beside the
+// key's second half, then the slot's 32-byte key where the space is the
+// row's, and one slot more at a time until an empty slot or the key. What
+// bounds it on this card is the memory system, not the chain's length:
+// the valid rows stream ~30 MB, and each found key is a scattered 32-byte
+// read of a 64 MB key half that does not fit the L2. What helped was the
+// L2's eviction priority: the table's spaces (8 MB) are read with
+// evict_last and its keys with evict_first, so the key traffic does not
+// push the spaces out and a space read is mostly an L2 hit; the row's
+// flag and space are read, and its answer stored, with streaming hints.
+// Built and timed at the sync path's shape, and slower (PERF.md §6): the
+// start slot's key loaded speculatively with its space; the start slot's
+// 8-slot sector of spaces walked in registers, as the insert does; two or
+// four rows a thread. Streaming hints on the row's key halves too were
+// faster with the L2 warm and slower after an eviction, so they are left
+// out. The JAX kernels gather a fixed window of slots and loop in
+// whole-batch steps because XLA on the CPU pays ~0.1 ms per while_loop
+// iteration; here a thread simply walks its own chain.
 //
 // Built by cuda_build.py with nvcc into a shared library with a plain C
 // interface (no PyTorch headers), bound with ctypes in sync_kernels.py.
@@ -186,37 +201,87 @@ hashindex_insert_kernel(uint32_t* tkey, int32_t* tspace, uint32_t mask,
   if (threadIdx.x == 0 && count) atomicAdd(n_new, count);
 }
 
-__global__ void hashindex_probe_kernel(const uint32_t* __restrict__ tkey,
-                                       const int32_t* __restrict__ tspace,
-                                       uint32_t mask,
-                                       const uint32_t* __restrict__ keys,
-                                       const int32_t* __restrict__ spaces,
-                                       const uint8_t* __restrict__ valid,
-                                       int64_t n, uint8_t* __restrict__ out) {
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (row >= n) return;
-  bool found = false;
-  if (valid[row]) {
-    uint32_t k[8];
-    load_key(keys, row, k);
-    const int32_t space = spaces[row];
-    for (uint32_t pos = start_pos(k[0], space, mask);;
-         pos = (pos + 1) & mask) {
-      const int32_t s = tspace[pos];
-      if (s == kEmpty) break;
-      if (s == space) {
-        const uint4* slot = reinterpret_cast<const uint4*>(tkey + pos * 8ull);
-        const uint4 a = slot[0], b = slot[1];
-        if (a.x == k[0] && a.y == k[1] && a.z == k[2] && a.w == k[3] &&
-            b.x == k[4] && b.y == k[5] && b.z == k[6] && b.w == k[7]) {
-          found = true;
-          break;
-        }
-      }
+// Loads with an L2 eviction priority (createpolicy + ld.L2::cache_hint).
+// The probe reads its table's spaces (8 MB at 2^21 slots, worth keeping)
+// with evict_last and its keys (64 MB, read once a row, scattered) with
+// evict_first, so the key traffic does not push the spaces out of the L2.
+__device__ __forceinline__ int32_t load_evict_last(const int32_t* p) {
+  uint64_t policy;
+  int32_t v;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
+      : "=l"(policy));
+  asm("ld.global.L2::cache_hint.b32 %0, [%1], %2;"
+      : "=r"(v) : "l"(p), "l"(policy));
+  return v;
+}
+
+__device__ __forceinline__ uint4 load_evict_first(const uint4* p) {
+  uint64_t policy;
+  uint4 v;
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+      : "=l"(policy));
+  asm("ld.global.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p), "l"(policy));
+  return v;
+}
+
+__device__ __forceinline__ bool same_key(const uint32_t k[8], uint4 a,
+                                         uint4 b) {
+  return a.x == k[0] && a.y == k[1] && a.z == k[2] && a.w == k[3] &&
+         b.x == k[4] && b.y == k[5] && b.z == k[6] && b.w == k[7];
+}
+
+// The walk of one probe row from slot `pos`, whose space `s` is already
+// loaded, and whose key (a, b) is loaded where `s` is the row's space:
+// slots in order until an empty one (absent) or the key (found).
+__device__ bool probe_walk(const uint32_t* tkey, const int32_t* tspace,
+                           uint32_t mask, const uint32_t k[8], int32_t space,
+                           uint32_t pos, int32_t s, uint4 a, uint4 b) {
+  for (;;) {
+    if (s == kEmpty) return false;
+    if (s == space && same_key(k, a, b)) return true;
+    pos = (pos + 1) & mask;
+    s = load_evict_last(tspace + pos);
+    if (s == space) {
+      const uint4* src = reinterpret_cast<const uint4*>(tkey + pos * 8ull);
+      a = load_evict_first(src);
+      b = load_evict_first(src + 1);
     }
   }
-  out[row] = found;
+}
+
+__global__ void __launch_bounds__(kThreads)
+hashindex_probe_kernel(const uint32_t* __restrict__ tkey,
+                       const int32_t* __restrict__ tspace, uint32_t mask,
+                       const uint32_t* __restrict__ keys,
+                       const int32_t* __restrict__ spaces,
+                       const uint8_t* __restrict__ valid, int64_t n,
+                       uint8_t* __restrict__ out) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (row >= n) return;
+  // the row's flag, space and first key half in one round trip; a row that
+  // is not valid reads nothing more. The flag and space stream past the L2.
+  const uint4* src = reinterpret_cast<const uint4*>(keys + row * 8);
+  const bool live = __ldcs(valid + row) != 0;
+  const int32_t space = __ldcs(spaces + row);
+  const uint4 x = src[0];
+  bool found = false;
+  if (live) {
+    // the start slot's space and the key's second half, together
+    const uint32_t pos = start_pos(x.x, space, mask);
+    const int32_t s = load_evict_last(tspace + pos);
+    const uint4 y = src[1];
+    const uint32_t k[8] = {x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w};
+    uint4 a = {}, b = {};
+    if (s == space && s != kEmpty) {
+      const uint4* key = reinterpret_cast<const uint4*>(tkey + pos * 8ull);
+      a = load_evict_first(key);
+      b = load_evict_first(key + 1);
+    }
+    found = probe_walk(tkey, tspace, mask, k, space, pos, s, a, b);
+  }
+  __stcs(out + row, static_cast<uint8_t>(found));
 }
 
 unsigned int blocks_for(int64_t n) {

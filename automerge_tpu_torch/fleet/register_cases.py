@@ -15,9 +15,12 @@ and chip_smoke.py.
   not pred their actor's standing op), 'overflow' (overflow flags,
   on PAD lanes too), 'chain' (set, overwrite, delete and re-set of one
   key inside one batch), 'neg_preds' (pred ids with bit 31 set, which
-  the inc's signed max from 0 ignores) and 'key_range' (live lanes
-  whose key lies outside [0, K]: the port's own rule, so no JAX
-  comparison). `JAX_CASES` are the cases the JAX step defines.
+  the inc's signed max from 0 ignores), 'key_range' (live lanes whose
+  key lies outside [0, K]: the port's own rule, so no JAX comparison),
+  'one_key' (every op of a doc names one key: the kernel's serial worst
+  case, a round per op of a tile) and 'hot_key' (half the lanes name
+  one key of their doc). `JAX_CASES` are the cases the JAX step
+  defines.
 - `both(state, batch, device)`: the case through `register_scan` and
   `register_scan_plain` on copies on `device`; returns the names of the
   arrays that differ, the two lane counts and the largest difference.
@@ -35,8 +38,8 @@ from .registers import (DEL, INC, PAD, SET, RegisterOpBatch,
 
 CASES = ('random', 'dup_preds', 'dead_max_inc', 'slots_oob', 'wrap',
          'neg_inc', 'self_conflict', 'overflow', 'chain', 'neg_preds',
-         'key_range')
-JAX_CASES = CASES[:-1]
+         'key_range', 'one_key', 'hot_key')
+JAX_CASES = tuple(name for name in CASES if name != 'key_range')
 _NAMES = ('reg', 'killed', 'value', 'counter', 'inexact')
 
 
@@ -149,6 +152,10 @@ def case(name, rng, n_docs, n_keys, n_slots, lanes, d_preds):
     elif name == 'neg_preds':
         neg = rng.random(preds.shape) < 0.3
         preds[...] = np.where(neg, preds | np.int32(-(1 << 31)), preds)
+    elif name == 'one_key':
+        key[...] = key[:, :1]
+    elif name == 'hot_key':
+        key[...] = np.where(rng.random(key.shape) < 0.5, key[:, :1], key)
     elif name == 'key_range':
         bad = (rng.random(key.shape) < 0.2) & (kind != PAD)
         key[...] = np.where(bad, rng.choice([-1, n_keys + 1, 1 << 20],

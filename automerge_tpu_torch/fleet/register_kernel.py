@@ -26,6 +26,13 @@ A live lane's key must lie in [0, K]; the fleet never makes another.
 The JAX step would read a clamped row for such a lane and drop its
 writes; here it flags the doc inexact and changes nothing else.
 
+Ops of one doc touch only the row of the key they name and the doc's
+`inexact` flag, so ops on different keys commute. The kernel uses that:
+a doc's ops go in tiles of up to 32 columns, in order, and in a tile the
+ops of distinct keys apply at once, in rounds (csrc/registers.cu says
+how). `register_scan_rounds_plain` applies the same schedule in torch
+ops; the CPU tests hold it to the JAX scan.
+
 Routing is by the tensors' device: CUDA tensors launch the kernel in
 csrc/registers.cu (built with nvcc for sm_90a on first use, see
 cuda_build.py); CPU tensors run `register_scan_plain`, the same function
@@ -55,7 +62,7 @@ def reset_launches():
 
 def _declare(lib):
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.register_scan_launch.argtypes = [ptr] * 12 + [i64] * 5 + [ptr]
+    lib.register_scan_launch.argtypes = [ptr] * 13 + [i64] * 5 + [ptr]
     lib.register_scan_launch.restype = ctypes.c_int
 
 
@@ -92,6 +99,30 @@ def _check(state, ops):
     return dev, n, k1, a, p, d
 
 
+def _segment_shift(p):
+    """log2 of the lanes the kernel gives one doc: 32 when P > 16, else
+    the power of two >= P (32 >> shift docs share a warp)."""
+    shift = 5
+    while shift > 0 and (1 << (shift - 1)) >= p:
+        shift -= 1
+    return shift
+
+
+_ARRIVALS = {}      # (device, stream) -> the kernel's uint64 arrival word
+
+
+def _arrivals(dev, stream):
+    """The zeroed uint64 word the kernel's CTAs count their arrival and
+    lanes into; the last CTA resets it, so it is zeroed once per device
+    and stream, not once per launch."""
+    key = (dev, stream)
+    word = _ARRIVALS.get(key)
+    if word is None:
+        word = _ARRIVALS[key] = torch.zeros(1, dtype=torch.int64,
+                                            device=dev)
+    return word
+
+
 def register_scan(state, ops):
     """Apply `ops` to `state` in place (see the module docstring); returns
     the non-PAD lane count as a 0-d int32 tensor."""
@@ -100,22 +131,27 @@ def register_scan(state, ops):
         return register_scan_plain(state, ops)
     if dev.type != 'cuda':
         raise ValueError(f'register_scan: unsupported device {dev}')
+    if n * p >= 1 << 31:
+        raise ValueError(f'register_scan: {n} x {p} op lanes exceed the '
+                         f'int32 count')
+    if not n * p:
+        return torch.zeros((), dtype=torch.int32, device=dev)
     lib = build()
-    applied = torch.zeros(1, dtype=torch.int32, device=dev)
+    applied = torch.empty(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
         err = lib.register_scan_launch(
             state.reg.data_ptr(), state.killed.data_ptr(),
             state.value.data_ptr(), state.counter.data_ptr(),
             state.inexact.data_ptr(), ops.kind.data_ptr(),
             ops.key_id.data_ptr(), ops.packed.data_ptr(),
             ops.value.data_ptr(), ops.preds.data_ptr(),
-            ops.overflow.data_ptr(), applied.data_ptr(), n, p, d, k1, a,
-            torch.cuda.current_stream().cuda_stream)
+            ops.overflow.data_ptr(), applied.data_ptr(),
+            _arrivals(dev, stream).data_ptr(), n, p, d, k1, a, stream)
     if err != 0:
         raise RuntimeError(f'register_scan kernel launch failed: CUDA '
                            f'error {err}')
-    if n * p:
-        LAUNCHES['register_scan'] += 1
+    LAUNCHES['register_scan'] += 1
     return applied[0]
 
 
@@ -202,3 +238,123 @@ def register_scan_plain(state, ops):
         applied += live.sum(dtype=torch.int32)
     inexact.copy_(flag)
     return applied
+
+
+def _slot(p, a_n):
+    s = (p & ACTOR_MASK).long()
+    return s < a_n, s.clamp(max=a_n - 1)
+
+
+def _apply_rows(rows, kind, packed, val, preds):
+    """The rule of one op on each of M rows: `rows` are the [M, A] reg,
+    killed, value and counter rows (changed in place), the op columns are
+    [M] and `preds` a list of D [M] columns; every op's key lies in the
+    grid, and a PAD op changes nothing. Returns the [M] flags the ops
+    raise (self-conflicts, incs without a live pred hit, pred or actor
+    slots >= A), which the caller masks to its live ops."""
+    reg_row, killed_row, value_row, counter_row = rows
+    m, a_n = reg_row.shape
+    idx = torch.arange(m, device=reg_row.device)
+    no = torch.zeros(m, dtype=torch.bool, device=reg_row.device)
+
+    # pred kills (not by incs), lane by lane
+    kills = (kind != INC) & (kind != PAD)
+    slot_oob = no.clone()
+    for p in preds:
+        inb, s = _slot(p, a_n)
+        slot_oob |= (p != 0) & ~inb
+        hit = (p != 0) & inb & (reg_row[idx, s] == p)
+        killed_row[idx, s] = killed_row[idx, s] | (hit & kills)
+
+    # inc: the Lamport-max pred's slot takes the delta iff it is live
+    is_inc = kind == INC
+    max_pred = torch.zeros(m, dtype=torch.int32, device=reg_row.device)
+    any_live_hit = no.clone()
+    for p in preds:
+        inb, s = _slot(p, a_n)
+        nz = is_inc & (p != 0)
+        max_pred = torch.where(nz, torch.maximum(max_pred, p), max_pred)
+        any_live_hit |= nz & inb & (reg_row[idx, s] == p) & \
+            ~killed_row[idx, s]
+    inb, s_max = _slot(max_pred, a_n)
+    max_live = is_inc & (max_pred != 0) & inb & \
+        (reg_row[idx, s_max] == max_pred) & ~killed_row[idx, s_max]
+    counter_row[idx, s_max] = counter_row[idx, s_max] + \
+        torch.where(max_live, val, 0)
+    for p in preds:
+        inb, s = _slot(p, a_n)
+        lose = is_inc & (p != 0) & inb & (reg_row[idx, s] == p) & \
+            ~killed_row[idx, s] & (p != max_pred)
+        killed_row[idx, s] = killed_row[idx, s] | lose
+    inc_hit = any_live_hit | max_live
+
+    # set: occupy the op's own actor slot
+    in_a, a = _slot(packed, a_n)
+    is_set = kind == SET
+    own_prev = reg_row[idx, a]
+    own_pred = no.clone()
+    for p in preds:
+        own_pred |= p == own_prev
+    self_conflict = is_set & in_a & (own_prev != 0) & \
+        ~killed_row[idx, a] & ~own_pred & (own_prev != packed)
+    w = is_set & in_a
+    iw, aw = idx[w], a[w]
+    reg_row[iw, aw] = packed[w]
+    killed_row[iw, aw] = False
+    value_row[iw, aw] = val[w]
+    counter_row[iw, aw] = 0
+    return self_conflict | (is_inc & ~inc_hit) | slot_oob | ~in_a
+
+
+def _lane_flags(ops, k1):
+    """[N, P]: the lanes that flag their doc whatever the state: any
+    `overflow` (PAD lanes too) and live lanes whose key lies outside
+    [0, K]. Also returns the live lanes and the lanes that apply."""
+    live = ops.kind != PAD
+    key_ok = (ops.key_id >= 0) & (ops.key_id < k1)
+    return ops.overflow | (live & ~key_ok), live, live & key_ok
+
+
+def tile_ranks(key, ok):
+    """[N, W]: each lane's round in its tile, the number of earlier lanes
+    of the tile that apply (`ok`) on the same key."""
+    w = key.shape[1]
+    before = torch.ones(w, w, dtype=torch.bool, device=key.device).tril(-1)
+    same = (key.unsqueeze(2) == key.unsqueeze(1)) & ok.unsqueeze(1)
+    return (same & before).sum(dim=2)
+
+
+def register_scan_rounds_plain(state, ops):
+    """register_scan in torch ops, by the kernel's schedule: each doc's
+    ops in tiles of 2^`_segment_shift(P)` columns, in order; in a tile,
+    the lanes that apply (live, key in the grid) in rounds, round r
+    holding the lanes with r earlier lanes of the same key in the tile.
+    A round's ops touch distinct (doc, key) rows, so each round is one
+    `_apply_rows` over all of its ops, of every doc at once. In place;
+    returns the non-PAD lane count (0-d int32). It equals
+    `register_scan_plain` because ops on different keys of a doc
+    commute."""
+    reg, killed, value, counter, inexact = state.tensors()
+    n, k1, _a = reg.shape
+    p = ops.kind.shape[1]
+    lane_flag, live, on = _lane_flags(ops, k1)
+    flag = inexact | lane_flag.any(dim=1)
+    w = 1 << _segment_shift(p)
+    for t in range(0, p, w):
+        cols = slice(t, min(t + w, p))
+        ok = on[:, cols]
+        rank = tile_ranks(ops.key_id[:, cols], ok)
+        for r in range(int(rank[ok].max()) + 1 if ok.any() else 0):
+            doc, col = torch.nonzero(ok & (rank == r), as_tuple=True)
+            col = col + t
+            k = ops.key_id[doc, col].long()
+            rows = [x[doc, k] for x in (reg, killed, value, counter)]
+            raised = _apply_rows(rows, ops.kind[doc, col],
+                                 ops.packed[doc, col], ops.value[doc, col],
+                                 [ops.preds[doc, col, d]
+                                  for d in range(ops.preds.shape[2])])
+            flag[doc[raised]] = True
+            for x, row in zip((reg, killed, value, counter), rows):
+                x[doc, k] = row
+    inexact.copy_(flag)
+    return live.sum(dtype=torch.int32)

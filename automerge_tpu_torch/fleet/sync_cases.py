@@ -9,8 +9,10 @@ versions (fleet/sync_kernels.py), shared by the card tests
   the 0.6 load bound), 'spaces' (many spaces, keys shared across them),
   and the insert's 8-slot windows: 'window_wrap', 'claim_race',
   'busy_twin', 'one_batch' (see `index_case`).
-- `index_both(case)`: the case's insert, then a probe, through the
-  kernels and through the plain versions; returns the disagreements.
+- `index_both(case)`: the case's insert, then a probe of its keys and
+  of strangers that differ from them in word 5, 7 or 1 only (the same
+  start slot and space), through the kernels and through the plain
+  versions; returns the disagreements.
 - `members(tkey, tspace)` / `same_members(...)`: a table's (space, key)
   rows, sorted: the kernel's slot layout may differ from the plain
   version's where rows race for a slot, its membership may not.
@@ -142,20 +144,31 @@ def index_case(name, rng, device, cap=None):
                 valid=valid_t, occupied=occupied)
 
 
+ABSENT_WORDS = (5, 7, 1)     # the word of a key flipped to make a stranger
+
+
 def index_both(case):
-    """The case's insert, then a probe of its keys and as many absent ones
-    (a bit of each key flipped), by the kernels and by the plain versions,
-    each on its own copy of the table. Returns the kernels' new-key count
-    and the disagreements, each 0 when the kernels hold: 'insert' (the
-    new-key counts or the memberships differ), 'probe' (rows whose
-    answers differ) and 'wrong' (rows that the kernel's probe, or the
-    plain probe on the kernel's table, answers wrongly: an inserted key
-    not found, an absent key found)."""
-    absent = case['keys'].clone()
-    absent[:, 5] ^= 1
-    probe = (torch.cat([case['keys'], absent]),
-             torch.cat([case['spaces'], case['spaces']]),
-             torch.cat([case['valid'], torch.ones_like(case['valid'])]))
+    """The case's insert, then a probe of its keys and of three times as
+    many absent ones (a bit of word 5, 7 or 1 of each key flipped: each
+    stranger starts at its key's slot in its key's space, so the probe
+    kernel's key loaded with the start slot's space, where that is the
+    key's own, must not count as a hit), by the kernels and by the plain
+    versions, each on its own copy of the table. Returns the kernels'
+    new-key count and the disagreements, each 0 when the kernels hold:
+    'insert' (the new-key counts or the memberships differ), 'probe' (rows
+    whose answers differ) and 'wrong' (rows that the kernel's probe, or
+    the plain probe on the kernel's table, answers wrongly: an inserted
+    key not found, an absent key found)."""
+    absent = []
+    for word in ABSENT_WORDS:
+        stranger = case['keys'].clone()
+        stranger[:, word] ^= 1
+        absent.append(stranger)
+    k = len(ABSENT_WORDS)
+    probe = (torch.cat([case['keys']] + absent),
+             case['spaces'].repeat(k + 1),
+             torch.cat([case['valid']] +
+                       [torch.ones_like(case['valid'])] * k))
     insert = (case['keys'], case['spaces'], case['valid'])
     kt, ks = case['tkey'].clone(), case['tspace'].clone()
     kn = int(sync_kernels.hashindex_insert(
@@ -166,7 +179,8 @@ def index_both(case):
     pt, ps = case['tkey'].clone(), case['tspace'].clone()
     pn = int(sync_kernels.hashindex_insert_plain(pt, ps, *insert))
     plain_hit = sync_kernels.hashindex_probe_plain(pt, ps, *probe)
-    expect = torch.cat([case['valid'], torch.zeros_like(case['valid'])])
+    expect = torch.cat([case['valid']] +
+                       [torch.zeros_like(case['valid'])] * k)
     return dict(n_new=kn,
                 insert=int(kn != pn or not same_members(kt, ks, pt, ps)),
                 probe=int((hit != plain_hit).sum()),

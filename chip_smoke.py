@@ -26,14 +26,17 @@ Phases (any failure exits non-zero):
    empty slot after three used ones, twins that meet each other's
    claimed slot and a table filled to 0.6 in one batch (equal membership
    and new-key counts: the insert's slot layout may differ where rows
-   race; both probes find every inserted key); the Bloom build and probe
+   race; both probes find every inserted key and no stranger that shares
+   a key's start slot and space); the Bloom build and probe
    over skewed filter sizes, rows at and across 16-byte edges, padding
    rows and a zero tail, a row over many CTAs' worth of bytes, the
    longest row one shared-memory window holds and a longer one (equal
-   bytes and answers); the register scan on every
-   corner of fleet/register_cases.py at P = 0, 1 and 20 (8 actor slots)
-   and at 256 actor slots, and at P = 3000 (all five arrays and the lane
-   count equal); the sequence scan on every corner of
+   bytes and answers); the register scan on every corner of
+   fleet/register_cases.py (among them one key for all of a doc's ops,
+   and half the lanes on one key) at P = 0, 1, 5, 20, 31, 32 and 33 (8
+   actor slots), at 256, 1, 2, 3, 4 and 16 actor slots, with 1 and 6 pred
+   lanes, and at P = 3000 (all five arrays and the lane count equal); the
+   sequence scan on every corner of
    fleet/seq_cases.py (a row at capacity, unknown referents, a cyclic
    chain, duplicate and dead preds, wrapping counters, lanes past the
    width, refs to later inserts, duplicate ids, one node's ops inside a
@@ -106,9 +109,11 @@ Phases (any failure exits non-zero):
    insert placed), timed beside its plain version and its bound (the
    build also after an L2 eviction that leaves no dirty line, the insert
    on its table restored before each call, and also followed by such an
-   eviction); the register scan on the largest batch the exact seam
-   handed it (held to its plain version there; L2 warm and flushed,
-   each launch on the touched rows restored off the clock); the sequence
+   eviction, the probe with the L2 warm and after a clean eviction); the
+   register scan on every batch the exact seam and the exact text seam
+   handed it (held to its plain version there; L2 warm and after a clean
+   eviction, each launch on the touched rows restored off the clock, and
+   launches queued back to back); the sequence
    scan held to its plain version on every batch the text seam handed it,
    in full (all rows, all columns, all eight arrays and the count; its
    route and serial rows read), then timed on each (L2 warm and flushed,
@@ -124,11 +129,12 @@ Phases (any failure exits non-zero):
 
     python3 chip_smoke.py --baseline DIR
 
-also builds the merge, sequence, Bloom and hash-index kernels of another
-checkout (e.g. the parent commit, unpacked with `git archive`) and times
-its wrappers in phase 4 beside this one's, by the same methods (the
-sequence scan, the Bloom build and the hash-index insert in turns:
-baseline, this, this, baseline).
+also builds the merge, register, sequence, Bloom and hash-index kernels
+of another checkout (e.g. the parent commit, unpacked with `git
+archive`) and times its wrappers in phase 4 beside this one's, by the
+same methods (the register scan, the sequence scan, the Bloom build and
+the hash-index insert and probe in turns: baseline, this, this,
+baseline).
 
 The last stdout line is {"ok": true, "device": {...}}. Without a CUDA
 device, or without the repository beside it, the script exits non-zero
@@ -203,6 +209,8 @@ def build_all(baseline=None):
         jobs += [
             ('baseline lww_merge',
              lambda: baseline['merge'].build() is not None),
+            ('baseline registers',
+             lambda: baseline['reg'].build() is not None),
             ('baseline sequence',
              lambda: baseline['seq'].build() is not None),
             ('baseline bloom',
@@ -397,29 +405,38 @@ def sync_kernel_vs_plain():
             f'({got["filters"]} filters, {got["bytes"]} B)')
 
 
+# (docs, keys, actor slots, P, D, where the plain version runs)
+REGISTER_CONFIGS = tuple(
+    [(300, 40, 8, p, 4, None) for p in (0, 1, 5, 20, 31, 32, 33)] +
+    [(48, 9, a, 20, 4, None) for a in (256, 1, 2, 3, 4, 16)] +
+    [(64, 9, a, 33, d, None) for a in (8, 256) for d in (1, 6)] +
+    [(40, 40, 8, 3000, 4, 'cpu')])
+
+
 def register_kernel_vs_plain():
     """The register scan against its plain version on every corner of
-    fleet/register_cases.py: at P = 0, 1 and 20 lanes (8 actor slots, 4
-    pred lanes), at 256 actor slots, and at P = 3000 (the plain version
-    on the CPU there: its Python loop would make ~200,000 launches).
-    Returns the largest difference seen (0, or the script fails)."""
+    fleet/register_cases.py (among them one key for all of a doc's ops,
+    and half the lanes on one key): at P = 0, 1, 5, 20, 31, 32 and 33
+    lanes (8 actor slots, 4 pred lanes: 32 or 8 docs to a warp, one tile
+    or two), at 256 actor slots and at 1, 2, 3, 4 and 16, with 1 and 6
+    pred lanes, and at P = 3000 (the plain version on the CPU there: its
+    Python loop would make ~200,000 launches). Returns the largest
+    difference seen (0, or the script fails)."""
     import numpy as np
     from automerge_tpu_torch.fleet import register_cases as rc
     max_err = 0
     for i, name in enumerate(rc.CASES):
         rng = np.random.default_rng(80 + i)
-        for n, keys, slots, lanes, plain in (
-                (300, 40, 8, 0, None), (300, 40, 8, 1, None),
-                (300, 40, 8, 20, None), (48, 9, 256, 20, None),
-                (40, 40, 8, 3000, 'cpu')):
-            state, batch = rc.case(name, rng, n, keys, slots, lanes, 4)
+        for n, keys, slots, lanes, d, plain in REGISTER_CONFIGS:
+            state, batch = rc.case(name, rng, n, keys, slots, lanes, d)
             got = rc.both(state, batch, DEVICE, plain)
             max_err = max(max_err, got['max_abs_err'])
             if got['differ'] or got['max_abs_err']:
                 fail(f'register_scan != plain on {name} at P = {lanes}, '
-                     f'A = {slots}: {got}')
-        log(f'kernel == plain: register_scan, {name} (P = 0, 1, 20 and '
-            f'3000 at 8 slots; P = 20 at 256 slots)')
+                     f'A = {slots}, D = {d}: {got}')
+        log(f'kernel == plain: register_scan, {name} (P = 0, 1, 5, 20, '
+            f'31, 32, 33 and 3000 at 8 slots; P = 20 at 256, 1, 2, 3, 4 '
+            f'and 16 slots; D = 1 and 6 at P = 33)')
     return max_err
 
 
@@ -767,24 +784,23 @@ def pipelined_path(per_doc, seam_handles):
 # ---- the exact seam ---------------------------------------------------------
 
 class RegisterRecorder:
-    """While on, keeps a copy of the largest batch the fleet hands the
-    register scan (by live lanes) and of the state before that call, so
-    phase 4 can hold and time the kernel on the main path's own input.
-    The wrapper still counts its launches as before."""
+    """While on, keeps a copy of every batch the fleet hands the register
+    scan and of the state before that call, so phase 4 can hold and time
+    the kernel on the main path's own inputs. The wrapper still counts
+    its launches as before."""
 
     def __init__(self):
-        self.saved = None
+        self.saved = []
 
     def __enter__(self):
         from automerge_tpu_torch.fleet import registers
         self._real = registers.register_scan
 
         def call(state, ops):
-            live = int((ops.kind != 0).sum())
-            if self.saved is None or live >= self.saved[0]:
-                self.saved = (live, registers.RegisterState(
-                    *(t.clone() for t in state.tensors())),
-                    registers.RegisterOpBatch(*ops.columns()))
+            self.saved.append((registers.RegisterState(
+                *(t.clone() for t in state.tensors())),
+                registers.RegisterOpBatch(*(c.clone()
+                                            for c in ops.columns()))))
             return self._real(state, ops)
         registers.register_scan = call
         return self
@@ -825,7 +841,7 @@ def run_exact_seam(batches, split=None):
 
 def exact_path(per_doc):
     """The exact seam at full width (see the module docstring). Returns
-    its launches and the register scan's recorded input."""
+    its launches and the register scan's recorded inputs."""
     from automerge_tpu_torch import backend as host
     from automerge_tpu_torch.columnar import (decode_change_meta,
                                               decode_document)
@@ -1014,7 +1030,8 @@ def check_text_seam(fleet, handles, dispatches, launches, want, tag):
 def text_path():
     """The text seam at full size (see the module docstring). Returns the
     launches of every kernel, the scan's recorded input, the final LWW
-    fleet's pool states and the batches."""
+    fleet's pool states, the batches and the register scan's recorded
+    inputs of the exact run."""
     from automerge_tpu_torch import backend as host
     from automerge_tpu_torch.columnar import decode_change_meta
     from automerge_tpu_torch.fleet import (merge_kernel, register_kernel,
@@ -1051,7 +1068,9 @@ def text_path():
     del fleet, handles
     register_kernel.reset_launches()
     l0 = seq_kernel.LAUNCHES['seq_scan']
-    xfleet, xhandles, xdisp, xlaunch = run_text_seam(batches, exact=True)
+    with RegisterRecorder() as xrec:
+        xfleet, xhandles, xdisp, xlaunch = run_text_seam(batches,
+                                                         exact=True)
     if register_kernel.LAUNCHES['register_scan'] < 1 or \
             seq_kernel.LAUNCHES['seq_scan'] - l0 < 1:
         fail('the exact text seam never launched register_scan / seq_scan')
@@ -1071,7 +1090,7 @@ def text_path():
         rates.append(TEXT_DOCS * n_ops / (time.perf_counter() - t0))
     log(f'text seam ops/s (median of 5 warm reps): '
         f'{statistics.median(rates):.1f}  reps {[round(r) for r in rates]}')
-    return kernel_launches, rec.saved, pools, batches
+    return kernel_launches, rec.saved, pools, batches, xrec.saved
 
 
 # ---- the sync plane's main path --------------------------------------------
@@ -1586,6 +1605,9 @@ def turns_of(module, baseline):
             ('base_', baseline)]
 
 
+PROBE_ROUNDS = 6     # the probe's gain over its parent is a few per cent
+
+
 def sync_kernel_numbers(inputs, baseline=None):
     """Each sync kernel on the largest inputs the sync path handed its
     wrapper: held to its plain version there, and timed (device ms;
@@ -1597,10 +1619,12 @@ def sync_kernel_numbers(inputs, baseline=None):
     is (ms: the restore's 72 MB of writes are still dirty in the L2) and
     followed by a clean eviction (clean_ms), beside a floor of its key
     stores (key_scatter_ms: torch's index_copy_ of the new keys to the
-    slots the kernel gave them). With `baseline` (another
-    checkout's sync_kernels, e.g. the parent commit's) its build and
-    insert are timed by the same methods in turns (baseline, this,
-    this, baseline; base_*). The bounds count
+    slots the kernel gave them); the probe with the L2 warm and after a
+    clean eviction (clean_ms). With `baseline` (another checkout's
+    sync_kernels, e.g. the parent commit's) its build, insert and probe
+    are timed by the same methods in turns (baseline, this, this,
+    baseline; base_*), the probe in PROBE_ROUNDS such turns (medians,
+    and each time's least and largest as *_range). The bounds count
     what this run's data needs: the valid flag (and the probes' output
     byte) of every lane, the words or key and space of valid lanes only,
     the per-row int64s of rows that hold a valid lane only, and the
@@ -1725,12 +1749,21 @@ def sync_kernel_numbers(inputs, baseline=None):
         torch.cat([spaces[got].view(-1, 1), keys[got]], dim=1), dim=0))
     n_bytes = n * 2 + v * 36 + space_sectors(starts) + found_keys * 32
     del starts
+    times = {}
+    for tag, mod in turns_of(sk, baseline) * PROBE_ROUNDS:
+        def probe():
+            return mod.hashindex_probe(tkey, tspace, keys, spaces, valid,
+                                       **kw)
+        times.setdefault(tag + 'ms', []).append(time_ms(probe))
+        times.setdefault(tag + 'clean_ms', []).append(
+            time_ms(probe, reps=20, flush=clean))
     out['hashindex_probe'] = dict(
         shape=f'{n} rows ({v} valid, {found} found) in {len(tspace)} slots '
               f'({int((tspace >= 0).sum())} in use)',
         max_abs_err=int((got != want).sum()),
-        ms=time_ms(lambda: sk.hashindex_probe(tkey, tspace, keys, spaces,
-                                              valid, **kw)),
+        **{k: statistics.median(t) for k, t in times.items()},
+        **{k.replace('ms', 'range'): [min(t), max(t)]
+           for k, t in times.items()},
         plain_ms=time_ms(lambda: sk.hashindex_probe_plain(
             tkey, tspace, keys, spaces, valid, **kw), reps=3),
         **bound_of(n_bytes, v * 16))
@@ -1890,56 +1923,20 @@ def torch_op_numbers(grid_shape, reg_shape, sync_bloom, calls):
     return nums
 
 
-def register_numbers(saved):
-    """The register scan on the largest batch the exact seam handed it
-    (recorded with the state before the call): held to its plain version
-    there, then timed (device ms; launches queued behind a sleep, each
-    on the touched rows restored from the recorded state first, off the
-    clock: L2 warm, and with the L2 flushed after the restore) beside
-    its plain version (host-issued) and its bound. The bound counts what
-    this batch needs: every lane's kind and overflow flag; each live
-    lane's key, packed id, value and D preds; reg and killed (5 B) read
-    from every distinct cell a live op reads (its own actor slot and its
-    non-zero preds' slots); the four arrays (13 B) written at every
-    distinct cell a set writes; the inexact flags read and written once.
-    Operations: ~(10 + 6 D) integer operations per live lane. No single
-    PyTorch call computes the scan (library_ms null)."""
+def register_bound(state0, ops):
+    """The least bytes and operations the register scan needs on one
+    batch: every lane's kind and overflow flag; each live lane's key,
+    packed id, value and D preds; reg and killed (5 B) read from every
+    distinct cell a live op reads (its own actor slot and its non-zero
+    preds' slots); the four arrays (13 B) written at every distinct cell
+    a set writes; the inexact flags read and written once. Operations:
+    ~(10 + 6 D) integer operations per live lane."""
     import torch
-    from automerge_tpu_torch.fleet import register_kernel as rk
-    from automerge_tpu_torch.fleet.registers import RegisterState
-    _live, state0, ops = saved
     n, k1, a = state0.reg.shape
     p, d = ops.preds.shape[1:]
-    got = RegisterState(*(t.clone() for t in state0.tensors()))
-    want = RegisterState(*(t.clone() for t in state0.tensors()))
-    err = abs(int(rk.register_scan(got, ops)) -
-              int(rk.register_scan_plain(want, ops)))
-    for x, y in zip(got.tensors(), want.tensors()):
-        err = max(err, int((x.long() - y.long()).abs().max()))
-    del want
     live = ops.kind != 0
     doc = torch.arange(n, device=ops.kind.device).view(-1, 1).expand(n, p)
     row = (doc * k1 + ops.key_id.long())[live]
-    rows = torch.unique(row)
-    snaps = [t.view(-1, a)[rows].clone() for t in state0.tensors()[:4]]
-
-    def restore():
-        for t, snap in zip(got.tensors()[:4], snaps):
-            t.view(-1, a)[rows] = snap
-        got.inexact.copy_(state0.inexact)
-
-    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32,
-                        device=ops.kind.device)
-    nums = dict(
-        shape=f'[{n}, {k1}, {a}] state, {p} lanes x {d} preds per doc '
-              f'({int(live.sum())} live)',
-        max_abs_err=err,
-        ms=time_restored(lambda: rk.register_scan(got, ops), restore),
-        cold_ms=time_restored(lambda: rk.register_scan(got, ops), restore,
-                              flush=flush),
-        plain_ms=time_restored(lambda: rk.register_scan_plain(got, ops),
-                               restore, reps=3))
-    del flush
     slot = (ops.packed & 255).long()
     own = (row * a + slot[live])[slot[live] < a]
     pred_slot = (ops.preds & 255).long()
@@ -1953,15 +1950,107 @@ def register_numbers(saved):
     n_live = int(live.sum())
     n_bytes = (n * p * 5 + n_live * (12 + 4 * d) + read_cells * 5 +
                set_cells * 13 + n * 2)
-    nums.update(bound_of(n_bytes, n_live * (10 + 6 * d)))
-    log(f'register_scan at the exact seam\'s batch, {nums["shape"]}: ' +
-        ', '.join(f'{key} {val:.4f}' if isinstance(val, float) else
-                  f'{key} {val}' for key, val in nums.items()
-                  if key != 'shape'))
-    if nums['max_abs_err']:
-        fail(f'register_scan != plain at the exact seam\'s batch (max abs '
-             f'err {nums["max_abs_err"]})')
-    return nums
+    return bound_of(n_bytes, n_live * (10 + 6 * d))
+
+
+def register_rounds(state0, ops):
+    """The rounds the kernel's busiest warp runs on a batch, summed over
+    its tiles (`register_kernel.tile_ranks`), and the tiles."""
+    from automerge_tpu_torch.fleet import register_kernel as rk
+    p, k1 = ops.kind.shape[1], state0.reg.shape[1]
+    w = 1 << rk._segment_shift(p)
+    ok = (ops.kind != 0) & (ops.key_id >= 0) & (ops.key_id < k1)
+    rounds = 0
+    for t in range(0, p, w):
+        tile = ok[:, t:t + w]
+        if tile.any():
+            rank = rk.tile_ranks(ops.key_id[:, t:t + w], tile)
+            rounds += int(rank[tile].max()) + 1
+    return rounds, (p + w - 1) // w
+
+
+REGISTER_TIMES = ('ms', 'clean_ms', 'queued_ms', 'base_ms', 'base_clean_ms',
+                  'base_queued_ms')
+
+
+def register_numbers(saved, baseline=None):
+    """The register scan on every batch the exact seam and the exact text
+    seam handed it (`saved`: (path, state before the call, batch)), in
+    full: through the kernel and through its plain version, each on its
+    own copy of the state, all five arrays and the lane count equal.
+    Then timed on each batch (device ms; launches queued behind a sleep,
+    each on the touched rows restored from the recording first, off the
+    clock: L2 warm, and after a clean L2 eviction that leaves no dirty
+    line, clean_ms; and REPS launches queued back to back on the state as
+    they leave it, queued_ms, which takes the event pair's fixed cost off
+    each launch) beside its plain version (launched call by call from
+    the host) and its bound (`register_bound`). With `baseline` (another
+    checkout's register_kernel, e.g. the parent commit's) its
+    register_scan is timed by the same methods in turns (baseline, this,
+    this, baseline; base_*). No single PyTorch call computes the scan (library_ms null).
+    Returns the numbers of the exact seam's first (largest) batch, with
+    every batch's under 'batches'."""
+    import torch
+    from automerge_tpu_torch.fleet import register_kernel as rk
+    from automerge_tpu_torch.fleet.registers import RegisterState
+    buf = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=DEVICE)
+    clean = clean_evictor(buf)
+    out, worst = [], 0
+    for b, (path, state0, ops) in enumerate(saved):
+        n, k1, a = state0.reg.shape
+        p, d = ops.preds.shape[1:]
+        got = RegisterState(*(t.clone() for t in state0.tensors()))
+        want = RegisterState(*(t.clone() for t in state0.tensors()))
+        err = abs(int(rk.register_scan(got, ops)) -
+                  int(rk.register_scan_plain(want, ops)))
+        for x, y in zip(got.tensors(), want.tensors()):
+            err = max(err, int((x.long() - y.long()).abs().max()))
+        del want
+        if err:
+            fail(f'register_scan != plain on the {path}\'s batch {b} (max '
+                 f'abs err {err})')
+        worst = max(worst, err)
+        live = ops.kind != 0
+        doc = torch.arange(n, device=ops.kind.device).view(-1, 1)
+        rows = torch.unique((doc * k1 + ops.key_id.long())[live])
+        snaps = [t.view(-1, a)[rows].clone() for t in state0.tensors()[:4]]
+
+        def restore():
+            for t, snap in zip(got.tensors()[:4], snaps):
+                t.view(-1, a)[rows] = snap
+            got.inexact.copy_(state0.inexact)
+
+        times = {}
+        for tag, mod in turns_of(rk, baseline):
+            def scan():
+                return mod.register_scan(got, ops)
+            times.setdefault(tag + 'ms', []).append(
+                time_restored(scan, restore))
+            times.setdefault(tag + 'clean_ms', []).append(
+                time_restored(scan, restore, flush=clean))
+            # back to back, without the restores: the same cells each time
+            times.setdefault(tag + 'queued_ms', []).append(time_ms(scan))
+        rounds, tiles = register_rounds(state0, ops)
+        nums = dict(
+            path=path, batch=b,
+            shape=f'[{n}, {k1}, {a}] state, {p} lanes x {d} preds per doc '
+                  f'({int(live.sum())} live)', max_abs_err=err,
+            rounds=rounds, tiles=tiles,
+            **{k: statistics.median(t) for k, t in times.items()},
+            plain_ms=time_restored(lambda: rk.register_scan_plain(got, ops),
+                                   restore, reps=3),
+            **register_bound(state0, ops))
+        if baseline is not None:
+            nums['base_over_new'] = nums['base_ms'] / nums['ms']
+        del got, snaps
+        log(f'register_scan on the {path}\'s batch {b}, {nums["shape"]}: ' +
+            ', '.join(f'{key} {val:.4f}' if isinstance(val, float) else
+                      f'{key} {val}' for key, val in nums.items()
+                      if key not in ('shape', 'path', 'batch')) +
+            (f'; turns {times}' if baseline is not None else ''))
+        out.append(nums)
+    del buf
+    return dict(out[0], max_abs_err=worst, batches=out)
 
 
 def exact_breakdown(batches):
@@ -2140,11 +2229,12 @@ def text_breakdown(batches):
 
 
 def load_baseline(path):
-    """The merge, sequence and sync kernel modules of another checkout of
-    this repository (e.g. the parent commit, unpacked with `git
-    archive`), as {'merge', 'seq', 'sync'}. Its package is loaded under a
-    name of its own (`baseline_port`), so its imports resolve inside that
-    checkout, and it builds its own kernel sources there."""
+    """The merge, register, sequence and sync kernel modules of another
+    checkout of this repository (e.g. the parent commit, unpacked with
+    `git archive`), as {'merge', 'reg', 'seq', 'sync'}. Its package is
+    loaded under a name of its own (`baseline_port`), so its imports
+    resolve inside that checkout, and it builds its own kernel sources
+    there."""
     import importlib
     import importlib.util
     pkg = os.path.join(path, 'automerge_tpu_torch')
@@ -2159,6 +2249,7 @@ def load_baseline(path):
     spec.loader.exec_module(mod)
     return {name: importlib.import_module(f'baseline_port.fleet.{module}')
             for name, module in (('merge', 'merge_kernel'),
+                                 ('reg', 'register_kernel'),
                                  ('seq', 'seq_kernel'),
                                  ('sync', 'sync_kernels'))}
 
@@ -2176,9 +2267,9 @@ def main():
     args = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     args.add_argument('--baseline', metavar='DIR',
                       help='another checkout of this repository (e.g. the '
-                      'parent commit) whose merge, sequence, Bloom build '
-                      'and hash-index insert wrappers phase 4 times beside '
-                      'this one, by the same methods')
+                      'parent commit) whose merge, register scan, sequence, '
+                      'Bloom build and hash-index wrappers phase 4 times '
+                      'beside this one, by the same methods')
     args = args.parse_args()
     baseline = load_baseline(args.baseline) if args.baseline else None
     base = baseline or {}
@@ -2195,14 +2286,18 @@ def main():
             main_path()
         pipelined_path(per_doc, seam_handles)
         del seam_handles
-        reg_launches, reg_input, exact_batches = exact_path(per_doc)
-        text_launches, seq_input, seq_pools, text_batches = text_path()
+        reg_launches, reg_saved, exact_batches = exact_path(per_doc)
+        text_launches, seq_input, seq_pools, text_batches, text_reg_saved = \
+            text_path()
         sync = sync_path()
     nums = kernel_numbers(grid_shape, base.get('merge'))
     sync_inputs = sync.pop('inputs')
     sync_nums = sync_kernel_numbers(sync_inputs, base.get('sync'))
-    reg_nums = register_numbers(reg_input)
-    torch_op_numbers(grid_shape, tuple(reg_input[1].reg.shape),
+    reg_input = [('exact seam', *saved) for saved in reg_saved] + \
+        [('exact text seam', *saved) for saved in text_reg_saved]
+    del reg_saved, text_reg_saved
+    reg_nums = register_numbers(reg_input, base.get('reg'))
+    torch_op_numbers(grid_shape, tuple(reg_input[0][1].reg.shape),
                      sync_inputs['bloom_build'][0], counter.calls)
     del reg_input, sync_inputs
     seq_nums = seq_numbers(seq_input, seq_pools, base.get('seq'))
@@ -2246,7 +2341,12 @@ def main():
         'max_abs_err': max(reg_err, reg_nums['max_abs_err']),
         'ms': reg_nums['ms'], 'plain_ms': reg_nums['plain_ms'],
         'bound_ms': reg_nums['bound_ms'], 'bound_by': reg_nums['bound_by'],
-        'library_ms': None})
+        'library_ms': None,
+        **{key: reg_nums[key] for key in REGISTER_TIMES if key in reg_nums},
+        'batches': [{key: nums[key] for key in
+                     ('path', 'shape', 'rounds', 'plain_ms', 'bound_ms') +
+                     REGISTER_TIMES if key in nums}
+                    for nums in reg_nums['batches']]})
     kernels.append({
         'name': 'seq_scan', 'route': 'cuda',
         'source': 'automerge_tpu_torch/fleet/csrc/sequence.cu',

@@ -382,13 +382,14 @@ def test_pipelined_seam_on_the_card_matches_the_cpu(cuda):
 
 # ---- the register scan ------------------------------------------------------
 
-@pytest.mark.parametrize('lanes', [0, 1, 20, 3000])
+@pytest.mark.parametrize('lanes', [0, 1, 5, 20, 31, 32, 33, 3000])
 @pytest.mark.parametrize('name', register_cases.CASES)
 def test_register_scan_matches_plain_version(cuda, name, lanes):
-    """Every corner of fleet/register_cases.py at P = 0, 1, 20 and 3,000
-    op lanes per doc (8 actor slots, 4 pred lanes). At P = 3,000 the
-    plain version runs on the CPU: its Python loop would issue ~200,000
-    small launches on the card."""
+    """Every corner of fleet/register_cases.py at P = 0, 1, 5, 20, 31,
+    32, 33 and 3,000 op lanes per doc (8 actor slots, 4 pred lanes): 32,
+    8 and 1 docs to a warp, one tile or two, a second tile of one lane.
+    At P = 3,000 the plain version runs on the CPU: its Python loop
+    would make ~200,000 small launches on the card."""
     rng = np.random.default_rng(61 + register_cases.CASES.index(name))
     n_docs = 40 if lanes == 3000 else 300
     state, batch = register_cases.case(name, rng, n_docs, 40, 8, lanes, 4)
@@ -398,12 +399,38 @@ def test_register_scan_matches_plain_version(cuda, name, lanes):
     assert got['differ'] == [] and got['max_abs_err'] == 0, got
     assert register_kernel.LAUNCHES['register_scan'] == \
         before + (1 if lanes else 0)
+    # the kernel's arrival word is back at 0 for the next launch
+    assert not any(int(w) for w in register_kernel._ARRIVALS.values())
 
 
 @pytest.mark.parametrize('name', register_cases.CASES)
 def test_register_scan_at_256_actor_slots(cuda, name):
     rng = np.random.default_rng(71 + register_cases.CASES.index(name))
     state, batch = register_cases.case(name, rng, 48, 9, 256, 20, 4)
+    got = register_cases.both(state, batch, cuda)
+    assert got['differ'] == [] and got['max_abs_err'] == 0, got
+
+
+@pytest.mark.parametrize('slots', [1, 2, 3, 4, 16])
+@pytest.mark.parametrize('name', register_cases.CASES)
+def test_register_scan_at_other_slot_widths(cuda, name, slots):
+    """The scan at 1, 2, 3, 4 and 16 actor slots (and at 8 and 256
+    above)."""
+    rng = np.random.default_rng(91 + register_cases.CASES.index(name))
+    state, batch = register_cases.case(name, rng, 64, 9, slots, 20, 4)
+    got = register_cases.both(state, batch, cuda)
+    assert got['differ'] == [] and got['max_abs_err'] == 0, got
+
+
+@pytest.mark.parametrize('slots', [8, 256])
+@pytest.mark.parametrize('d_preds', [1, 6, 9])
+@pytest.mark.parametrize('name', register_cases.CASES)
+def test_register_scan_pred_widths(cuda, name, d_preds, slots):
+    """Fewer preds than the kernel holds in registers (1), and more (6, 9:
+    the rest read in chunks of 4)."""
+    rng = np.random.default_rng(97 + register_cases.CASES.index(name))
+    state, batch = register_cases.case(name, rng, 64, 9, slots, 33,
+                                       d_preds)
     got = register_cases.both(state, batch, cuda)
     assert got['differ'] == [] and got['max_abs_err'] == 0, got
 

@@ -54,9 +54,16 @@ def _assert_apply_equal(arrays, batch, what=''):
     return js, tarr
 
 
+# a case's seed: its sorted place among the first ten cases, then the
+# later cases in the order they were added, so no case's data moves when
+# another is added
+_SEEDS = {name: i for i, name in enumerate(
+    sorted(rc.JAX_CASES[:10]) + list(rc.JAX_CASES[10:]))}
+
+
 @pytest.mark.parametrize('name', rc.JAX_CASES)
 def test_shared_cases_match_jax(name):
-    rng = np.random.default_rng(sorted(rc.JAX_CASES).index(name))
+    rng = np.random.default_rng(_SEEDS[name])
     arrays, batch = rc.case(name, rng, 16, 6, 8, 24, 4)
     before = [a.copy() for a in arrays]
     _assert_apply_equal(arrays, batch, name)
@@ -96,6 +103,74 @@ def test_random_batches_four_slots_match_jax():
 
 def test_random_batches_eight_slots_match_jax():
     _random_family(8, (2, 4), seed=13)
+
+
+# ---- the kernel's schedule: tiles of columns, rounds of distinct keys -----
+
+def _assert_rounds_match(arrays, batch, what):
+    """register_kernel.register_scan_rounds_plain (the CUDA kernel's
+    schedule in torch ops) against the JAX scan, all five arrays and the
+    lane count."""
+    js, jn = jr.apply_register_batch(_jax_state(arrays), _jax_batch(batch))
+    ts = tr.register_state_from_numpy(*arrays, device='cpu')
+    tn = int(register_kernel.register_scan_rounds_plain(ts, batch.to('cpu')))
+    assert tn == int(jn), f'{what}: lane count'
+    for name, a, b in zip(NAMES, js.tree_flatten()[0],
+                          tr.register_state_to_numpy(ts)):
+        np.testing.assert_array_equal(b, np.asarray(a),
+                                      err_msg=f'{what}: {name}')
+
+
+@pytest.mark.parametrize('lanes', [5, 40])
+@pytest.mark.parametrize('name', rc.CASES)
+def test_round_schedule_matches_jax(name, lanes):
+    """Every register case at 5 lanes (one tile) and 40 (two tiles of
+    32), 8 slots and 4 preds: the shapes of the random eight-slot
+    family, so JAX compiles nothing new. 'key_range', whose lanes JAX
+    reads from a clamped row, is held to register_scan_plain."""
+    rng = np.random.default_rng(200 + rc.CASES.index(name))
+    arrays, batch = rc.case(name, rng, 12, 16, 8, lanes, 4)
+    if name in rc.JAX_CASES:
+        _assert_rounds_match(arrays, batch, name)
+        return
+    got = tr.register_state_from_numpy(*arrays, device='cpu')
+    want = tr.register_state_from_numpy(*arrays, device='cpu')
+    ops = batch.to('cpu')
+    assert int(register_kernel.register_scan_rounds_plain(got, ops)) == \
+        int(register_kernel.register_scan_plain(want, ops))
+    for name, a, b in zip(NAMES, tr.register_state_to_numpy(got),
+                          tr.register_state_to_numpy(want)):
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+def _random_rounds_family(a, ds, seed):
+    rng = np.random.default_rng(seed)
+    for d in ds:
+        for _ in range(4):
+            arrays, batch, shape = _padded_random(rng, a, d)
+            _assert_rounds_match(arrays, batch,
+                                 f'rounds A={a} D={d} (K, P)={shape}')
+
+
+def test_round_schedule_random_one_slot_matches_jax():
+    _random_rounds_family(1, (1, 4), seed=21)
+
+
+def test_round_schedule_random_four_slots_matches_jax():
+    _random_rounds_family(4, (1, 2), seed=22)
+
+
+def test_round_schedule_random_eight_slots_matches_jax():
+    _random_rounds_family(8, (2, 4), seed=23)
+
+
+def test_segment_widths():
+    """The lanes the kernel gives one doc: the power of two >= P up to
+    16 lanes, else a warp's 32 (then in tiles of 32 columns)."""
+    widths = {p: 1 << register_kernel._segment_shift(p)
+              for p in (1, 2, 3, 5, 8, 9, 16, 17, 31, 32, 33, 3000)}
+    assert widths == {1: 1, 2: 2, 3: 4, 5: 8, 8: 8, 9: 16, 16: 16, 17: 32,
+                      31: 32, 32: 32, 33: 32, 3000: 32}
 
 
 # ---- tests/test_registers.py's corners, one document each ---------------
