@@ -7,8 +7,10 @@ The port carries the LWW grid, the exact-device register engine
 (`DocFleet(exact_device=True)`, over `registers`), the Text/list
 sequence engine (`sequence`, in both device modes), the turbo apply seam
 (`backend.apply_changes_docs`, and its pipelined form) and the batched
-sync plane (`sync_driver`, over `bloom` and `hashindex`); storage and
-multi-device sharding are later slices (ROADMAP.md Queue 1).
+sync plane (`sync_driver`, over `bloom` and `hashindex`) and the bulk
+loader (`load_docs`: saved documents straight to device state);
+durability, the storage tier and multi-device sharding are later slices
+(ROADMAP.md Queue 1).
 """
 
 from .tensor_doc import (FleetState, OpBatch, TOMBSTONE, pack_op_id,
@@ -21,10 +23,12 @@ from .sequence import (SeqOpBatch, SeqState, apply_seq_batch, linearize,
 from .bloom import build_bloom_filters, probe_bloom_filters, bloom_filter_bytes
 from .sync_driver import (generate_sync_messages_docs,
                           receive_sync_messages_docs)
+from .loader import load_docs
 from .hashindex import (HashIndex, FleetFrontierIndex, frontier_compare,
                         hashes_to_rows)
 
 __all__ = [
+    'load_docs',
     'HashIndex', 'FleetFrontierIndex', 'frontier_compare', 'hashes_to_rows',
     'FleetState', 'OpBatch', 'TOMBSTONE', 'pack_op_id', 'unpack_op_id',
     'state_from_numpy', 'state_to_numpy',

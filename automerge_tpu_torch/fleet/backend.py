@@ -8,11 +8,13 @@ multi-value register state instead, and every dispatch is the
 hand-written CUDA register scan (fleet/register_kernel.py). Text and
 list objects live in size-class pools of sequence rows
 (fleet/sequence.py), and every sequence dispatch is the hand-written CUDA
-RGA scan (fleet/seq_kernel.py), in both device modes. The module is a
-copy of the reference with the device calls swapped; paths that belong
-to later slices of the port (ROADMAP.md "Queue 1") raise
-NotImplementedError naming their item: sharded meshes, durability
-journals and the storage tier (park/load/rebuild).
+RGA scan (fleet/seq_kernel.py), in both device modes. Saved documents
+bulk-load through fleet/loader.py, and `park_docs` / `rebuild_docs`
+keep the reference's parked form and rebuild. The module is a copy of
+the reference with the device calls swapped; paths that belong to later
+slices of the port (ROADMAP.md "Queue 1") raise NotImplementedError
+naming their item: sharded meshes, and durability journals with the
+storage tier.
 
 The reference's description follows.
 
@@ -84,7 +86,8 @@ from .ingest import KeyInterner
 
 # Later slices of the port (ROADMAP.md Queue 1): their paths raise
 _MULTI_DEVICE = 'multi-device (fleet/sharding.py, fleet/exchange.py)'
-_STORAGE = 'storage and durability (fleet/loader.py, fleet/durability.py)'
+_STORAGE = ('durability and the storage tier (fleet/durability.py, '
+            'fleet/storage.py)')
 
 
 def _later(item):
@@ -2307,9 +2310,30 @@ class _FlatEngine(HashGraph):
         change log empty, graph dicts empty, one full-range deferred
         record resolving through the chunk, mirrors and any previously
         decoded history dropped. Causal state (heads/clock/max_op/
-        actor_ids) is NOT touched; callers own it. The parked form
-        belongs to the storage slice of the port."""
-        raise _later(_STORAGE)
+        actor_ids) is NOT touched; callers own it."""
+        from .loader import _DocDeferredBatch
+        ix = self.fleet._hash_index
+        if ix is not None:
+            # the slot's history representation is being replaced
+            # wholesale; drop its membership space (a later sync round
+            # re-registers and backfills from the chunk's hash lanes)
+            ix.drop_slots([self.slot])
+        self._changes = []
+        self._doc_pending = chunk
+        self._doc_decoded = None
+        self._doc_hashes = None
+        self._doc_maxops = None
+        self._parked_n = n_changes
+        self.binary_doc = chunk
+        self.changes_meta = []
+        self.change_index_by_hash = {}
+        self.dependencies_by_hash = {}
+        self.dependents_by_hash = {}
+        self.hashes_by_actor = {}
+        self._deferred = [(0, _DocDeferredBatch(self), range(n_changes))] \
+            if n_changes else []
+        self.mirror = None
+        self.stale = True
 
     def _doc_resolve(self, i):
         """(hash, deps, actor, meta) for _ensure_graph over a bulk-loaded
@@ -3215,13 +3239,122 @@ def host_memory_stats(handles):
 
 
 def park_docs(handles):
-    """Demote cold documents to their saved chunk: the storage slice."""
-    raise _later(_STORAGE)
+    """Demote cold documents to their canonical saved chunk — the
+    loader's parked form (`_doc_pending`), made available to LIVE docs:
+    the host-side change log, deferred hash-graph records, graph dicts,
+    and read mirrors collapse into ONE compressed document chunk per doc
+    (BASELINE.md's 100k-doc host-memory plan, operational). Device state
+    is untouched and causal state (heads/clock/maxOp/actorIds) stays
+    live, so parked docs keep accepting changes through the turbo gate,
+    serving sync, and answering bulk device reads; any history read
+    rematerializes the log lazily from the chunk (the same machinery
+    bulk-loaded documents already exercise, ref new.js:1709-1749 — the
+    deferred document-chunk load). A history read or a new change
+    REVIVES the host log (appending needs the change list); revived docs
+    show up in host_memory_stats (change_log_bytes,
+    docs_with_decoded_history) and re-park on the next park_docs call —
+    parking is a policy the caller applies to docs it believes are cold,
+    not a one-way compression.
+
+    Soundness: the chunk is round-trip-validated once at park time — the
+    native extractor reconstructs every change canonically and verifies
+    the re-encoded hash frontier against the header heads (codec.cpp
+    am_extract_changes; Python `decode_document` does the identical check
+    when the native codec is absent or bails) — so a doc whose history
+    cannot round-trip (e.g. foreign non-canonically-encoded changes) is
+    left live rather than parked. The change COUNT comes from the same
+    extraction instead of a full Python decode (the old
+    decode-every-change-just-to-record-n cost). Docs with queued changes
+    are skipped; an already-parked doc re-parks only when it has accrued
+    a delta tail (changes accepted while parked), folding the tail into
+    a fresh chunk. Returns the number of docs parked."""
+    parked = 0
+    flushed = set()
+    cands = []                   # (impl, chunk) pending batch validation
+    for handle in handles:
+        state = handle.get('state')
+        if not isinstance(state, FleetDoc) or not state.is_fleet:
+            continue
+        impl = state._impl
+        fleet = impl.fleet
+        if id(fleet) not in flushed:
+            fleet.flush()
+            flushed.add(id(fleet))
+        if impl.queue or not impl._changes:
+            # held-back queue entries can't be represented in a chunk;
+            # no tail means either an empty doc or already parked clean
+            continue
+        cands.append((impl, bytes(impl.save())))
+    # ONE batched validation for the whole park call: the native
+    # extractor fans the chunks over its thread pool instead of paying a
+    # per-doc FFI round trip
+    counts = _validate_doc_chunks([chunk for _impl, chunk in cands])
+    for (impl, chunk), n in zip(cands, counts):
+        if n is None:
+            continue          # cannot round-trip: stays live
+        impl._install_parked_chunk(chunk, n)
+        parked += 1
+    return parked
+
+
+def _validate_doc_chunks(chunks):
+    """Batched round-trip validation: per chunk, its change count or
+    None when the history cannot be reproduced from it (the park-time
+    soundness gate). Native extraction validates by construction (heads
+    verified against re-encoded hashes) over the thread pool; docs it
+    bails on get the identical check from the Python decode."""
+    if not chunks:
+        return []
+    native_out = native.extract_changes(chunks) if native.available() \
+        else None
+    out = [None] * len(chunks)
+    from ..columnar import decode_document
+    for i, chunk in enumerate(chunks):
+        if native_out is not None and native_out[i] is not None:
+            out[i] = len(native_out[i][0])
+        else:
+            try:
+                out[i] = len(decode_document(chunk))
+            except Exception:
+                out[i] = None
+    return out
+
+
+def _validate_doc_chunk(chunk):
+    """Single-chunk form of _validate_doc_chunks."""
+    return _validate_doc_chunks([chunk])[0]
 
 
 def rebuild_docs(handles, fleet=None, mirror=False):
-    """Recover documents into a fresh fleet: the storage slice."""
-    raise _later(_STORAGE)
+    """Recover documents into a fresh fleet from their host-side change
+    logs — the donation-failure contract (fleet/apply.py): a failed
+    donated dispatch leaves the old fleet's device state unrecoverable,
+    but the change logs remain the source of truth, so documents replay
+    into new slots. Causally-held-back queue entries re-queue too.
+    Returns new handles in input order; the old handles are frozen.
+
+    A source fleet with a durability journal belongs to the storage
+    slice of the port (the reference moves the journal across): it
+    raises before any handle is frozen."""
+    fleet = fleet or DocFleet()
+    for handle in handles:
+        state = handle['state']
+        if isinstance(state, FleetDoc) and state.fleet.journal is not None:
+            raise _later(_STORAGE)
+    per_doc, per_doc_queue = [], []
+    for handle in handles:
+        state = handle['state']
+        impl = state._impl if isinstance(state, FleetDoc) else state
+        per_doc.append([bytes(b) for b in impl.changes])
+        per_doc_queue.append([q['buffer'] for q in impl.queue
+                              if isinstance(q, dict) and 'buffer' in q])
+        handle['frozen'] = True
+    new_handles = init_docs(len(handles), fleet)
+    new_handles, _ = apply_changes_docs(new_handles, per_doc, mirror=mirror)
+    if any(per_doc_queue):
+        new_handles, _ = apply_changes_docs(new_handles, per_doc_queue,
+                                            mirror=mirror)
+    return new_handles
 
 
 # Fault-containment roll-up (observability.health_counts): documents

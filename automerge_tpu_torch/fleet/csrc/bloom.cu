@@ -54,8 +54,24 @@
 // range check and takes 32-bit arithmetic.
 //
 // The probe: one thread per lane, neighbouring threads on neighbouring
-// lanes, so the word and flag loads coalesce; its 7 byte gathers stop at
-// the first clear bit.
+// lanes, so the flag and word loads coalesce. At the sync path's shape
+// (16,384 rows x 16 lanes, 90,000 valid, over 131 KB of filters) its
+// 1.9 MB take 0.6 us at 3.35 TB/s; what it pays is a launch, the
+// instructions of 262,144 threads in one wave, and the chain of dependent
+// round trips a thread waits on. So a thread makes two round trips. The
+// first brings its flag, its three words and its row's capacity and
+// offset together: the row is a shift of the lane (bloom.py pads the hash
+// axis to a power of two; another H divides), so no load waits on an
+// earlier one. The second is the 7 byte gathers, issued together: the
+// positions come first, and a valid lane's positions all lie inside its
+// row, so no gather waits on another's bit. The positions take the three
+// first moduli by the uint32 %, then the build's x + y - m step while
+// m <= 2^31 (the uint32 modulo chain above): the build's 64-bit
+// reciprocal costs one 64-bit division per row, which a thread per lane
+// would pay on its own chain (measured slower than the % here, even
+// computed once per row in shared memory behind a barrier). Indices are
+// 32-bit where the lanes' words fit. An invalid lane (and a lane of an
+// empty row) gathers nothing and answers false.
 //
 // Built by cuda_build.py with nvcc into a shared library with a plain C
 // interface (no PyTorch headers), bound with ctypes in sync_kernels.py.
@@ -236,31 +252,68 @@ bloom_build_kernel(const uint32_t* __restrict__ words,
   store_span(out, max(own_lo, rows_end), own_hi, nullptr, 0);
 }
 
-__global__ void bloom_probe_kernel(const uint8_t* __restrict__ flat,
-                                   const int64_t* __restrict__ row_bits,
-                                   const int64_t* __restrict__ byte_off,
-                                   const uint32_t* __restrict__ words,
-                                   const uint8_t* __restrict__ valid,
-                                   uint8_t* __restrict__ out, int64_t lanes,
-                                   int64_t per_row) {
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                       threadIdx.x;
-  if (lane >= lanes) return;
-  bool hit = valid[lane] != 0;
-  if (hit) {
-    const int64_t row = lane / per_row;
-    const uint32_t m = static_cast<uint32_t>(row_bits[row]);
-    const uint8_t* filter = flat + byte_off[row];
-    const uint32_t* w = words + lane * 3;
-    uint32_t x = w[0] % m, y = w[1] % m;
-    const uint32_t z = w[2] % m;
-    for (int p = 0; p < kProbes && hit; ++p) {
-      if (p) {
-        x = (x + y) % m;
-        y = (y + z) % m;
-      }
-      hit = (filter[x >> 3] >> (x & 7)) & 1;
+// The 7 probe positions of one lane, relative to its row's first bit, into
+// registers: the three first moduli by the uint32 %, then x + y - m where
+// x + y >= m while m <= 2^31, else the uint32 modulo chain (x + y wraps
+// first there), as for_probes does with its reciprocal.
+__device__ __forceinline__ void probe_positions(uint32_t x, uint32_t y,
+                                                uint32_t z, uint32_t m,
+                                                uint32_t (&pos)[kProbes]) {
+  x %= m;
+  y %= m;
+  z %= m;
+  pos[0] = x;
+  if (m <= kHalf) {
+#pragma unroll
+    for (int p = 1; p < kProbes; ++p) {
+      x += y;
+      x -= x >= m ? m : 0;
+      y += z;
+      y -= y >= m ? m : 0;
+      pos[p] = x;
     }
+  } else {
+#pragma unroll
+    for (int p = 1; p < kProbes; ++p) {
+      x = (x + y) % m;
+      y = (y + z) % m;
+      pos[p] = x;
+    }
+  }
+}
+
+// Idx is int32_t where every lane's word index fits (3 x lanes < 2^31),
+// which saves the 64-bit index arithmetic, else int64_t.
+template <class Idx>
+__global__ void __launch_bounds__(kThreads)
+bloom_probe_kernel(const uint8_t* __restrict__ flat,
+                   const int64_t* __restrict__ row_bits,
+                   const int64_t* __restrict__ byte_off,
+                   const uint32_t* __restrict__ words,
+                   const uint8_t* __restrict__ valid,
+                   uint8_t* __restrict__ out, Idx lanes, Idx per_row,
+                   int log_h) {
+  const Idx lane = static_cast<Idx>(blockIdx.x) * kThreads + threadIdx.x;
+  if (lane >= lanes) return;
+  // round trip 1: the lane's flag and words, its row's capacity and offset
+  const Idx row = log_h >= 0 ? lane >> log_h : lane / per_row;
+  const bool live = valid[lane] != 0;
+  const uint32_t x = words[lane * 3], y = words[lane * 3 + 1],
+                 z = words[lane * 3 + 2];
+  const uint32_t m = static_cast<uint32_t>(row_bits[row]);
+  const uint8_t* filter = flat + byte_off[row];
+  bool hit = false;
+  if (live && m) {
+    uint32_t pos[kProbes];
+    probe_positions(x, y, z, m, pos);
+    // round trip 2: the 7 gathers at once
+    uint32_t bytes[kProbes];
+#pragma unroll
+    for (int p = 0; p < kProbes; ++p) bytes[p] = __ldg(filter + (pos[p] >> 3));
+    uint32_t all = 1;
+#pragma unroll
+    for (int p = 0; p < kProbes; ++p) all &= bytes[p] >> (pos[p] & 7);
+    hit = all & 1;
   }
   out[lane] = hit;
 }
@@ -305,18 +358,30 @@ extern "C" int bloom_build_launch(const void* words, const void* valid,
 }
 
 // out[lane] = all 7 probe bits of the lane set in its row's filter, and
-// the lane valid ([rows, per_row] bool). Returns the CUDA error code.
+// the lane valid ([rows, per_row] bool). A power-of-two per_row finds a
+// lane's row by a shift, another by a division. Returns the CUDA error
+// code.
 extern "C" int bloom_probe_launch(const void* flat, const void* row_bits,
                                   const void* byte_off, const void* words,
                                   const void* valid, void* out, int64_t rows,
                                   int64_t per_row, void* stream) {
   const int64_t lanes = rows * per_row;
   if (lanes <= 0) return 0;
-  bloom_probe_kernel<<<blocks_for(lanes), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(flat), static_cast<const int64_t*>(row_bits),
-      static_cast<const int64_t*>(byte_off),
-      static_cast<const uint32_t*>(words), static_cast<const uint8_t*>(valid),
-      static_cast<uint8_t*>(out), lanes, per_row);
+  const int log_h =
+      (per_row & (per_row - 1)) == 0 ? 63 - __builtin_clzll(per_row) : -1;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* f = static_cast<const uint8_t*>(flat);
+  const auto* bits = static_cast<const int64_t*>(row_bits);
+  const auto* offs = static_cast<const int64_t*>(byte_off);
+  const auto* w = static_cast<const uint32_t*>(words);
+  const auto* v = static_cast<const uint8_t*>(valid);
+  auto* o = static_cast<uint8_t*>(out);
+  if (lanes * 3 < (int64_t{1} << 31))
+    bloom_probe_kernel<int32_t><<<blocks_for(lanes), kThreads, 0, s>>>(
+        f, bits, offs, w, v, o, static_cast<int32_t>(lanes),
+        static_cast<int32_t>(per_row), log_h);
+  else
+    bloom_probe_kernel<int64_t><<<blocks_for(lanes), kThreads, 0, s>>>(
+        f, bits, offs, w, v, o, lanes, per_row, log_h);
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,6 +22,12 @@ versions (fleet/sync_kernels.py), shared by the card tests
   one shared-memory window holds and a longer one) built and
   probed through the kernels and through the plain versions; returns the
   disagreements. `bloom_layout(counts)` is the flat layout alone.
+- `bloom_probe_case(name, rng, device)` / `bloom_probe_both(case)`: the
+  probe alone at the corners `BLOOM_PROBE_CASES`: 'all_present' (every
+  lane a member of its row's filter, so all 7 gathers of every lane
+  find their bit), 'all_absent' (every filter empty of bits) and
+  'past_2_31' (a row of more than 2^31 bits, 268 MB, beside small
+  ones); returns the disagreements.
 """
 
 import numpy as np
@@ -265,3 +271,69 @@ def bloom_both(rng, counts, device):
     return dict(filters=len(lists), bytes=total_bits // 8,
                 build=int((got.int() - want.int()).abs().max()),
                 probe=int((hit != plain_hit).sum()), missed=missed)
+
+
+BLOOM_PROBE_CASES = ('all_present', 'all_absent', 'past_2_31')
+BIG_ROW_BITS = (1 << 31) + (1 << 20)      # 268,566,528 bytes
+
+
+def bloom_probe_case(name, rng, device):
+    """The probe's inputs (flat, row_bits, byte_off, words, valid) at one
+    corner of BLOOM_PROBE_CASES: 'all_present', 1,024 filters of 16
+    random members each, probed with their members (16 lanes a row, the
+    sync path's width); 'all_absent', 1,024 filters of 20 zero bytes
+    probed with 16 random hashes each; 'past_2_31', a row of BIG_ROW_BITS
+    bits (each bit set with probability 7/8, so about 0.39 of the lanes
+    find all 7 bits) between two rows of 80 bits, 8 random lanes each."""
+    if name == 'all_present':
+        lists = [[rng.bytes(32).hex() for _ in range(16)]
+                 for _ in range(1024)]
+        words, valid, row_bits, bit_off, total_bits, byte_off = \
+            bloom.flat_build_lanes(lists)
+        packed = sync_kernels.bloom_build(
+            *bloom.lanes_to(words, valid, row_bits, bit_off, device),
+            total_bits)
+        filters = [packed[off:off + bloom.num_filter_bits(16) // 8]
+                   .cpu().numpy() for off in byte_off]
+        flat, words, valid, row_bits, byte_off = bloom.flat_probe_lanes(
+            filters, lists)
+    elif name == 'all_absent':
+        lists = [[rng.bytes(32).hex() for _ in range(16)]
+                 for _ in range(1024)]
+        filters = [np.zeros(20, dtype=np.uint8)] * len(lists)
+        flat, words, valid, row_bits, byte_off = bloom.flat_probe_lanes(
+            filters, lists)
+    elif name == 'past_2_31':
+        h = 8
+        words = rng.integers(0, 1 << 32, (3, h, 3), dtype=np.uint64) \
+            .astype(np.uint32)
+        valid = np.ones((3, h), dtype=bool)
+        big = BIG_ROW_BITS // 8
+        row_bits = np.array([80, BIG_ROW_BITS, 80], dtype=np.int64)
+        byte_off = np.array([0, 16, 16 + big], dtype=np.int64)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(rng.integers(1 << 31)))
+        flat = torch.randint(0, 256, (16 + big + 16,), dtype=torch.uint8,
+                             device=device, generator=gen)
+        for _ in range(2):
+            flat |= torch.randint(0, 256, flat.shape, dtype=torch.uint8,
+                                  device=device, generator=gen)
+        words, valid, row_bits, byte_off = bloom.lanes_to(
+            words, valid, row_bits, byte_off, device)
+        return flat, row_bits, byte_off, words, valid
+    else:
+        raise ValueError(f'unknown Bloom probe case {name!r}')
+    words, valid, row_bits, byte_off = bloom.lanes_to(
+        words, valid, row_bits, byte_off, device)
+    return torch.from_numpy(flat).to(device), row_bits, byte_off, words, \
+        valid
+
+
+def bloom_probe_both(case):
+    """The case through the probe kernel and its plain version. Returns
+    the lanes, the valid lanes, the kernel's hits and 'probe', the lanes
+    whose answers differ (0 when the kernel holds)."""
+    hit = sync_kernels.bloom_probe(*case)
+    plain_hit = sync_kernels.bloom_probe_plain(*case)
+    return dict(lanes=hit.numel(), valid=int(case[4].sum()),
+                hits=int(hit.sum()), probe=int((hit != plain_hit).sum()))

@@ -14,7 +14,9 @@ and what their design does about it):
   once (`bloom_plan`, `bloom_groups_plain`), so the output is allocated
   with torch.empty. `probe_indexes_stepped` is its modulo rule.
 - `bloom_probe(flat, row_bits, byte_off, words, valid)`: the flat packed
-  probe (bloom.py `_probe_flat_packed`). Returns [rows, H] bool.
+  probe (bloom.py `_probe_flat_packed`). Returns [rows, H] bool. The
+  kernel gathers a lane's 7 bytes at once; its steps after the first
+  three moduli follow `probe_indexes_stepped`.
 - `hashindex_insert(tkey, tspace, keys, spaces, valid, max_occupancy,
   load_max)`: the open-addressing insert (automerge_tpu/fleet/
   hashindex.py `_insert_kernel`), in place. Returns the number of new

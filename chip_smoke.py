@@ -83,6 +83,23 @@ Phases (any failure exits non-zero):
      4 sampled docs' get_patch() and save() equal the host's and save()
      round-trips, nothing inexact, no fallbacks; the same once more in
      exact-device mode; ops/s (median of 5 warm reps);
+   - load: the bulk loader and the parked form. The seam's document
+     (its 20-change chain, saved) loads 10,000 times through
+     load_docs(DocFleet(doc_capacity=10,000, key_capacity=1,000)):
+     every doc bulk-loaded, every doc == the seam's, every unedited
+     save() == the loaded bytes; one more change to every doc is one
+     lww_merge launch on the in-place (warp) route, 4 docs == the host
+     OpSet; 1,000 docs are parked (park_docs), take one more change
+     each and rebuild (rebuild_docs) into a fresh fleet, whose
+     materialize_docs and save() equal 1,000 docs never parked; load
+     docs/s (median of 3) and a traced load (the install writes' device
+     ms beside their byte bound); the same load in exact-device mode
+     (registers [10000, 1024, 8], nothing inexact; the follow-up is one
+     register_scan launch, 4 device-served patches == the host's); and
+     the text seam's document (10,512 ops) loaded 2,000 times (one
+     size class [2048, 16387, 4], no migration, no scan launched, every
+     text == the seam's), then a further batch of 256 ops, one seq_scan
+     launch, every text == the host OpSet's; a traced text load;
    - sync: a hub of 4 docs (chains of depth 8) serving 100,000 peer
      links (bench.py's fabric sweep, top leg) with its frontier index at
      2^21 slots: a cold round, a round that lands the staged sent sets,
@@ -403,6 +420,15 @@ def sync_kernel_vs_plain():
             fail(f'Bloom kernels != plain on {counts} sizes: {got}')
         log(f'kernel == plain: bloom build + probe, {counts} sizes '
             f'({got["filters"]} filters, {got["bytes"]} B)')
+    for name in sync_cases.BLOOM_PROBE_CASES:
+        case = sync_cases.bloom_probe_case(name, rng, dev)
+        got = sync_cases.bloom_probe_both(case)
+        want_hits = {'all_present': got['valid'], 'all_absent': 0}
+        if got['probe'] or got['hits'] != want_hits.get(name, got['hits']):
+            fail(f'Bloom probe kernel != plain on {name}: {got}')
+        log(f'kernel == plain: bloom probe, {name} ({got["lanes"]} lanes, '
+            f'{got["hits"]} hits, {case[0].numel()} B of filters)')
+        del case
 
 
 # (docs, keys, actor slots, P, D, where the plain version runs)
@@ -1093,6 +1119,282 @@ def text_path():
     return kernel_launches, rec.saved, pools, batches, xrec.saved
 
 
+# ---- the load path ----------------------------------------------------------
+
+LOAD_REPS = 3            # load docs/s: the median of 3, as bench.py measures
+PARKED_DOCS = 1_000
+
+
+class RouteRecorder:
+    """While on, records the route of every lww_merge launch plan."""
+
+    def __init__(self):
+        self.routes = []
+
+    def __enter__(self):
+        from automerge_tpu_torch.fleet import merge_kernel
+        self._real = merge_kernel._launch_plan
+
+        def plan(*args, **kwargs):
+            out = self._real(*args, **kwargs)
+            self.routes.append(out.route)
+            return out
+        merge_kernel._launch_plan = plan
+        return self
+
+    def __exit__(self, *exc):
+        from automerge_tpu_torch.fleet import merge_kernel
+        merge_kernel._launch_plan = self._real
+
+
+def follow_up(actor, seq, start_op, heads, key, value):
+    """One change setting `key` on top of `heads`."""
+    from automerge_tpu_torch.columnar import encode_change
+    return encode_change({
+        'actor': actor, 'seq': seq, 'startOp': start_op, 'time': 0,
+        'message': '', 'deps': list(heads),
+        'ops': [{'action': 'set', 'obj': '_root', 'key': key,
+                 'value': value, 'datatype': 'int', 'pred': []}]})
+
+
+def install_line(tag, wall, rows, cells_bytes):
+    """The load's device time: the install writes (the index_put kernels)
+    beside their byte bound, and the device's busy share."""
+    writes = [(ms, cnt) for ms, key, cnt in rows if 'index' in key.lower()]
+    bound = bound_of(cells_bytes, 0)
+    if not writes:
+        # torch.profiler's trace of a short run sometimes holds no device
+        # activity at all: the writes were not measured, not free
+        log(f'{tag} install writes: not measured (the profiler recorded '
+            f'no device activity), bound {bound["bound_ms"]:.4f} ms '
+            f'({cells_bytes} B); {card_line()}')
+        return dict(ms=None, launches=None, **bound)
+    ms = sum(m for m, _ in writes)
+    launches = sum(c for _, c in writes)
+    log(f'{tag} install writes: {ms:.4f} ms device in {launches} index '
+        f'kernels, bound {bound["bound_ms"]:.4f} ms ({cells_bytes} B); '
+        f'{card_line()}')
+    device_line(wall, rows)
+    return dict(ms=ms, launches=launches, **bound)
+
+
+def load_breakdown(nums):
+    """One traced LWW load (see load_path): the install writes' device
+    time beside their byte bound."""
+    lww = nums['lww']
+    gc.collect()
+    wall, phases, rows = traced(lww.pop('run'))
+    lww.update(install_line(
+        f'LWW load (traced, wall {wall * 1e3:.1f} ms, bulk_load span '
+        f'{phases.get("bulk_load", 0) * 1e3:.1f} ms)', wall, rows,
+        lww.pop('bytes')))
+
+
+def load_path():
+    """The bulk loader and the parked form at full width (see the module
+    docstring). Returns the kernel launches of its follow-up batches and
+    the install writes' numbers."""
+    import torch
+    from automerge_tpu_torch import backend as host
+    from automerge_tpu_torch.fleet import (load_docs, merge_kernel,
+                                           register_kernel, seq_cases,
+                                           seq_kernel)
+    from automerge_tpu_torch.fleet.backend import (
+        DocFleet, _leaf_value, apply_changes_docs, get_patch,
+        materialize_docs, park_docs, rebuild_docs)
+    for mod in (merge_kernel, register_kernel, seq_kernel):
+        mod.reset_launches()
+    changes, heads, last = seam_workload()
+    hb = host.init()
+    hb, _ = host.apply_changes(hb, changes)
+    saved = bytes(host.save(hb))
+    if _leaf_value(host.get_patch(hb)['diffs']) != last:
+        fail('load path: the saved seam document != the last writers')
+    nums = {}
+
+    def load(exact=False):
+        fleet = DocFleet(doc_capacity=N_DOCS, key_capacity=N_KEYS,
+                         exact_device=exact, device=DEVICE)
+        handles = load_docs([saved] * N_DOCS, fleet)
+        torch.cuda.synchronize()
+        return fleet, handles
+
+    # LWW: load, read, save, one more change
+    fleet, handles = load()
+    if fleet.metrics.docs_bulk_loaded != N_DOCS:
+        fail(f'load path: {fleet.metrics.docs_bulk_loaded} of {N_DOCS} '
+             f'docs bulk-loaded')
+    docs = materialize_docs(handles)
+    if any(doc != last for doc in docs):
+        bad = next(i for i, doc in enumerate(docs) if doc != last)
+        fail(f'load path: doc {bad} != the seam\'s document')
+    if any(bytes(h['state'].save()) != saved for h in handles):
+        fail('load path: an unedited save() != the loaded bytes')
+    extra = follow_up('cc' * 16, 1, N_CHANGES + 1, heads, 'loaded', 7)
+    with RouteRecorder() as rr:
+        handles, _ = apply_changes_docs(handles, [[extra]] * N_DOCS,
+                                        mirror=False)
+        torch.cuda.synchronize()
+    if merge_kernel.LAUNCHES['lww_merge'] != 1 or rr.routes != ['warp']:
+        fail(f'load path: the follow-up batch took {rr.routes} '
+             f'({merge_kernel.LAUNCHES["lww_merge"]} launches; want one '
+             f'in-place launch)')
+    hb2, _ = host.apply_changes(hb, [extra])
+    want2 = _leaf_value(host.get_patch(hb2)['diffs'])
+    docs = materialize_docs(handles)
+    for d in (0, 1, N_DOCS // 2, N_DOCS - 1):
+        if docs[d] != want2 or bytes(handles[d]['state'].save()) != \
+                bytes(host.save(hb2)):
+            fail(f'load path: doc {d} after the follow-up != host OpSet')
+    cells = int((fleet.state.winners != 0).sum())
+    log(f'load path (LWW): {N_DOCS} copies of the seam document '
+        f'({len(saved)} B) into grids {tuple(fleet.state.winners.shape)} '
+        f'x3 int32 = {fleet.state.nbytes()} B, docs_bulk_loaded '
+        f'{fleet.metrics.docs_bulk_loaded}, all docs == the seam\'s, '
+        f'unedited save() == loaded bytes; one more change: lww_merge '
+        f'launches {merge_kernel.LAUNCHES["lww_merge"]} on route '
+        f'{rr.routes}, 4 docs == host OpSet')
+
+    # park 1,000 docs, change them, rebuild them into a fresh fleet
+    parked = handles[:PARKED_DOCS]
+    control = handles[PARKED_DOCS:2 * PARKED_DOCS]
+    n_parked = park_docs(parked)
+    if n_parked != PARKED_DOCS:
+        fail(f'load path: park_docs parked {n_parked} of {PARKED_DOCS}')
+    more = follow_up('cc' * 16, 2, N_CHANGES + 2,
+                     host.get_heads(hb2), 'parked', 9)
+    both = parked + control
+    both, _ = apply_changes_docs(both, [[more]] * len(both), mirror=False)
+    if any(h['state']._impl._doc_pending is None
+           for h in both[:PARKED_DOCS]):
+        fail('load path: a parked doc left its parked form')
+    fresh = DocFleet(doc_capacity=PARKED_DOCS, key_capacity=N_KEYS,
+                     device=DEVICE)
+    rebuilt = rebuild_docs(both[:PARKED_DOCS], fresh)
+    torch.cuda.synchronize()
+    want_docs = materialize_docs(both[PARKED_DOCS:])
+    want_saves = [bytes(h['state'].save()) for h in both[PARKED_DOCS:]]
+    if materialize_docs(rebuilt) != want_docs or \
+            [bytes(h['state'].save()) for h in rebuilt] != want_saves:
+        fail('load path: rebuilt parked docs != docs never parked')
+    log(f'park and rebuild: {n_parked} loaded docs parked, one change '
+        f'each (delta tails), rebuilt into a fresh fleet: '
+        f'materialize_docs and save() == {PARKED_DOCS} docs never parked')
+    del fleet, handles, parked, control, both, fresh, rebuilt
+    gc.collect()
+
+    # load docs/s, and one traced load
+    rates = []
+    for _ in range(LOAD_REPS):
+        gc.collect()
+        t0 = time.perf_counter()
+        load()
+        rates.append(N_DOCS / (time.perf_counter() - t0))
+    log(f'load docs/s (median of {LOAD_REPS}): '
+        f'{statistics.median(rates):.1f}  reps {[round(r) for r in rates]}; '
+        f'{card_line()}')
+    # each cell: its two int64 indices and three int64 columns read, three
+    # int32 cells written (traced at the end: load_breakdown)
+    nums['lww'] = dict(run=load, bytes=cells * (5 * 8 + 12),
+                       docs_per_s=statistics.median(rates))
+    gc.collect()
+
+    # Exact: the same load into the register state
+    xfleet, xhandles = load(exact=True)
+    xfleet_bytes = xfleet.reg_state.nbytes()
+    if xfleet.metrics.docs_bulk_loaded != N_DOCS or xfleet.inexact_slots():
+        fail(f'exact load: {xfleet.metrics.docs_bulk_loaded} bulk-loaded, '
+             f'{len(xfleet.inexact_slots())} inexact slots')
+    if any(doc != last for doc in materialize_docs(xhandles)):
+        fail('exact load: a doc != the seam\'s document')
+    xhandles, _ = apply_changes_docs(xhandles, [[extra]] * N_DOCS,
+                                     mirror=False)
+    torch.cuda.synchronize()
+    if register_kernel.LAUNCHES['register_scan'] != 1:
+        fail(f'exact load: the follow-up batch launched register_scan '
+             f'{register_kernel.LAUNCHES["register_scan"]} times')
+    xdocs = materialize_docs(xhandles)
+    for d in (0, 1, N_DOCS // 2, N_DOCS - 1):
+        if xdocs[d] != want2 or get_patch(xhandles[d]) != \
+                host.get_patch(hb2):
+            fail(f'exact load: doc {d} after the follow-up != host OpSet')
+    xcells = int((xfleet.reg_state.reg != 0).sum())
+    log(f'load path (exact): {N_DOCS} docs into registers '
+        f'{tuple(xfleet.reg_state.reg.shape)} ({xfleet_bytes} B), nothing '
+        f'inexact, all docs == the seam\'s; one more change: register_scan '
+        f'launches {register_kernel.LAUNCHES["register_scan"]}, 4 docs\' '
+        f'materialize_docs and device-served get_patch() == host OpSet')
+    del xfleet, xhandles
+    gc.collect()
+
+    # Text: the text seam's document, 2,000 copies
+    batches = seq_cases.text_changes(TEXT_OPS, more=TEXT_MORE + (256,))
+    tb_ = host.init()
+    for batch in batches[:-1]:
+        tb_, _ = host.apply_changes(tb_, batch)
+    tsaved = bytes(host.save(tb_))
+    want_text = _leaf_value(host.get_patch(tb_)['diffs'])
+    n_ops = TEXT_OPS + sum(TEXT_MORE)
+
+    def tload():
+        fleet = DocFleet(doc_capacity=TEXT_DOCS, key_capacity=4,
+                         device=DEVICE)
+        handles = load_docs([tsaved] * TEXT_DOCS, fleet)
+        torch.cuda.synchronize()
+        return fleet, handles
+
+    l0 = seq_kernel.LAUNCHES['seq_scan']
+    loaded = []
+    wall, phases, rows = traced(lambda: loaded.append(tload()))
+    tfleet, thandles = loaded.pop()
+    if seq_kernel.LAUNCHES['seq_scan'] != l0:
+        fail('text load: the load launched the sequence scan')
+    if any(tfleet.seq_pools.free.values()):
+        fail(f'text load: rows migrated between size classes '
+             f'({ {c: len(f) for c, f in tfleet.seq_pools.free.items()} })')
+    if tfleet.metrics.docs_bulk_loaded != TEXT_DOCS or \
+            any(bool(st.inexact.any())
+                for st in tfleet.seq_pools.pools.values()):
+        fail('text load: a doc fell back or a row is inexact')
+    tdocs = materialize_docs(thandles)
+    if any(doc != want_text for doc in tdocs):
+        fail('text load: a text != the text seam\'s')
+    elems = sum(int(st.n.sum()) for st in tfleet.seq_pools.pools.values())
+    lanes = sum(int((st.reg != 0).sum())
+                for st in tfleet.seq_pools.pools.values())
+    nodes = TEXT_DOCS * max(st.nxt.shape[1]
+                            for st in tfleet.seq_pools.pools.values())
+    log(f'load path (text): {TEXT_DOCS} copies of the text seam\'s '
+        f'document ({n_ops} ops, {len(tsaved)} B) in {wall:.1f} s '
+        f'({TEXT_DOCS / wall:.1f} docs/s; {card_line()}; traced; '
+        f'bulk_load span {phases.get("bulk_load", 0):.1f} s), pools '
+        f'(shape, bytes) {pool_bytes(tfleet)}, all texts == the text '
+        f'seam\'s, nothing inexact, no migration, no scan launched')
+    thandles, _ = apply_changes_docs(thandles, [batches[-1]] * TEXT_DOCS,
+                                     mirror=False)
+    torch.cuda.synchronize()
+    if seq_kernel.LAUNCHES['seq_scan'] - l0 != 1:
+        fail(f'text load: the follow-up batch launched seq_scan '
+             f'{seq_kernel.LAUNCHES["seq_scan"] - l0} times')
+    tb_, _ = host.apply_changes(tb_, batches[-1])
+    want_text = _leaf_value(host.get_patch(tb_)['diffs'])
+    tdocs = materialize_docs(thandles)
+    if any(doc != want_text for doc in tdocs):
+        fail('text load: a text after the follow-up != the host OpSet\'s')
+    log(f'text load, a further {len(batches[-1])}-change batch of 256 ops: '
+        f'seq_scan launches 1, all {TEXT_DOCS} texts == host OpSet')
+    del tfleet, thandles
+    gc.collect()
+    # the chain rows written whole (int32, with their n), each element's
+    # two indices and id, each lane's three indices and four values
+    nums['text'] = install_line(
+        'text load', wall, rows,
+        nodes * 4 + elems * (3 * 8 + 4) + lanes * (7 * 8 + 13))
+    launches = {**merge_kernel.LAUNCHES, **register_kernel.LAUNCHES,
+                **seq_kernel.LAUNCHES}
+    return launches, nums
+
+
 # ---- the sync plane's main path --------------------------------------------
 
 LINKS, HUB_DOCS, DEPTH = 100_000, 4, 8
@@ -1605,7 +1907,7 @@ def turns_of(module, baseline):
             ('base_', baseline)]
 
 
-PROBE_ROUNDS = 6     # the probe's gain over its parent is a few per cent
+PROBE_ROUNDS = 6     # a probe's gain over its parent may be a few per cent
 
 
 def sync_kernel_numbers(inputs, baseline=None):
@@ -1619,12 +1921,13 @@ def sync_kernel_numbers(inputs, baseline=None):
     is (ms: the restore's 72 MB of writes are still dirty in the L2) and
     followed by a clean eviction (clean_ms), beside a floor of its key
     stores (key_scatter_ms: torch's index_copy_ of the new keys to the
-    slots the kernel gave them); the probe with the L2 warm and after a
-    clean eviction (clean_ms). With `baseline` (another checkout's
-    sync_kernels, e.g. the parent commit's) its build, insert and probe
-    are timed by the same methods in turns (baseline, this, this,
-    baseline; base_*), the probe in PROBE_ROUNDS such turns (medians,
-    and each time's least and largest as *_range). The bounds count
+    slots the kernel gave them); each probe with the L2 warm and after a
+    clean eviction (clean_ms), the Bloom probe beside a floor (zero_ms:
+    one zero_() of its [rows, H] output). With `baseline` (another
+    checkout's sync_kernels, e.g. the parent commit's) its build, insert
+    and probes are timed by the same methods in turns (baseline, this,
+    this, baseline; base_*), each probe in PROBE_ROUNDS such turns
+    (medians, and each time's least and largest as *_range). The bounds count
     what this run's data needs: the valid flag (and the probes' output
     byte) of every lane, the words or key and space of valid lanes only,
     the per-row int64s of rows that hold a valid lane only, and the
@@ -1678,11 +1981,23 @@ def sync_kernel_numbers(inputs, baseline=None):
     live_rows = valid.any(dim=1)
     live = int(live_rows.sum())
     filter_bytes = int(row_bits[live_rows].sum()) // 8
+    err, hits = int((got != want).sum()), int(got.sum())
+    times = {}
+    for tag, mod in turns_of(sk, baseline) * PROBE_ROUNDS:
+        def bprobe():
+            return mod.bloom_probe(flat, row_bits, byte_off, words, valid)
+        times.setdefault(tag + 'ms', []).append(time_ms(bprobe))
+        times.setdefault(tag + 'clean_ms', []).append(
+            time_ms(bprobe, reps=20, flush=clean))
     out['bloom_probe'] = dict(
-        shape=f'{r} rows x {h} lanes ({v} valid) over {flat.numel()} B',
-        max_abs_err=int((got != want).sum()),
-        ms=time_ms(lambda: sk.bloom_probe(flat, row_bits, byte_off, words,
-                                          valid)),
+        shape=f'{r} rows x {h} lanes ({v} valid, {hits} hits) '
+              f'over {flat.numel()} B',
+        max_abs_err=err,
+        **{k: statistics.median(t) for k, t in times.items()},
+        **{k.replace('ms', 'range'): [min(t), max(t)]
+           for k, t in times.items()},
+        # a floor: one launch that writes the [rows, H] output once
+        zero_ms=time_ms(got.zero_),
         plain_ms=time_ms(lambda: sk.bloom_probe_plain(
             flat, row_bits, byte_off, words, valid), reps=5),
         **bound_of(r * h * 2 + v * 12 + live * 16 + filter_bytes, v * 22))
@@ -2289,6 +2604,7 @@ def main():
         reg_launches, reg_saved, exact_batches = exact_path(per_doc)
         text_launches, seq_input, seq_pools, text_batches, text_reg_saved = \
             text_path()
+        load_launches, load_nums = load_path()
         sync = sync_path()
     nums = kernel_numbers(grid_shape, base.get('merge'))
     sync_inputs = sync.pop('inputs')
@@ -2307,6 +2623,8 @@ def main():
     exact_breakdown(exact_batches)
     text_breakdown(text_batches)
     sync_breakdown(sync)
+    load_breakdown(load_nums)
+    log(f'load path launches: {load_launches}')
     log(f'grid bytes: {grid_bytes}')
     log(f'wall: {time.perf_counter() - t_start:.1f} s')
     log(card_line())
@@ -2331,7 +2649,8 @@ def main():
             'bound_ms': k['bound_ms'], 'bound_by': k['bound_by'],
             'library_ms': None,
             **{key: k[key] for key in ('cold_ms', 'clean_ms', 'base_ms',
-                                       'base_cold_ms', 'base_clean_ms')
+                                       'base_cold_ms', 'base_clean_ms',
+                                       'zero_ms')
                if key in k}})
     kernels.append({
         'name': 'register_scan', 'route': 'cuda',

@@ -184,6 +184,23 @@ def _shared_bloom_case_holds(counts):
     assert sync_kernels.LAUNCHES == before
 
 
+@pytest.mark.parametrize('name', ['all_present', 'all_absent'])
+def test_probe_corners_match_reference(name):
+    """The probe kernel's new corners (fleet/sync_cases.py; the card also
+    runs 'past_2_31', a 268 MB filter): every lane a member, every filter
+    empty. The port's plain probe against JAX's `_probe_flat_packed` on
+    the same inputs."""
+    flat, row_bits, byte_off, words, valid = sync_cases.bloom_probe_case(
+        name, np.random.default_rng(44), CPU)
+    want = np.asarray(jax_bloom._probe_flat_packed(
+        flat.numpy(), row_bits.numpy().astype(np.uint32), byte_off.numpy(),
+        words.numpy().view(np.uint32), valid.numpy()))
+    got = sync_kernels.bloom_probe(flat, row_bits, byte_off, words, valid)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert int(got.sum()) == (int(valid.sum()) if name == 'all_present'
+                              else 0)
+
+
 def test_probe_indexes_wrap_like_uint32():
     """Capacities near 2^32 make x + y pass 2^32: the plain version's
     int64 chain must wrap exactly as the JAX uint32 arithmetic does."""

@@ -275,6 +275,26 @@ def test_bloom_kernels_match_plain_versions(cuda, counts):
         assert sync_kernels.LAUNCHES[kernel] == before[kernel] + 1
 
 
+@pytest.mark.parametrize('name', sync_cases.BLOOM_PROBE_CASES)
+def test_bloom_probe_corners_match_plain_version(cuda, name):
+    """The probe alone: every lane a member (all 7 gathers find their
+    bit), every filter empty, and a row of more than 2^31 bits, whose
+    probe steps keep the uint32 modulo chain; kernel against plain
+    version."""
+    case = sync_cases.bloom_probe_case(name, np.random.default_rng(44),
+                                       cuda)
+    before = sync_kernels.LAUNCHES['bloom_probe']
+    got = sync_cases.bloom_probe_both(case)
+    assert got['probe'] == 0, got
+    assert sync_kernels.LAUNCHES['bloom_probe'] == before + 1
+    if name == 'all_present':
+        assert got['hits'] == got['valid'] == got['lanes']
+    elif name == 'all_absent':
+        assert got['hits'] == 0
+    else:
+        assert 0 < got['hits'] < got['valid']
+
+
 def test_grow_by_migration_on_the_card_matches_the_cpu(cuda):
     """A table that grows twice and drops two dead spaces on the way
     (the migration re-inserts the old table's live rows on the device)
@@ -581,4 +601,106 @@ def test_text_seam_on_the_card_matches_the_cpu(cuda, exact):
     assert sorted(gpu[4]) == sorted(cpu[4])
     for cls in cpu[4]:
         for a, b in zip(cpu[4][cls], gpu[4][cls]):
+            np.testing.assert_array_equal(b, a)
+
+
+@pytest.mark.parametrize('exact', [False, True])
+def test_load_park_rebuild_on_the_card_matches_the_cpu(cuda, exact):
+    """Saved documents (a map of sets, a counter with incs and a delete;
+    the text trace of seq_cases) bulk-load through load_docs on each
+    device, take one more batch, half of them park and take another, and
+    all rebuild into a fresh fleet: the same documents, patches, saves,
+    device arrays and dispatches on both. On the card the load launches
+    no kernel and migrates no sequence row (every placed row is a fresh
+    allocation), and each follow-up batch is one launch."""
+    from automerge_tpu_torch import backend as host
+    from automerge_tpu_torch.fleet import load_docs, registers, sequence
+    actor = 'aa' * 16
+    c1 = encode_change({
+        'actor': actor, 'seq': 1, 'startOp': 1, 'time': 0, 'message': '',
+        'deps': [], 'ops': [
+            {'action': 'set', 'obj': '_root', 'key': 'x', 'value': 1,
+             'datatype': 'int', 'pred': []},
+            {'action': 'set', 'obj': '_root', 'key': 'c', 'value': 10,
+             'datatype': 'counter', 'pred': []},
+            {'action': 'set', 'obj': '_root', 'key': 'gone', 'value': 'g',
+             'pred': []}]})
+    h1 = decode_change_meta(c1, True)['hash']
+    c2 = encode_change({
+        'actor': actor, 'seq': 2, 'startOp': 4, 'time': 0, 'message': '',
+        'deps': [h1], 'ops': [
+            {'action': 'inc', 'obj': '_root', 'key': 'c', 'value': 5,
+             'pred': [f'2@{actor}']},
+            {'action': 'del', 'obj': '_root', 'key': 'gone',
+             'pred': [f'3@{actor}']}]})
+    mb = host.init()
+    mb, _ = host.apply_changes(mb, [c1, c2])
+    text = seq_cases.text_changes(300, more=(40, 40), seed=5)
+    tb_ = host.init()
+    for batch in text[:2]:
+        tb_, _ = host.apply_changes(tb_, batch)
+    c3 = encode_change({
+        'actor': 'bb' * 16, 'seq': 1, 'startOp': 6, 'time': 0, 'message': '',
+        'deps': host.get_heads(mb), 'ops': [
+            {'action': 'set', 'obj': '_root', 'key': 'x', 'value': 2,
+             'datatype': 'int', 'pred': [f'1@{actor}']}]})
+    bufs = [bytes(host.save(mb)), bytes(host.save(tb_))] * 4
+    follow = [[c3], list(text[2])] * 4
+    results = {}
+    for dev in ('cpu', 'cuda'):
+        fleet = backend.DocFleet(doc_capacity=8, key_capacity=8,
+                                 exact_device=exact, device=dev)
+        before = (LAUNCHES['lww_merge'], register_kernel.LAUNCHES[
+            'register_scan'], seq_kernel.LAUNCHES['seq_scan'])
+        handles = load_docs(bufs, fleet)
+        assert fleet.metrics.docs_bulk_loaded == len(bufs)
+        assert not any(fleet.seq_pools.free.values())   # no migration
+        assert (LAUNCHES['lww_merge'], register_kernel.LAUNCHES[
+            'register_scan'], seq_kernel.LAUNCHES['seq_scan']) == before
+        loaded = (backend.materialize_docs(handles),
+                  [bytes(h['state'].save()) for h in handles])
+        assert loaded[1] == bufs
+        handles, _ = backend.apply_changes_docs(handles, follow,
+                                                mirror=False)
+        scans = seq_kernel.LAUNCHES['seq_scan'] - before[2]
+        merges = (register_kernel.LAUNCHES['register_scan'] - before[1]
+                  if exact else LAUNCHES['lww_merge'] - before[0])
+        assert (scans, merges) == ((1, 1) if dev == 'cuda' else (0, 0))
+        # copies: on the CPU the arrays share the tensors' memory, which
+        # the batches below change in place
+        if exact:
+            arrays = [a.copy() for a in
+                      registers.register_state_to_numpy(fleet.reg_state)]
+        else:      # the grids' real key columns (column K is scratch)
+            arrays = [a[:, :fleet.key_cap].copy()
+                      for a in state_to_numpy(fleet.state)]
+        pools = {cls: [a.copy() for a in sequence.seq_state_to_numpy(st)]
+                 for cls, st in fleet.seq_pools.pools.items()}
+        edited = (backend.materialize_docs(handles),
+                  [backend.get_patch(h) for h in handles],
+                  [bytes(h['state'].save()) for h in handles])
+        assert backend.park_docs(handles[:4]) == 4
+        more = encode_change({
+            'actor': 'bb' * 16, 'seq': 2, 'startOp': 7, 'time': 0,
+            'message': '', 'deps': backend.get_heads(handles[0]), 'ops': [
+                {'action': 'set', 'obj': '_root', 'key': 'y', 'value': 3,
+                 'datatype': 'int', 'pred': []}]})
+        handles, _ = backend.apply_changes_docs(
+            handles, [[more], [], [more], []] * 2, mirror=False)
+        rebuilt = backend.rebuild_docs(
+            handles, backend.DocFleet(doc_capacity=8, key_capacity=8,
+                                      exact_device=exact, device=dev))
+        assert backend.materialize_docs(rebuilt)[4] == \
+            backend.materialize_docs(rebuilt)[0]
+        results[dev] = (loaded, edited, arrays, pools,
+                        backend.materialize_docs(rebuilt),
+                        [bytes(h['state'].save()) for h in rebuilt],
+                        fleet.metrics.dispatches)
+    cpu, gpu = results['cpu'], results['cuda']
+    assert gpu[:2] == cpu[:2] and gpu[4:] == cpu[4:]
+    for a, b in zip(cpu[2], gpu[2]):
+        np.testing.assert_array_equal(b, a)
+    assert sorted(gpu[3]) == sorted(cpu[3])
+    for cls in cpu[3]:
+        for a, b in zip(cpu[3][cls], gpu[3][cls]):
             np.testing.assert_array_equal(b, a)

@@ -251,8 +251,6 @@ def test_text_documents_raise_not_implemented():
     lambda: torch_backend.DocFleet(device='cpu', mesh=object()),
     lambda: torch_driver.generate_sync_messages_mixed(None, [], []),
     lambda: torch_backend.DocFleet(device='cpu').attach_journal(object()),
-    lambda: torch_backend.park_docs([]),
-    lambda: torch_backend.rebuild_docs([]),
     lambda: torch_driver.receive_sync_messages_mixed(None, [], [], []),
 ])
 def test_later_slices_raise_not_implemented(call):
