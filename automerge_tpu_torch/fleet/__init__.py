@@ -6,10 +6,13 @@ hand-written CUDA kernels.
 The port carries the LWW grid, the exact-device register engine
 (`DocFleet(exact_device=True)`, over `registers`), the Text/list
 sequence engine (`sequence`, in both device modes), the turbo apply seam
-(`backend.apply_changes_docs`, and its pipelined form) and the batched
-sync plane (`sync_driver`, over `bloom` and `hashindex`) and the bulk
-loader (`load_docs`: saved documents straight to device state);
-durability, the storage tier and multi-device sharding are later slices
+(`backend.apply_changes_docs`, and its pipelined form), the batched sync
+plane (`sync_driver`, over `bloom` and `hashindex`, with the mixed
+live/parked rounds), the bulk loader (`load_docs`: saved documents
+straight to device state), durability (`durability.DurableFleet`:
+journal, checkpoints, crash recovery) and the storage tier
+(`storage.StorageEngine` over `segment`'s arenas, `tiering`'s cost
+model and controller). Multi-device sharding is a later slice
 (ROADMAP.md Queue 1).
 """
 
@@ -18,8 +21,8 @@ from .tensor_doc import (FleetState, OpBatch, TOMBSTONE, pack_op_id,
 from .apply import apply_op_batch
 from .registers import (RegisterOpBatch, RegisterState, apply_register_batch,
                         register_state_from_numpy, register_state_to_numpy)
-from .sequence import (SeqOpBatch, SeqState, apply_seq_batch, linearize,
-                       materialize, visible_text)
+from .sequence import (SeqEncoder, SeqOpBatch, SeqState, apply_seq_batch,
+                       linearize, materialize, visible_text)
 from .bloom import build_bloom_filters, probe_bloom_filters, bloom_filter_bytes
 from .sync_driver import (generate_sync_messages_docs,
                           receive_sync_messages_docs)
@@ -35,7 +38,8 @@ __all__ = [
     'apply_op_batch',
     'RegisterState', 'RegisterOpBatch', 'apply_register_batch',
     'register_state_from_numpy', 'register_state_to_numpy',
-    'SeqState', 'SeqOpBatch', 'apply_seq_batch', 'linearize', 'materialize',
+    'SeqState', 'SeqOpBatch', 'SeqEncoder', 'apply_seq_batch', 'linearize',
+    'materialize',
     'visible_text',
     'build_bloom_filters', 'probe_bloom_filters', 'bloom_filter_bytes',
     'generate_sync_messages_docs', 'receive_sync_messages_docs',

@@ -11,10 +11,11 @@ list objects live in size-class pools of sequence rows
 RGA scan (fleet/seq_kernel.py), in both device modes. Saved documents
 bulk-load through fleet/loader.py, and `park_docs` / `rebuild_docs`
 keep the reference's parked form and rebuild. The module is a copy of
-the reference with the device calls swapped; paths that belong to later
-slices of the port (ROADMAP.md "Queue 1") raise NotImplementedError
-naming their item: sharded meshes, and durability journals with the
-storage tier.
+the reference with the device calls swapped. Durability journals
+(fleet/durability.py) attach as in the reference, and `rebuild_docs`
+moves a source journal across as the reference does. Sharded meshes
+belong to a later slice of the port (ROADMAP.md "Queue 1") and raise
+NotImplementedError naming their item.
 
 The reference's description follows.
 
@@ -84,10 +85,8 @@ from .tensor_doc import (ACTOR_BITS, CTR_LIMIT, FleetState, MAX_ACTORS,
                          TOMBSTONE, pack_op_id, resolve_device)
 from .ingest import KeyInterner
 
-# Later slices of the port (ROADMAP.md Queue 1): their paths raise
+# A later slice of the port (ROADMAP.md Queue 1): its paths raise
 _MULTI_DEVICE = 'multi-device (fleet/sharding.py, fleet/exchange.py)'
-_STORAGE = ('durability and the storage tier (fleet/durability.py, '
-            'fleet/storage.py)')
 
 
 def _later(item):
@@ -441,11 +440,9 @@ class DocFleet:
         return self.metrics.dispatches
 
     def attach_journal(self, journal):
-        """Durability journals belong to the storage slice; detaching
-        (None) is a no-op."""
-        if journal is not None:
-            raise _later(_STORAGE)
-        self.journal = None
+        """Attach (or detach, with None) a durability journal; the
+        mutation-seam hooks consult it on every accepted batch."""
+        self.journal = journal
 
     def memory_stats(self):
         """Device-state byte accounting per component: the LWW grid or
@@ -472,6 +469,11 @@ class DocFleet:
                           'bytes': st.nbytes()}
         if pools:
             out['seq_pools'] = pools
+        if self.journal is not None:
+            # durability accounting: what is buffered in RAM awaiting the
+            # next group commit, and what the OS holds but has not yet
+            # fsynced (the crash-loss window)
+            out['journal'] = self.journal.stats()
         out['total'] = out.get('lww_grid', 0) + out.get('registers', 0) + \
             sum(p['bytes'] for p in pools.values())
         out['value_table_entries'] = len(self.value_table)
@@ -3333,27 +3335,51 @@ def rebuild_docs(handles, fleet=None, mirror=False):
     into new slots. Causally-held-back queue entries re-queue too.
     Returns new handles in input order; the old handles are frozen.
 
-    A source fleet with a durability journal belongs to the storage
-    slice of the port (the reference moves the journal across): it
-    raises before any handle is frozen."""
+    Durability continuity: each rebuilt document keeps its durable id in
+    its OWN source journal's registry (ids are per-journal), so no
+    checkpoint ever snapshots the dead pre-rebuild states. When exactly
+    one source journal is involved and the target fleet is unjournaled,
+    the journal moves across (no baseline records needed — it already
+    holds these docs' full accepted-change history, which is exactly
+    what the rebuild replayed); with several source journals, or a
+    target that already carries its own, the caller must re-home the
+    managers explicitly (DurableFleet.adopt_fleet). Source fleets are
+    detached either way — they are abandoned by contract."""
     fleet = fleet or DocFleet()
-    for handle in handles:
-        state = handle['state']
-        if isinstance(state, FleetDoc) and state.fleet.journal is not None:
-            raise _later(_STORAGE)
-    per_doc, per_doc_queue = [], []
+    per_doc, per_doc_queue, src_states, src_journals = [], [], [], []
+    journals = {}
+    src_fleets = {}
     for handle in handles:
         state = handle['state']
         impl = state._impl if isinstance(state, FleetDoc) else state
+        journal = state.fleet.journal if isinstance(state, FleetDoc) \
+            else None
+        if journal is not None:
+            journals[id(journal)] = journal
+            src_fleets[id(state.fleet)] = state.fleet
+        src_journals.append(journal)
+        src_states.append(state)
         per_doc.append([bytes(b) for b in impl.changes])
         per_doc_queue.append([q['buffer'] for q in impl.queue
                               if isinstance(q, dict) and 'buffer' in q])
         handle['frozen'] = True
+    for src_fleet in src_fleets.values():
+        src_fleet.attach_journal(None)    # abandoned by contract
     new_handles = init_docs(len(handles), fleet)
     new_handles, _ = apply_changes_docs(new_handles, per_doc, mirror=mirror)
     if any(per_doc_queue):
         new_handles, _ = apply_changes_docs(new_handles, per_doc_queue,
                                             mirror=mirror)
+    for old, journal, new_handle in zip(src_states, src_journals,
+                                        new_handles):
+        did = getattr(old, '_dur_id', None)
+        if journal is not None and did is not None and \
+                journal.docs.get(did) is old:
+            new_state = new_handle['state']
+            new_state._dur_id = did
+            journal.docs[did] = new_state
+    if len(journals) == 1 and fleet.journal is None:
+        fleet.attach_journal(next(iter(journals.values())))
     return new_handles
 
 

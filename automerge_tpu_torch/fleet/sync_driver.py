@@ -6,8 +6,9 @@ fleet/bloom.py, its membership probes and sent-set inserts the CUDA
 kernels behind fleet/hashindex.py (fleet/sync_kernels.py). The Bloom
 dispatches run on the device of the batch's fleet, or on `device=` when
 the caller names one (CUDA when the batch holds no fleet doc). The
-mixed live/parked variants need the storage tier, a later slice of the
-port: they raise NotImplementedError.
+mixed live/parked variants are the reference's: they revive the parked
+docs a peer needs through fleet/storage.py in one batched revive, then
+run the fused round on the revived fleet's device.
 
 The reference's description follows.
 
@@ -628,25 +629,231 @@ def _receive_inner(backends, sync_states, binary_messages, mirror,
 # Mixed live+parked rounds: the StorageEngine.needs_sync gate
 # ----------------------------------------------------------------------
 #
-# These variants take a mixed live/parked population (element i of
-# `docs` a live handle or an int doc id parked in a fleet/storage.py
-# StorageEngine). The storage tier is a later slice of the port
-# (ROADMAP.md Queue 1 E), so they raise.
+# A host serving 1M parked docs cannot revive its whole main store to
+# answer sync rounds; these variants accept a MIXED population — element
+# i of `docs` is either an ordinary live backend handle or an int doc id
+# parked in `storage` (a fleet/storage.py StorageEngine) — and revive
+# ONLY the docs a peer actually needs, in one batched revive, before
+# running the ordinary fused round over the live subset. Parked docs
+# whose handshake is provably quiet are answered compute-on-compressed
+# (the columnar heads lane; zero chunk decode, zero device work) and
+# counted in the 'storage_parked_syncs_skipped' health counter.
+
+def _parked_stats():
+    from .storage import _stats
+    return _stats
+
 
 def generate_sync_messages_mixed(storage, docs, sync_states,
                                  deadline=None):
-    """Batched generate over a mixed live/parked population: needs the
-    storage tier (ROADMAP.md Queue 1 E)."""
-    raise NotImplementedError(
-        'storage and durability (fleet/storage.py) is not ported to '
-        'automerge_tpu_torch yet (ROADMAP.md Queue 1 E)')
+    """Batched generate over a mixed live/parked population. A parked
+    doc stays parked (message None, state unchanged) when the handshake
+    is QUIET: the peer's advertised heads equal ours, our last sent
+    heads equal ours, and the peer needs nothing — exactly the state in
+    which the live protocol answers None. Every other parked doc is
+    revived (one batched revive for the round) and joins the fused
+    generate. Returns (docs_out, new_states, messages): docs_out[i] is
+    the live handle (possibly freshly revived) or the untouched parked
+    id."""
+    n = len(docs)
+    if len(sync_states) != n:
+        raise ValueError('docs and sync_states must align')
+    if deadline is not None:
+        # before the gate revives anything: an already-expired deadline
+        # must abort with storage untouched (all-or-nothing)
+        deadline.check(what='generate_sync_messages_mixed')
+    docs_out = list(docs)
+    revive = []
+    with _span('sync_parked_gate', docs=n):
+        for i, doc in enumerate(docs):
+            if not isinstance(doc, int):
+                continue
+            state = sync_states[i]
+            their = state['theirHeads']
+            last_sent = state['lastSentHeads']
+            their_have = state['theirHave']
+            # the live reset branch fires when the peer's lastSync names
+            # history we don't hold; the heads lane can only prove
+            # membership for our heads themselves, so anything else
+            # revives (conservative, never wrong)
+            last_sync_known = not their_have or all(
+                storage.contains_head(doc, h)
+                for h in their_have[0]['lastSync'])
+            quiet = isinstance(their, list) and \
+                not storage.needs_sync(doc, their) and \
+                isinstance(last_sent, list) and \
+                sorted(last_sent) == storage.heads(doc) and \
+                not state['theirNeed'] and last_sync_known
+            if quiet:
+                _parked_stats().inc('storage_parked_syncs_skipped')
+            else:
+                revive.append(i)
+    if revive:
+        for i, handle in zip(revive,
+                             storage.revive([docs[i] for i in revive])):
+            docs_out[i] = handle
+    live = [i for i in range(n) if not isinstance(docs_out[i], int)]
+    new_states = list(sync_states)
+    messages = [None] * n
+    if live:
+        try:
+            sub_states, sub_msgs = generate_sync_messages_docs(
+                [docs_out[i] for i in live],
+                [sync_states[i] for i in live], deadline=deadline)
+        except Exception:
+            # the round raised after the gate revived docs (e.g. a
+            # deadline expiring mid-round): the caller gets no docs_out,
+            # so the revived handles would leak and the caller's parked
+            # ids would dangle — re-park them under their original ids
+            if revive:
+                storage.repark([docs_out[i] for i in revive],
+                               [docs[i] for i in revive])
+            raise
+        for i, state, message in zip(live, sub_states, sub_msgs):
+            new_states[i] = state
+            messages[i] = message
+    return docs_out, new_states, messages
 
 
 def receive_sync_messages_mixed(storage, docs, sync_states,
                                 binary_messages, mirror=True,
                                 on_error='raise', deadline=None):
-    """Batched receive over a mixed live/parked population: needs the
-    storage tier (ROADMAP.md Queue 1 E)."""
-    raise NotImplementedError(
-        'storage and durability (fleet/storage.py) is not ported to '
-        'automerge_tpu_torch yet (ROADMAP.md Queue 1 E)')
+    """Batched receive over a mixed live/parked population (see
+    ``generate_sync_messages_mixed``). A parked doc stays parked when
+    its message carries NO changes and every advertised head is already
+    one of ours (the columnar heads-lane membership probe — then the
+    sharedHeads algebra needs no history lookup and the doc mutates
+    nothing); anything else revives it first. Returns
+    (docs_out, new_states, patches[, errors])."""
+    n = len(docs)
+    if len(sync_states) != n or len(binary_messages) != n:
+        raise ValueError('docs, sync_states, and messages must align')
+    if deadline is not None:
+        # before the gate revives anything (see generate_..._mixed)
+        deadline.check(what='receive_sync_messages_mixed')
+    # strip trace envelopes BEFORE the parked gate's decode — an
+    # enveloped message from a tracing peer would otherwise read as
+    # hostile bytes and quarantine a perfectly valid sync
+    _wire_ctx, binary_messages = _strip_trace_envelopes(binary_messages)
+    quarantine = on_error == 'quarantine'
+    docs_out = list(docs)
+    fast = {}                   # i -> decoded message served parked
+    pre_decoded = [None] * n    # parked-gate decodes, reused by the
+    revive = []                 # live path (no double message parse)
+    with _span('sync_parked_gate', docs=n,
+               **_trace.trace_attr(_wire_ctx)):
+        for i, doc in enumerate(docs):
+            if not isinstance(doc, int) or binary_messages[i] is None:
+                continue
+            try:
+                message = decode_sync_message(binary_messages[i])
+            except Exception as exc:
+                # an undecodable message mutates nothing, so the doc can
+                # stay parked while its error is reported
+                err = as_wire_error(exc, MalformedSyncMessage,
+                                    'receive_sync_messages_mixed',
+                                    doc_index=i)
+                if not quarantine:
+                    raise err
+                fast[i] = err
+                continue
+            if message['changes'] or not storage.covers_heads(
+                    doc, message['heads']):
+                pre_decoded[i] = message
+                revive.append(i)
+            else:
+                fast[i] = message
+    if revive:
+        for i, handle in zip(revive,
+                             storage.revive([docs[i] for i in revive])):
+            docs_out[i] = handle
+    live = [i for i in range(n) if not isinstance(docs_out[i], int)]
+
+    new_states = list(sync_states)
+    patches = [None] * n
+    errors = [None] * n
+    if live:
+        try:
+            # the messages were already stripped above, so the inner
+            # receive's own probe finds no envelope — hand it the wire
+            # context as AMBIENT instead (trace_attr falls back to it),
+            # so the round's spans still adopt the peer's trace id
+            with _trace.use(_wire_ctx or _trace.current()):
+                out = receive_sync_messages_docs(
+                    [docs_out[i] for i in live],
+                    [sync_states[i] for i in live],
+                    [binary_messages[i] for i in live], mirror=mirror,
+                    on_error=on_error, deadline=deadline,
+                    _decoded=[pre_decoded[i] for i in live])
+        except Exception:
+            # round aborted after the gate revived docs (deadline at the
+            # apply seam, or a raise-mode decode failure — both fire
+            # BEFORE any doc mutates): re-park under the original ids so
+            # nothing leaks and the caller's ids stay valid
+            if revive:
+                storage.repark([docs_out[i] for i in revive],
+                               [docs[i] for i in revive])
+            raise
+        if quarantine:
+            sub_docs, sub_states, sub_patches, sub_errors = out
+        else:
+            sub_docs, sub_states, sub_patches = out
+            sub_errors = [None] * len(live)
+        for k, i in enumerate(live):
+            docs_out[i] = sub_docs[k]
+            new_states[i] = sub_states[k]
+            patches[i] = sub_patches[k]
+            if sub_errors[k] is not None:
+                # the sublist call indexed its errors in ITS coordinate
+                # space; re-scope the record to the caller's mixed array
+                # so both error populations share one index space
+                sub_errors[k].index = i
+                if sub_errors[k].error is not None and \
+                        getattr(sub_errors[k].error, 'doc_index',
+                                None) is not None:
+                    sub_errors[k].error.doc_index = i
+            errors[i] = sub_errors[k]
+
+    fast_errors = []
+    for i, decoded in fast.items():
+        if isinstance(decoded, Exception):
+            errors[i] = DocError(i, 'decode', decoded)
+            quarantine_stats.inc('quarantined_docs')
+            # same forensic trail as the live decode path: this fault
+            # class must not go invisible just because the doc is parked
+            _flight.record_event(
+                'quarantine', doc=i, stage='decode',
+                error=type(decoded).__name__,
+                message=str(decoded)[:200], durable_id=None,
+                change_bytes=len(binary_messages[i]))
+            fast_errors.append(errors[i])
+            continue
+        # the live sharedHeads algebra, specialized to the case the gate
+        # proved: no changes, every message head one of ours — so every
+        # 'known head' check is a heads-lane membership hit
+        state = sync_states[i]
+        ours = storage.heads(docs[i])
+        last_sent = state['lastSentHeads']
+        sent_hashes = state['sentHashes']
+        if list(decoded['heads']) == ours:
+            last_sent = decoded['heads']
+        shared_heads = decoded['heads']
+        if len(decoded['heads']) == 0:
+            last_sent = []
+            release_sync_state(state)
+            sent_hashes = set()
+        new_states[i] = {
+            'sharedHeads': shared_heads,
+            'lastSentHeads': last_sent,
+            'theirHave': decoded['have'],
+            'theirHeads': decoded['heads'],
+            'theirNeed': decoded['need'],
+            'sentHashes': sent_hashes,
+        }
+        _parked_stats().inc('storage_parked_syncs_skipped')
+    if fast_errors:
+        _flight.dump_flight_record('quarantine', detail={
+            'errors': [e.describe() for e in fast_errors]})
+    if quarantine:
+        return docs_out, new_states, patches, errors
+    return docs_out, new_states, patches

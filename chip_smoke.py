@@ -72,7 +72,8 @@ Phases (any failure exits non-zero):
      docs' device-served get_patch() equal the host's patch, save()
      round-trips, nothing inexact; changes/s of its first batch beside
      the LWW seam's, in turns;
-   - text seam (seam-text-2k): DocFleet(doc_capacity=2,000) ->
+   - text seam (seam-text-1k; BASELINE config 2 has 2,000 docs, cut to
+     1,000 for the script's time limit): DocFleet(doc_capacity=1,000) ->
      init_docs -> one apply_changes_docs(mirror=False) of BASELINE
      config 2's trace (fleet/seq_cases.py text_changes: a makeText and
      10,000 ops, ~80 % inserts, ~20 % deletes, 3 actors taking turns on
@@ -82,7 +83,7 @@ Phases (any failure exits non-zero):
      seq_scan launch per batch; every doc's text equals the host OpSet's,
      4 sampled docs' get_patch() and save() equal the host's and save()
      round-trips, nothing inexact, no fallbacks; the same once more in
-     exact-device mode; ops/s (median of 5 warm reps);
+     exact-device mode; ops/s (median of 3 warm reps);
    - load: the bulk loader and the parked form. The seam's document
      (its 20-change chain, saved) loads 10,000 times through
      load_docs(DocFleet(doc_capacity=10,000, key_capacity=1,000)):
@@ -96,10 +97,62 @@ Phases (any failure exits non-zero):
      ms beside their byte bound); the same load in exact-device mode
      (registers [10000, 1024, 8], nothing inexact; the follow-up is one
      register_scan launch, 4 device-served patches == the host's); and
-     the text seam's document (10,512 ops) loaded 2,000 times (one
-     size class [2048, 16387, 4], no migration, no scan launched, every
+     the text seam's document (10,512 ops) loaded 1,000 times (one
+     size class [1024, 16387, 4], no migration, no scan launched, every
      text == the seam's), then a further batch of 256 ops, one seq_scan
      launch, every text == the host OpSet's; a traced text load;
+   - storage: durability and the storage tier, each leg with the launch
+     counts set to 0 just before it. The durable seam: the seam's batch
+     through DurableFleet(fsync_bytes=4 MiB) on the card, whose grids
+     and save() equal the bare seam's and whose journal parses back to
+     the input change bytes doc by doc; journaled against bare
+     changes/s as paired per-rep overhead (bench.py _sec_durability's
+     method, 6 pairs in turns after a warm pair) beside the reference's
+     15 % budget. Recovery: a checkpoint, one more change per doc (the
+     journal suffix), a crash (the manager dropped unclosed), then
+     DurableFleet.recover on 3 fresh copies: every save(),
+     materialize_docs and grid row (read from the card: per key the
+     winner's op id, the value and the counter) == pre-crash, 10,000
+     snapshot docs, 10,000 replayed records, nothing quarantined, 10,000
+     bulk-loaded, lww_merge launched; recovery docs/s (median); then a
+     torn tail and one rotted record: exactly that record's doc
+     quarantined, every other doc == pre-crash likewise. Exact recovery
+     (DurableFleet(exact_device=True), the exact seam's three batches,
+     a checkpoint after the first): materialize_docs, conflicts_all and
+     save() == pre-crash, nothing inexact, register_scan launched. Text
+     recovery, cut to 256 docs of the text seam's trace for time: every
+     text and save() == pre-crash after a 256-op suffix, seq_scan
+     launched. A crash dose (fleet/crash_cases.py, modes lww and exact,
+     on the card) with no failure. The tier (bench.py
+     _sec_storage_tier): 1,000,000 docs of 2,048 distinct 2-change
+     documents parked on a disk arena; park docs/s, revive docs/s in
+     batches of 1,024 warm and after advise_cold (every revived doc's
+     save(), materialize_docs and grid row == its chunk's, repark keeps
+     the ids), resident bytes per doc, disk
+     bytes; a 10 % discard + vacuum_now leaves the other chunks
+     byte-identical; close + StorageEngine.open recovers every id and
+     chunk. The mixed round: 100,000 of those parked docs, each with a
+     peer whose sync state the per-link host protocol ran to quiescence;
+     1,024 peers send one new change a round: receive_sync_messages_mixed
+     revives exactly those 1,024 in one batched revive,
+     generate_sync_messages_mixed revives none, skips 98,976 parked
+     links and costs 1 hash-index + 1 Bloom dispatch (the probe of the
+     peers' filters: the revived docs have nothing the peers lack, so
+     no filter is built); 64 divergent and 64 quiet sampled links'
+     messages == the host protocol's (the divergent docs' save() and
+     materialize_docs too); the revived docs' heads == their peers' once
+     each exchange finishes (off the clock), their materialize_docs
+     (from the grids) == the peers' host OpSet, and they repark; round
+     p50 (median of 3) and links/s; then a round in which
+     the hub's copy of each divergent doc changed too, whose generate
+     costs 1 hash-index + 2 Bloom dispatches (the build of the hub's
+     filters, the probe of the peers'), and a traced round; lww_merge
+     and the four sync kernels must have launched. In every leg the
+     first 64 calls of each kernel wrapper (outside the timed and
+     traced runs) are copied, inputs and results, and held to the
+     kernel's plain version after the leg (exact; the hash-index insert
+     by membership and new-key count): every kernel the path launched
+     must have been held so at least once;
    - sync: a hub of 4 docs (chains of depth 8) serving 100,000 peer
      links (bench.py's fabric sweep, top leg) with its frontier index at
      2^21 slots: a cold round, a round that lands the staged sent sets,
@@ -140,8 +193,12 @@ Phases (any failure exits non-zero):
    the JAX package's other XLA kernels (the doc and register row
    zeroings, the register read and lane permutation, the uniform Bloom
    pair, the frontier compare) at their paths' shapes beside their byte bounds and their
-   calls on the main paths; traced breakdowns of the seam, the pipelined
-   seam, the exact seam, the text seam and one steady sync round; the
+   calls on the main paths; the inline torch ops of DocFleet that the
+   storage path launched (grid and register grows, the grid's actor
+   remap and the register lane permutation), each at the largest shape
+   it had there, beside its byte bound and its calls; traced breakdowns
+   of the seam, the pipelined seam, the exact seam, the text seam and
+   one steady sync round; the
    grid bytes, and the card's name and power limit.
 
     python3 chip_smoke.py --baseline DIR
@@ -163,9 +220,11 @@ import contextlib
 import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -958,7 +1017,9 @@ def _op_name(fleet, packed):
 
 # ---- the text seam -----------------------------------------------------------
 
-TEXT_DOCS, TEXT_OPS, TEXT_MORE = 2_000, 10_000, (256, 256)
+# 1,000 docs: BASELINE config 2's 2,000, cut for the script's time limit
+TEXT_DOCS, TEXT_OPS, TEXT_MORE = 1_000, 10_000, (256, 256)
+TEXT_REPS = 3      # 5 before the storage path: the script's time limit
 
 
 class SeqRecorder:
@@ -1109,12 +1170,12 @@ def text_path():
         f'save() == host, nothing inexact, no fallbacks')
     del xfleet, xhandles
     rates = []
-    for _ in range(5):
+    for _ in range(TEXT_REPS):
         gc.collect()        # the last run's fleet returns its memory first
         t0 = time.perf_counter()
         run_text_seam(batches)
         rates.append(TEXT_DOCS * n_ops / (time.perf_counter() - t0))
-    log(f'text seam ops/s (median of 5 warm reps): '
+    log(f'text seam ops/s (median of {TEXT_REPS} warm reps): '
         f'{statistics.median(rates):.1f}  reps {[round(r) for r in rates]}')
     return kernel_launches, rec.saved, pools, batches, xrec.saved
 
@@ -1327,7 +1388,7 @@ def load_path():
     del xfleet, xhandles
     gc.collect()
 
-    # Text: the text seam's document, 2,000 copies
+    # Text: the text seam's document, TEXT_DOCS copies
     batches = seq_cases.text_changes(TEXT_OPS, more=TEXT_MORE + (256,))
     tb_ = host.init()
     for batch in batches[:-1]:
@@ -1651,6 +1712,1137 @@ def sync_breakdown(sync):
         f'{func} ({os.path.basename(path)}:{line}) {tt:.3f} x{nc}'
         for (path, line, func), (_cc, nc, tt, _ct, _c) in top))
     device_line(wall, rows)
+
+
+# ---- the storage path -----------------------------------------------------
+
+DUR_PAIRS = 6            # timed pairs of the durable seam, after a warm pair
+DUR_BUDGET_PCT = 15      # the reference's journaled-seam budget (bench.py)
+RECOVERY_COPIES = 3      # recovery docs/s: the median over fresh copies
+TEXT_RECOVERY_DOCS = 256  # the text leg's cut: 256 of the text seam's docs
+TIER_DOCS, TIER_DISTINCT, REVIVE_BATCH = 1_000_000, 2_048, 1_024
+MIXED_LINKS, MIXED_DIVERGENT, MIXED_SAMPLES, MIXED_ROUNDS = (
+    100_000, 1_024, 64, 3)
+
+
+def kernel_launches(reset=False):
+    """Every kernel's launch count (after setting them all to 0 when
+    `reset`)."""
+    from automerge_tpu_torch.fleet import (merge_kernel, register_kernel,
+                                           seq_kernel, sync_kernels)
+    mods = (merge_kernel, register_kernel, seq_kernel, sync_kernels)
+    if reset:
+        for mod in mods:
+            mod.reset_launches()
+    out = {}
+    for mod in mods:
+        out.update(mod.LAUNCHES)
+    return out
+
+
+class InlineRecorder:
+    """While on, records the inline torch ops of DocFleet that the
+    storage path launches: each grid and register grow (the shapes
+    before and after) and each actor remap of the grid and of the
+    registers (the shape it rewrote)."""
+
+    METHODS = ('_ensure_capacity', '_ensure_reg_capacity', '_remap_actors',
+               '_remap_reg_actors')
+
+    def __init__(self):
+        self.events = {'grid_grow': [], 'register_grow': [],
+                       'grid_remap': [], 'register_remap': []}
+        self._real = {}
+
+    def __enter__(self):
+        from automerge_tpu_torch.fleet.backend import DocFleet
+        for name in self.METHODS:
+            self._real[name] = getattr(DocFleet, name)
+            setattr(DocFleet, name, self._wrap(name, self._real[name]))
+        return self
+
+    def __exit__(self, *exc):
+        from automerge_tpu_torch.fleet.backend import DocFleet
+        for name, real in self._real.items():
+            setattr(DocFleet, name, real)
+
+    def _wrap(self, name, real):
+        def shape(fleet, grid):
+            st = fleet.state if grid else fleet.reg_state
+            return None if st is None else \
+                tuple((st.winners if grid else st.reg).shape)
+
+        def call(fleet, *args, **kwargs):
+            grid = name in ('_ensure_capacity', '_remap_actors')
+            before = shape(fleet, grid)
+            out = real(fleet, *args, **kwargs)
+            after = shape(fleet, grid)
+            if name.startswith('_ensure'):
+                if before is not None and after != before:
+                    self.events['grid_grow' if grid else
+                                'register_grow'].append((before, after))
+            elif after is not None:
+                self.events['grid_remap' if grid else
+                            'register_remap'].append(after)
+            return out
+        return call
+
+
+def inline_numbers(events):
+    """Each inline op the storage path launched, timed at the largest
+    shape it had there (device ms, queued behind a sleep, L2 warm),
+    beside its byte bound and its calls on the path. Bytes: the grow
+    reads the old cells once and writes the new array once; the remap
+    reads and writes the cells it rewrites."""
+    import numpy as np
+    import torch
+    import types
+    from automerge_tpu_torch.fleet.backend import DocFleet
+    dev = torch.device(DEVICE)
+    out = {}
+    cell = {'grid': (4, 4, 4), 'register': (4, 1, 4, 4)}
+    dtypes = {'grid': (torch.int32,) * 3,
+              'register': (torch.int32, torch.bool, torch.int32,
+                           torch.int32)}
+    for kind in ('grid', 'register'):
+        grows = events[f'{kind}_grow']
+        if grows:
+            before, after = max(grows, key=lambda g: int(np.prod(g[1])))
+            old = [torch.ones(before, dtype=dt, device=dev)
+                   for dt in dtypes[kind]]
+
+            # the old scratch key column (before[1] - 1) is dropped
+            keep = (slice(0, before[0]), slice(0, before[1] - 1)) + \
+                tuple(slice(0, x) for x in before[2:])
+
+            def grow(old=old, after=after, keep=keep):
+                for arr in old:
+                    new = torch.zeros(after, dtype=arr.dtype, device=dev)
+                    new[keep] = arr[keep]
+            old_cells = int(np.prod(before)) // before[1] * (before[1] - 1)
+            out[f'{kind}_grow'] = dict(
+                ms=time_ms(grow, reps=5), calls=len(grows),
+                shape=f'{before} -> {after}',
+                **bound_of(sum(cell[kind]) * (old_cells +
+                                              int(np.prod(after))), 0))
+    remaps = events['grid_remap']
+    if remaps:
+        n, k = max(remaps, key=lambda s: s[0] * s[1])
+        w = torch.randint(1, 1 << 20, (n, k), dtype=torch.int32,
+                          device=dev)
+        perm = torch.arange(256, dtype=torch.int32, device=dev).flip(0)
+        mask = 255
+
+        def remap():
+            remapped = (w & ~mask) | perm[(w & mask).long()]
+            w.copy_(torch.where(w != 0, remapped, 0))
+        out['grid_remap'] = dict(
+            ms=time_ms(remap, reps=10), calls=len(remaps),
+            shape=f'[{n}, {k}] int32',
+            **bound_of(n * k * 4 * 2, n * k * 4))
+    remaps = events['register_remap']
+    if remaps:
+        n, k, a = max(remaps, key=lambda s: s[0] * s[1] * s[2])
+        arrs = [torch.ones((n, k, a), dtype=dt, device=dev)
+                for dt in dtypes['register']]
+        move, renum = DocFleet._lane_permutation(
+            types.SimpleNamespace(device=dev), np.arange(1, a), a)
+        out['register_remap'] = dict(
+            ms=time_ms(lambda: (renum(move(arrs[0], 0)),
+                                move(arrs[1], False), move(arrs[2], 0),
+                                move(arrs[3], 0)), reps=5),
+            calls=len(remaps), shape=f'[{n}, {k}, {a}]',
+            **bound_of(n * k * a * sum(cell['register']) * 2,
+                       n * k * a * 8))
+    for name in ('grid_grow', 'register_grow', 'grid_remap',
+                 'register_remap'):
+        if name not in out:
+            log(f'inline op backend.{name}: no call on the storage path')
+            continue
+        nums = out[name]
+        log(f'inline op backend.{name} at {nums["shape"]}: '
+            f'{nums["ms"]:.4f} ms, bound {nums["bound_ms"]:.4f} ms '
+            f'({nums["bound_by"]}, {nums["bytes"]} B), calls on the '
+            f'storage path {nums["calls"]}')
+    return out
+
+
+PATH_CHECKS = 64    # calls of each kernel a storage leg holds to plain
+
+
+def _kept(x):
+    """A copy of a kernel wrapper's argument or result: tensors and the
+    fleet's state and batch classes are cloned, the rest kept as is."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if hasattr(x, 'tensors'):          # FleetState, RegisterState, SeqState
+        return type(x)(*(t.clone() for t in x.tensors()))
+    if hasattr(x, 'columns'):          # OpBatch, RegisterOpBatch, SeqOpBatch
+        return type(x)(*(t.clone() for t in x.columns()))
+    return x
+
+
+def _abs_err(a, b):
+    """Max abs difference of two equal-shaped tensors (the shapes must
+    agree: a mismatch counts as an error of 1)."""
+    if a.shape != b.shape:
+        return 1
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def _merge_err(before, kwargs, out, after):
+    from automerge_tpu_torch.fleet.merge_kernel import lww_merge_plain
+    state, ops = before
+    err = abs(int(lww_merge_plain(state, ops, **kwargs)) - int(out))
+    # the real key columns: the last one is the padded lanes' scratch
+    return max([err] + [_abs_err(x[:, :-1], y[:, :-1]) for x, y in
+                        zip(state.tensors(), after[0].tensors())])
+
+
+def _scan_err(plain):
+    def err(before, kwargs, out, after):
+        state, ops = before
+        n = abs(int(plain(state, ops)) - int(out))
+        return max([n] + [_abs_err(x, y) for x, y in
+                          zip(state.tensors(), after[0].tensors())])
+    return err
+
+
+def _output_err(plain):
+    def err(before, kwargs, out, after):
+        return _abs_err(plain(*before, **kwargs), out)
+    return err
+
+
+def _insert_err(before, kwargs, out, after):
+    """The new-key count, and the table's membership (the kernel's slot
+    layout may differ where rows race for a slot)."""
+    from automerge_tpu_torch.fleet.sync_cases import same_members
+    from automerge_tpu_torch.fleet.sync_kernels import hashindex_insert_plain
+    tkey, tspace = before[:2]
+    err = abs(int(hashindex_insert_plain(*before[:5])) - int(out))
+    return err + int(not same_members(after[0], after[1], tkey, tspace))
+
+
+class PathCheck:
+    """While entered, keeps a copy of the inputs of the first PATH_CHECKS
+    calls of each kernel wrapper in each storage leg, of what each call
+    returned and of the state it changed in place; `verify` then runs
+    each kernel's plain version on the kept inputs, off the path's
+    clock, and fails on any disagreement. `paused()` keeps nothing (the
+    timed runs). The wrappers count their launches as before; the plain
+    versions launch none of the counted kernels."""
+
+    # (module, wrapper, leading arguments changed in place)
+    TARGETS = (('apply', 'lww_merge', 1), ('registers', 'register_scan', 1),
+               ('sequence', 'seq_scan', 1), ('sync_kernels', 'bloom_build', 0),
+               ('sync_kernels', 'bloom_probe', 0),
+               ('sync_kernels', 'hashindex_insert', 2),
+               ('sync_kernels', 'hashindex_probe', 0))
+
+    def __init__(self):
+        from automerge_tpu_torch.fleet import (register_kernel, seq_kernel,
+                                               sync_kernels)
+        self.errs = {
+            'lww_merge': _merge_err,
+            'register_scan': _scan_err(register_kernel.register_scan_plain),
+            'seq_scan': _scan_err(seq_kernel.seq_scan_plain),
+            'bloom_build': _output_err(sync_kernels.bloom_build_plain),
+            'bloom_probe': _output_err(sync_kernels.bloom_probe_plain),
+            'hashindex_insert': _insert_err,
+            'hashindex_probe': _output_err(sync_kernels.hashindex_probe_plain)}
+        self.on, self.kept, self.seen = True, [], {}
+        self.checked = {name: 0 for name in self.errs}
+        self.worst = {name: 0 for name in self.errs}
+        self._real = []
+
+    def __enter__(self):
+        import importlib
+        for mod_name, name, inplace in self.TARGETS:
+            mod = importlib.import_module(
+                f'automerge_tpu_torch.fleet.{mod_name}')
+            real = getattr(mod, name)
+            self._real.append((mod, name, real))
+            setattr(mod, name, self._wrap(name, real, inplace))
+        self._t = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in self._real:
+            setattr(mod, name, real)
+
+    @contextlib.contextmanager
+    def paused(self):
+        self.on = False
+        try:
+            yield
+        finally:
+            self.on = True
+
+    def _wrap(self, name, real, inplace):
+        def call(*args, **kwargs):
+            n = self.seen.get(name, 0)
+            if not self.on or n >= PATH_CHECKS:
+                return real(*args, **kwargs)
+            self.seen[name] = n + 1
+            before = [_kept(a) for a in args]
+            out = real(*args, **kwargs)
+            self.kept.append((name, before, kwargs, _kept(out),
+                              [_kept(a) for a in args[:inplace]]))
+            return out
+        return call
+
+    def verify(self, leg):
+        """Hold every call kept since the last leg to its plain version;
+        fail on a disagreement. Starts the next leg's count (and clock:
+        the log gives the leg's seconds and the check's)."""
+        t0 = time.perf_counter()
+        kept, self.kept, self.seen = self.kept, [], {}
+        per = {}
+        for name, before, kwargs, out, after in kept:
+            kw = {k: v for k, v in kwargs.items()
+                  if k not in ('max_occupancy', 'load_max')}
+            err = self.errs[name](before, kw, out, after)
+            if err:
+                fail(f'storage path, {leg}: {name} != its plain version on '
+                     f'a call of the path (max abs err {err})')
+            per[name] = per.get(name, 0) + 1
+            self.checked[name] += 1
+            self.worst[name] = max(self.worst[name], err)
+        del kept
+        t1 = time.perf_counter()
+        log(f'storage path, {leg}: kernel calls held to their plain '
+            f'versions (max abs err 0): {per}; leg {t0 - self._t:.1f} s, '
+            f'check {t1 - t0:.1f} s')
+        self._t = t1
+
+
+def grid_view(fleet, handles, tag):
+    """Each doc's cells as the LWW grids on the card hold them, in terms
+    that do not depend on the fleet's slot, key or actor numbering: {key:
+    (the winner's op counter with its slot's base, its actor, the value,
+    the counter sum)} over the live key columns of its slot. Fails unless
+    each doc is served from the grids (fleet-resident, no counter
+    overflow, no delete fallback), so that materialize_docs reads them
+    too."""
+    import numpy as np
+    from automerge_tpu_torch.fleet.tensor_doc import (ACTOR_BITS, MAX_ACTORS,
+                                                      state_to_numpy)
+    winners, values, counters = state_to_numpy(fleet.state)
+    keys, actors = fleet.keys.keys, fleet.actors.actors
+    out = []
+    for h in handles:
+        st = h['state']
+        slot = st._impl.slot
+        if not st.is_fleet or st.fleet is not fleet or \
+                slot in fleet.grid_overflow or slot in fleet.del_fallback:
+            fail(f'{tag}: a doc is not served from the grids (slot {slot})')
+        row = winners[slot, :len(keys)]
+        base = fleet.ctr_base.get(slot, 0)
+        cells = {}
+        for k in np.flatnonzero(row):
+            w, v = int(row[k]), int(values[slot, k])
+            cells[keys[k]] = ((w >> ACTOR_BITS) + base,
+                              actors[w & (MAX_ACTORS - 1)],
+                              repr(fleet.value_table[-v - 2]) if v <= -2
+                              else v, int(counters[slot, k]))
+        out.append(cells)
+    return out
+
+
+def storage_leg(name, legs, run, needs=()):
+    """Run one leg of the storage path with every launch count set to 0
+    just before it; fail unless each kernel of `needs` launched."""
+    kernel_launches(reset=True)
+    out = run()
+    launches = kernel_launches()
+    legs[name] = launches
+    missing = [k for k in needs if launches[k] < 1]
+    if missing:
+        fail(f'storage path, {name}: never launched {missing}')
+    log(f'storage path, {name}: launches {launches}')
+    return out
+
+
+def docs_by_doc(records, n):
+    """Journal records -> per durable id, the CHANGE payloads in order."""
+    from automerge_tpu_torch.fleet import durability
+    out = [[] for _ in range(n)]
+    for kind, did, payload in records:
+        if kind == durability.KIND_CHANGE:
+            out[did].append(bytes(payload))
+    return out
+
+
+def durable_seam(per_doc, root, check):
+    """The seam's batch through a DurableFleet with group commit
+    (bench.py _sec_durability's configuration), held to the bare seam;
+    then the journaled against the bare seam in paired turns (`check`,
+    a PathCheck, paused). Returns the first durable run's manager and
+    handles, and the numbers."""
+    import torch
+    from automerge_tpu_torch.fleet import durability
+    from automerge_tpu_torch.fleet.backend import apply_changes_docs
+    from automerge_tpu_torch.fleet.tensor_doc import state_to_numpy
+
+    def bare():
+        split = {}
+        fleet, handles, _ = run_seam(per_doc, split)
+        return split['apply_s'], fleet, handles
+
+    def journaled(k):
+        mgr = durability.DurableFleet(
+            os.path.join(root, f'seam{k}'), fsync_bytes=4 << 20,
+            compact_bytes=1 << 40, doc_capacity=N_DOCS,
+            key_capacity=N_KEYS + 1, device=DEVICE)
+        handles = mgr.init_docs(N_DOCS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handles, _ = apply_changes_docs(handles, per_doc, mirror=False)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, mgr, handles
+
+    def settle():
+        gc.collect()
+        os.sync()
+
+    _s, fleet, handles = bare()
+    _s, mgr, dhandles = journaled('check')
+    for name, a, b in zip(('winners', 'values', 'counters'),
+                          state_to_numpy(fleet.state),
+                          state_to_numpy(mgr.fleet.state)):
+        if a.shape != b.shape or not (a[:, :-1] == b[:, :-1]).all():
+            fail(f'durable seam: {name} grid != the bare seam\'s')
+    saves = [bytes(h['state'].save()) for h in handles]
+    if [bytes(h['state'].save()) for h in dhandles] != saves:
+        fail('durable seam: a save() != the bare seam\'s')
+    mgr.journal.sync()
+    jpath = os.path.join(mgr.path, durability._journal_name(mgr.seq))
+    with open(jpath, 'rb') as f:
+        records, info = durability.parse_journal_bytes(f.read())
+    if info['torn_tail_bytes'] or info['rotted'] or \
+            docs_by_doc(records, N_DOCS) != per_doc:
+        fail('durable seam: the journal != the input change bytes, doc by '
+             'doc')
+    log(f'durable seam: {N_DOCS} docs x {N_CHANGES} changes through '
+        f'DurableFleet(fsync_bytes=4 MiB, device={DEVICE!r}); grids and '
+        f'all {N_DOCS} save() == the bare seam\'s; the journal '
+        f'({os.path.getsize(jpath)} B, {len(records)} records) parses '
+        f'back to the input change bytes doc by doc')
+    del fleet, handles
+    deltas, rates = [], {'bare': [], 'journaled': []}
+    with check.paused():      # the timed runs
+        for k in range(DUR_PAIRS + 1):
+            pair = {}
+            for mode in (('bare', 'journaled') if k % 2 else
+                         ('journaled', 'bare')):
+                settle()
+                if mode == 'bare':
+                    pair[mode] = bare()[0]
+                else:
+                    secs, m, _h = journaled(k)
+                    m.close()
+                    shutil.rmtree(m.path, ignore_errors=True)
+                    pair[mode] = secs
+            if k == 0:
+                continue            # the warm pair
+            deltas.append(pair['journaled'] - pair['bare'])
+            for mode, secs in pair.items():
+                rates[mode].append(N_DOCS * N_CHANGES / secs)
+    bare_s = N_DOCS * N_CHANGES / statistics.median(rates['bare'])
+    overhead = statistics.median(deltas) / bare_s * 100
+    nums = dict(bare_rate=statistics.median(rates['bare']),
+                journaled_rate=statistics.median(rates['journaled']),
+                overhead_pct=overhead, deltas_ms=[d * 1e3 for d in deltas])
+    log(f'durable seam changes/s (apply only, median of {DUR_PAIRS} pairs '
+        f'in turns): journaled {nums["journaled_rate"]:.1f} vs bare '
+        f'{nums["bare_rate"]:.1f}; paired overhead {overhead:+.2f} % '
+        f'(median per-pair delta over the median bare time; the '
+        f'reference\'s budget {DUR_BUDGET_PCT} %); deltas ms '
+        f'{[round(d, 2) for d in nums["deltas_ms"]]}; {card_line()}')
+    box = []
+    with check.paused():
+        wall, phases, rows = traced(lambda: box.append(journaled('traced')))
+    box[0][1].close()
+    shutil.rmtree(box[0][1].path, ignore_errors=True)
+    del box
+    order = ('apply_batch', 'turbo_parse', 'turbo_gate', 'turbo_commit',
+             'turbo_stage', 'turbo_dispatch', 'journal_append',
+             'journal_commit', 'journal_fsync', 'python_gc')
+    log(f'breakdown, journaled seam (traced run, wall {wall * 1e3:.1f} ms, '
+        f'fleet + init_docs included): ' +
+        ', '.join(f'{name} {phases.get(name, 0) * 1e3:.1f} ms'
+                  for name in order))
+    device_line(wall, rows)
+    return mgr, dhandles, nums
+
+
+def recover_copy(src, dst, **kw):
+    """Recover a fresh copy of a durability directory on the card, timed
+    to its sync. Returns (manager, handles, report, seconds)."""
+    import torch
+    from automerge_tpu_torch.fleet.durability import DurableFleet
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src, dst)
+    gc.collect()
+    t0 = time.perf_counter()
+    mgr, handles, report = DurableFleet.recover(dst, device=DEVICE, **kw)
+    torch.cuda.synchronize()
+    return mgr, handles, report, time.perf_counter() - t0
+
+
+def recovery_leg(mgr, handles, root, legs, check):
+    """Checkpoint the durable seam's fleet, one more change per doc (the
+    journal suffix), crash (the manager is dropped unclosed), then
+    recover copies of the directory on the card (timed, `check` paused);
+    then a torn tail and one rotted record. Each recovered fleet's
+    documents and grids (read from the card) and saves are held to the
+    pre-crash fleet's."""
+    from automerge_tpu_torch.fleet import crash_cases, durability
+    from automerge_tpu_torch.fleet.backend import (apply_changes_docs,
+                                                   materialize_docs)
+    _changes, heads, last = seam_workload()
+    mgr.checkpoint()
+    more = follow_up('dd' * 16, 1, N_CHANGES + 1, heads, 'suffix', 3)
+    handles, _ = apply_changes_docs(handles, [[more]] * N_DOCS, mirror=False)
+    mgr.journal.sync()
+    pre = [bytes(h['state'].save()) for h in handles]
+    pre_docs = materialize_docs(handles)
+    if pre_docs != [dict(last, suffix=3)] * N_DOCS:
+        fail('recovery: a pre-crash doc != the last writer per key + the '
+             'suffix')
+    pre_grid = grid_view(mgr.fleet, handles, 'recovery, pre-crash')
+    path = mgr.path
+    del mgr, handles             # the crash: never closed
+    secs = []
+
+    def held(rmgr, rec, dids, tag):
+        """The recovered docs `dids`: save(), materialize_docs and the
+        grids == pre-crash; returns the ids that differ."""
+        if any(did not in rec for did in dids):
+            fail(f'{tag}: a doc is missing')
+        docs = [rec[did] for did in dids]
+        got_docs, got_grid = materialize_docs(docs), grid_view(rmgr.fleet,
+                                                               docs, tag)
+        return [did for k, did in enumerate(dids) if
+                bytes(docs[k]['state'].save()) != pre[did] or
+                got_docs[k] != pre_docs[did] or got_grid[k] != pre_grid[did]]
+
+    def recover_all():
+        for k in range(RECOVERY_COPIES):
+            with check.paused():
+                rmgr, rec, report, s = recover_copy(
+                    path, os.path.join(root, f'recovered{k}'))
+            secs.append(s)
+            bad = held(rmgr, rec, range(N_DOCS), 'recovery')
+            if report.snapshot_docs != N_DOCS or \
+                    report.replayed_records != N_DOCS or \
+                    report.quarantined or not report.ok or bad or \
+                    rmgr.fleet.metrics.docs_bulk_loaded != N_DOCS:
+                fail(f'recovery: {report}, bulk-loaded '
+                     f'{rmgr.fleet.metrics.docs_bulk_loaded}, docs != '
+                     f'pre-crash (save(), materialize_docs or grids): '
+                     f'{bad[:8]}')
+            rmgr.close()
+            shutil.rmtree(rmgr.path, ignore_errors=True)
+    storage_leg('recovery', legs, recover_all, needs=('lww_merge',))
+    rate = N_DOCS / statistics.median(secs)
+    traced_dir = os.path.join(root, 'traced')
+    box = []
+    with check.paused():
+        wall, phases, rows = traced(
+            lambda: box.append(recover_copy(path, traced_dir)))
+    box[0][0].close()
+    del box
+    log(f'breakdown, recovery (traced, wall {wall * 1e3:.1f} ms): ' +
+        ', '.join(f'{name} {sec * 1e3:.1f} ms' for name, sec in
+                  sorted(phases.items()) if name.startswith('recovery_')
+                  and '@' not in name) +
+        f', python_gc {phases.get("python_gc", 0) * 1e3:.1f} ms')
+    device_line(wall, rows)
+    shutil.rmtree(traced_dir, ignore_errors=True)
+    log(f'recovery: {N_DOCS} docs (snapshot of {N_CHANGES}-change docs + '
+        f'a {N_DOCS}-record journal suffix) on {RECOVERY_COPIES} fresh '
+        f'copies: every save(), materialize_docs and grid row (the '
+        f'winner\'s op id, value and counter per key, read from the card) '
+        f'== pre-crash, snapshot_docs {N_DOCS}, replayed_records {N_DOCS}, '
+        f'nothing quarantined, {N_DOCS} bulk-loaded; recovery docs/s '
+        f'(median) {rate:.1f}, seconds {[round(s, 3) for s in secs]}; '
+        f'{card_line()}')
+
+    # a torn tail and one rotted record in a further copy
+    faulted = os.path.join(root, 'faulted')
+    shutil.copytree(path, faulted)
+    jpath, data, spans, _bounds = crash_cases.journal_record_spans(faulted)
+    suffix = [i for i, sp in enumerate(spans)
+              if sp['kind'] == durability.KIND_CHANGE and sp['batch']]
+    victim = spans[suffix[len(suffix) // 2]]
+    at = (victim['pay'][0] + victim['pay'][1]) // 2
+    rotted = bytearray(data)
+    rotted[at] ^= 0x20
+    tail = durability.encode_frame(durability.KIND_CHANGE, 0, more)
+    torn = len(tail) // 2
+    with open(jpath, 'wb') as f:
+        f.write(bytes(rotted) + tail[:torn])
+    rmgr, rec, report, _s = recover_copy(faulted, faulted + '-recovered')
+    vid = victim['did']
+    bad = held(rmgr, rec, [did for did in range(N_DOCS) if did != vid],
+               'recovery of a torn, rotted journal')
+    if sorted(report.quarantined) != [vid] or report.torn_tail_bytes != \
+            torn or report.rotted_records != 1 or bad:
+        fail(f'recovery of a torn, rotted journal: {report}, docs != '
+             f'pre-crash: {bad[:8]} (victim {vid})')
+    rmgr.close()
+    log(f'recovery of a torn tail ({torn} B) and one rotted record (doc '
+        f'{vid}): exactly doc {vid} quarantined, the other {N_DOCS - 1} '
+        f'docs\' save(), materialize_docs and grid rows == pre-crash')
+    return rate
+
+
+def exact_recovery_leg(root, legs, check):
+    """An exact-device durable fleet at the exact seam's width: batch 1,
+    a checkpoint, batches 2 and 3 (the suffix), the crash and a recovery
+    on the card, held to the pre-crash fleet. `check` (a PathCheck) is
+    paused while the pre-crash fleet takes the exact seam's batches,
+    whose register scans phase 4 holds to the plain version."""
+    from automerge_tpu_torch.fleet import register_cases
+    from automerge_tpu_torch.fleet.backend import (apply_changes_docs,
+                                                   materialize_docs)
+    from automerge_tpu_torch.fleet.durability import DurableFleet
+    batches = register_cases.exact_seam_changes(N_CHANGES, N_KEYS)
+    mgr = DurableFleet(os.path.join(root, 'exact'), exact_device=True,
+                       fsync_bytes=4 << 20, compact_bytes=1 << 40,
+                       doc_capacity=N_DOCS, key_capacity=N_KEYS + 1,
+                       device=DEVICE)
+    handles = mgr.init_docs(N_DOCS)
+    with check.paused():
+        for i, batch in enumerate(batches):
+            handles, _ = apply_changes_docs(handles, [list(batch)] * N_DOCS,
+                                            mirror=False)
+            if i == 0:
+                mgr.checkpoint()
+    mgr.journal.sync()
+
+    def view(fleet, hs):
+        conflicts = fleet.conflicts_all()
+        return (materialize_docs(hs),
+                [{key: {_op_name(fleet, p): v for p, v in c.items()}
+                  for key, c in conflicts[h['state']._impl.slot].items()}
+                 for h in hs],
+                [bytes(h['state'].save()) for h in hs])
+    pre = view(mgr.fleet, handles)
+    path = mgr.path
+    del mgr, handles
+
+    def recover():
+        return recover_copy(path, path + '-recovered', exact_device=True)
+    rmgr, rec, report, secs = storage_leg(
+        'exact recovery', legs, recover, needs=('register_scan',))
+    got = view(rmgr.fleet, [rec[did] for did in range(N_DOCS)])
+    if got != pre or not report.ok or rmgr.fleet.inexact_slots():
+        fail(f'exact recovery: docs, conflicts or save() != pre-crash, or '
+             f'inexact slots ({report})')
+    log(f'exact recovery: {N_DOCS} docs (register state '
+        f'{tuple(rmgr.fleet.reg_state.reg.shape)}), replayed '
+        f'{report.replayed_records} records in {secs:.3f} s: '
+        f'materialize_docs, conflicts_all and save() == pre-crash, '
+        f'nothing inexact')
+    rmgr.close()
+
+
+def text_recovery_leg(root, legs, check):
+    """The text seam's trace on TEXT_RECOVERY_DOCS durable docs: the
+    10,000-op batch, a checkpoint, one 256-op batch (the suffix), the
+    crash and a recovery on the card. `check` (a PathCheck) is paused
+    while the pre-crash fleet takes the text seam's batches, whose
+    sequence scans phase 4 holds to the plain version."""
+    from automerge_tpu_torch.fleet import seq_cases
+    from automerge_tpu_torch.fleet.backend import apply_changes_docs
+    from automerge_tpu_torch.fleet.durability import DurableFleet
+    batches = seq_cases.text_changes(TEXT_OPS, more=TEXT_MORE[:1])
+    mgr = DurableFleet(os.path.join(root, 'text'), fsync_bytes=4 << 20,
+                       compact_bytes=1 << 40,
+                       doc_capacity=TEXT_RECOVERY_DOCS, key_capacity=4,
+                       device=DEVICE)
+    handles = mgr.init_docs(TEXT_RECOVERY_DOCS)
+    with check.paused():
+        for i, batch in enumerate(batches):
+            handles, _ = apply_changes_docs(
+                handles, [list(batch)] * TEXT_RECOVERY_DOCS, mirror=False)
+            if i == 0:
+                mgr.checkpoint()
+    mgr.journal.sync()
+    pre_texts = mgr.fleet.render_seq_all()
+    pre = [bytes(h['state'].save()) for h in handles]
+    path = mgr.path
+    del mgr, handles
+
+    def recover():
+        return recover_copy(path, path + '-recovered')
+    rmgr, rec, report, secs = storage_leg('text recovery', legs, recover,
+                                          needs=('seq_scan',))
+    texts = rmgr.fleet.render_seq_all()
+    if sorted(texts.values()) != sorted(pre_texts.values()) or \
+            None in texts.values() or \
+            [bytes(rec[d]['state'].save()) for d in
+             range(TEXT_RECOVERY_DOCS)] != pre or not report.ok:
+        fail(f'text recovery: a text or save() != pre-crash ({report})')
+    log(f'text recovery: {TEXT_RECOVERY_DOCS} docs of the text seam\'s '
+        f'trace (cut from {TEXT_DOCS} for time; {TEXT_OPS} ops + a '
+        f'{TEXT_MORE[0]}-op suffix of {report.replayed_records} records) '
+        f'in {secs:.3f} s: every text and save() == pre-crash')
+    rmgr.close()
+
+
+def tier_leg(root):
+    """bench.py _sec_storage_tier's population on the card: TIER_DOCS
+    parked docs (TIER_DISTINCT distinct 2-change documents) on a
+    disk-backed arena; revive in batches of REVIVE_BATCH, warm and
+    cold; a 10 % discard and a vacuum; close and reopen. Returns the
+    reopened engine, the distinct chunks and the numbers."""
+    import torch
+    from automerge_tpu_torch.columnar import DocChunkView, decode_change_meta
+    from automerge_tpu_torch.fleet.backend import (
+        DocFleet, apply_changes_docs, free_docs, init_docs, materialize_docs)
+    from automerge_tpu_torch.fleet.storage import StorageEngine
+    from automerge_tpu_torch.observability.perf import (page_fault_counts,
+                                                        rss_bytes)
+    fleet = DocFleet(device=DEVICE)
+    handles = init_docs(TIER_DISTINCT, fleet)
+    heads = [[] for _ in range(TIER_DISTINCT)]
+    for c in range(2):
+        per = []
+        for d in range(TIER_DISTINCT):
+            buf = follow_up(f'{d % 128:04x}' * 4, c + 1, c + 1, heads[d],
+                            f'k{c}', d * 1000 + c)
+            heads[d] = [decode_change_meta(buf, True)['hash']]
+            per.append([buf])
+        handles, _ = apply_changes_docs(handles, per, mirror=False)
+    chunks = [bytes(h['state'].save()) for h in handles]
+    want_docs = materialize_docs(handles)
+    if want_docs != [{'k0': d * 1000, 'k1': d * 1000 + 1}
+                     for d in range(TIER_DISTINCT)]:
+        fail('tier: a distinct doc != its two changes')
+    want_grid = grid_view(fleet, handles, 'tier, the distinct docs')
+    rows = [(v.heads, v.clock, v.max_op, v.n_changes)
+            for v in map(DocChunkView, chunks)]
+    free_docs(handles)
+    del fleet, handles
+    path = os.path.join(root, 'arena')
+    eng = StorageEngine(path=path, device=DEVICE)
+    eng.main.reserve(TIER_DOCS)
+    rss0 = rss_bytes()[0]
+    t0 = time.perf_counter()
+    for i in range(0, TIER_DOCS, TIER_DISTINCT):
+        k = min(TIER_DISTINCT, TIER_DOCS - i)
+        eng.ingest_chunks(chunks[:k], rows=rows[:k])
+    park_rate = TIER_DOCS / (time.perf_counter() - t0)
+    rss1 = rss_bytes()[0]
+    stats = eng.memory_stats()
+    if len(eng.main) != TIER_DOCS:
+        fail(f'tier: {len(eng.main)} docs parked of {TIER_DOCS}')
+
+    def revive_rate(windows):
+        rates = []
+        for w in windows:
+            ids = list(range(w * REVIVE_BATCH, (w + 1) * REVIVE_BATCH))
+            t0 = time.perf_counter()
+            got = eng.revive(ids)
+            torch.cuda.synchronize()
+            rates.append(len(ids) / (time.perf_counter() - t0))
+            if [bytes(h['state'].save()) for h in got] != \
+                    [chunks[i % TIER_DISTINCT] for i in ids] or \
+                    materialize_docs(got) != \
+                    [want_docs[i % TIER_DISTINCT] for i in ids] or \
+                    grid_view(eng.fleet, got, 'tier, revive') != \
+                    [want_grid[i % TIER_DISTINCT] for i in ids]:
+                fail(f'tier: a revived doc\'s save(), materialize_docs or '
+                     f'grid row != its chunk\'s (window {w})')
+            eng.repark(got, ids)
+            if any(i not in eng._row_of for i in ids):
+                fail('tier: repark lost an id')
+        return statistics.median(rates), rates
+    warm, warm_reps = revive_rate([1, 3, 5])
+    _mn0, mj0 = page_fault_counts()
+    eng.main._arena.advise_cold()
+    cold, cold_reps = revive_rate([9, 11, 13])
+    _mn1, mj1 = page_fault_counts()
+    log(f'tier: {TIER_DOCS} docs parked ({TIER_DISTINCT} distinct 2-change '
+        f'docs) on a disk arena at {park_rate:.1f} docs/s; resident '
+        f'{stats["resident_per_doc"]:.1f} B/doc, RSS +{rss1 - rss0} B, '
+        f'disk {stats["disk_bytes"]} B; revive docs/s in batches of '
+        f'{REVIVE_BATCH} (median of 3): warm {warm:.1f} '
+        f'{[round(r) for r in warm_reps]}, cold (after advise_cold) '
+        f'{cold:.1f} {[round(r) for r in cold_reps]} ({mj1 - mj0} major '
+        f'faults); every revived doc\'s save(), materialize_docs and grid '
+        f'row (read from the card) == its chunk\'s; repark keeps the ids; '
+        f'{card_line()}')
+    gone = list(range(0, TIER_DOCS, 10))
+    eng.discard(gone)
+    t0 = time.perf_counter()
+    eng.vacuum_now()
+    vacuum_s = time.perf_counter() - t0
+    keep = [i for i in range(TIER_DOCS) if i % 10]
+
+    def check(e, tag):
+        if sorted(e._row_of) != keep:
+            fail(f'tier: {tag}: ids != the {len(keep)} kept')
+        for i in keep:
+            if bytes(e.chunk(i)) != chunks[i % TIER_DISTINCT]:
+                fail(f'tier: {tag}: chunk of doc {i} changed')
+    check(eng, 'after a 10 % discard and vacuum_now')
+    disk = eng.memory_stats()['disk_bytes']
+    eng.close()
+    t0 = time.perf_counter()
+    eng = StorageEngine.open(path, device=DEVICE)
+    open_s = time.perf_counter() - t0
+    check(eng, 'after close and open')
+    log(f'tier: a 10 % discard ({len(gone)} docs) + vacuum_now in '
+        f'{vacuum_s:.3f} s left the other {len(keep)} chunks '
+        f'byte-identical (disk {disk} B); close + StorageEngine.open in '
+        f'{open_s:.3f} s recovered every id and chunk')
+    return eng, chunks, dict(park_rate=park_rate, warm=warm, cold=cold,
+                             resident_per_doc=stats['resident_per_doc'],
+                             disk_bytes=stats['disk_bytes'],
+                             major_faults=mj1 - mj0)
+
+
+def quiet_handshakes(chunks):
+    """For each chunk, both sides' sync states once the per-link host
+    protocol between a host backend of the chunk and an empty peer has
+    gone quiet, and the peer's saved document."""
+    from automerge_tpu_torch import backend as host
+    out = []
+    for chunk in chunks:
+        ours, peer = host.load(chunk), host.init()
+        s, p = host.init_sync_state(), host.init_sync_state()
+        for _ in range(10):
+            s, m1 = host.generate_sync_message(ours, s)
+            if m1 is not None:
+                peer, p, _ = host.receive_sync_message(peer, p, m1)
+            p, m2 = host.generate_sync_message(peer, p)
+            if m2 is not None:
+                ours, s, _ = host.receive_sync_message(ours, s, m2)
+            if m1 is None and m2 is None:
+                break
+        else:
+            fail('mixed round: a handshake never went quiet')
+        out.append((s, p, bytes(host.save(peer))))
+    return out
+
+
+def _copy_state(s):
+    return dict(s, sentHashes=set(s['sentHashes']))
+
+
+def mixed_leg(eng, chunks, legs, check):
+    """MIXED_LINKS parked docs of the tier, each with one peer whose
+    sync state is converged and quiet; MIXED_DIVERGENT peers each send
+    one new change a round: receive_sync_messages_mixed, then
+    generate_sync_messages_mixed; then a round in which the hub's copy
+    of each divergent doc changed too (see the module docstring). The
+    timed and traced rounds run with `check` (a PathCheck) paused; the
+    round with hub-side changes, which launches every kernel of the
+    leg, runs with it on."""
+    import torch
+    from automerge_tpu_torch import backend as host
+    from automerge_tpu_torch.fleet import bloom, hashindex, sync_driver
+    from automerge_tpu_torch.fleet.backend import (_leaf_value,
+                                                   apply_changes_docs,
+                                                   materialize_docs)
+    from automerge_tpu_torch.fleet.storage import _stats as storage_stats
+    ids = sorted(eng._row_of)[:MIXED_LINKS]
+    t0 = time.perf_counter()
+    quiet = quiet_handshakes(chunks)
+    hand_s = time.perf_counter() - t0
+    states = [_copy_state(quiet[i % TIER_DISTINCT][0]) for i in ids]
+    step = MIXED_LINKS // MIXED_DIVERGENT
+    div = list(range(0, MIXED_LINKS, step))[:MIXED_DIVERGENT]
+    peers = {j: [host.load(quiet[ids[j] % TIER_DISTINCT][2]),
+                 _copy_state(quiet[ids[j] % TIER_DISTINCT][1])]
+             for j in div}
+    eng.fleet.frontier_index(device_min=1, capacity=1 << 16)
+    revives = []
+    real_revive = eng.revive
+
+    def revive(rids, durable=None):
+        revives.append(len(rids))
+        return real_revive(rids, durable)
+    eng.revive = revive
+    docs = list(ids)
+    rounds = {'secs': [], 'catch_up': {}}
+
+    def catch_up(r):
+        """The rest of each divergent link's exchange, off the clock,
+        through the live rounds (receive / generate_sync_messages_docs)
+        until its peer goes quiet: a peer whose new change hit our
+        filter's false positive sends it only after our reply names it
+        in `need`."""
+        nonlocal docs, states
+        sub = [docs[j] for j in div]
+        sub_states = [states[j] for j in div]
+        for step in range(10):
+            backs = []
+            for j in div:
+                peer, ps = peers[j]
+                ps, back = host.generate_sync_message(peer, ps)
+                peers[j] = [peer, ps]
+                backs.append(back)
+            if all(b is None for b in backs):
+                break
+            rounds['catch_up'][r] = (step + 1,
+                                     sum(b is not None for b in backs))
+            sub, sub_states, _ = sync_driver.receive_sync_messages_docs(
+                sub, sub_states, backs)
+            sub_states, sub_msgs = sync_driver.generate_sync_messages_docs(
+                sub, sub_states)
+            for j, m in zip(div, sub_msgs):
+                if m is not None:
+                    peer, ps = peers[j]
+                    peer, ps, _ = host.receive_sync_message(peer, ps, m)
+                    peers[j] = [peer, ps]
+        else:
+            fail(f'mixed round {r}: the divergent links never went quiet')
+        for k, j in enumerate(div):
+            docs[j], states[j] = sub[k], sub_states[k]
+
+    def host_doc(backend):
+        return _leaf_value(host.get_patch(backend)['diffs'])
+
+    def hold_to_host(r, sample, hub, before, msgs, replies, saves, views):
+        """The sampled links' messages (and the divergent ones'
+        documents: save() and materialize_docs, read from the card)
+        against the per-link host protocol over host backends of the
+        same bytes."""
+        for k, j in enumerate(sample):
+            ours, st = host.load(hub[k]), _copy_state(before[k])
+            if msgs[j] is not None:
+                ours, st, _ = host.receive_sync_message(ours, st, msgs[j])
+            _st, want = host.generate_sync_message(ours, st)
+            got = replies[j]
+            if (want is None) != (got is None) or \
+                    (want is not None and bytes(want) != bytes(got)):
+                fail(f'mixed round {r}: link {j}\'s message != the host '
+                     f'protocol\'s')
+            if msgs[j] is not None and (
+                    bytes(host.save(ours)) != saves[div.index(j)] or
+                    host_doc(ours) != views[div.index(j)]):
+                fail(f'mixed round {r}: link {j}\'s document != the '
+                     f'host\'s')
+
+    def one_round(r, trace=False, local=False):
+        """One round: the divergent peers' new changes (with `local`, a
+        change to the hub's copy of each divergent doc first, parked
+        again), then the receive and the generate (timed, or traced with
+        `trace`), then the peers take the replies, the exchanges finish
+        and the revived docs repark. Returns the seconds (or the traced
+        numbers)."""
+        nonlocal docs, states
+        if local:
+            live = real_revive([ids[j] for j in div])
+            live, _ = apply_changes_docs(live, [[follow_up(
+                'f0' * 16, 1, 200, h['heads'], 'hub', r)]
+                for h in live], mirror=False)
+            eng.repark(live, [ids[j] for j in div])
+            del live
+        msgs = [None] * MIXED_LINKS
+        for j in div:
+            peer, ps = peers[j]
+            # 32 peer actors in all: a fleet holds at most 256 actors
+            change = follow_up(f'{j % 32:02x}' + 'e' * 30, r + 1, 100 + r,
+                               host.get_heads(peer), 'peer', r)
+            peer, _ = host.apply_changes(peer, [change])
+            ps, msgs[j] = host.generate_sync_message(peer, ps)
+            peers[j] = [peer, ps]
+        # sampled divergent links: those whose sent set is still a host
+        # set (a link a live round served holds a peer-space of the
+        # fleet's index, which the host protocol cannot take)
+        sample = [] if trace else [
+            j for j in div if isinstance(states[j]['sentHashes'], set)
+        ][:MIXED_SAMPLES]
+        if not trace and len(sample) < MIXED_SAMPLES:
+            fail(f'mixed round {r}: only {len(sample)} divergent links '
+                 f'to sample')
+        if sample:
+            sample += list(range(1, 1 + MIXED_SAMPLES))
+        hub = [bytes(eng.chunk(ids[j])) for j in sample]
+        before = [_copy_state(states[j]) for j in sample]
+        revives.clear()
+        skipped0 = storage_stats['storage_parked_syncs_skipped']
+        seen = {}
+
+        def exchange():
+            nonlocal docs, states
+            docs, states, _p = sync_driver.receive_sync_messages_mixed(
+                eng, docs, states, msgs)
+            seen['receive_revives'] = list(revives)
+            h0, b0 = hashindex.dispatch_count(), bloom.dispatch_count()
+            docs, states, seen['replies'] = \
+                sync_driver.generate_sync_messages_mixed(eng, docs, states)
+            torch.cuda.synchronize()
+            seen['dispatches'] = (hashindex.dispatch_count() - h0,
+                                  bloom.dispatch_count() - b0)
+        if trace:
+            secs = traced(exchange)
+        else:
+            t0 = time.perf_counter()
+            exchange()
+            secs = time.perf_counter() - t0
+        replies = seen['replies']
+        skipped = storage_stats['storage_parked_syncs_skipped'] - skipped0
+        live = [j for j, d in enumerate(docs) if not isinstance(d, int)]
+        # the generate's one frontier-index probe and its Bloom probe of
+        # the peers' filters; with `local`, also the one Bloom build of
+        # the hub's new changes
+        want = (1, 2 if local else 1)
+        if seen['receive_revives'] != [MIXED_DIVERGENT] or \
+                revives != seen['receive_revives'] or live != div or \
+                skipped != MIXED_LINKS - MIXED_DIVERGENT or \
+                seen['dispatches'] != want:
+            fail(f'mixed round {r}: revives {seen["receive_revives"]} then '
+                 f'{revives[len(seen["receive_revives"]):]}, {len(live)} '
+                 f'live, {skipped} parked syncs skipped, generate '
+                 f'dispatches {seen["dispatches"]} (want '
+                 f'[{MIXED_DIVERGENT}], none, {div[:3]}..., '
+                 f'{MIXED_LINKS - MIXED_DIVERGENT}, {want})')
+        saves = [bytes(docs[j]['state'].save()) for j in div]
+        revived = [docs[j] for j in div]
+        grid_view(eng.fleet, revived, f'mixed round {r}')
+        views = materialize_docs(revived)
+        del revived
+        for j in div:
+            peer, ps = peers[j]
+            if replies[j] is not None:
+                peer, ps, _ = host.receive_sync_message(peer, ps,
+                                                        replies[j])
+            peers[j] = [peer, ps]
+        catch_up(r)
+        for j in div:
+            if sorted(docs[j]['state'].heads) != \
+                    host.get_heads(peers[j][0]):
+                fail(f'mixed round {r}: link {j}\'s heads != its peer\'s')
+        revived = [docs[j] for j in div]
+        grid_view(eng.fleet, revived, f'mixed round {r}')
+        if materialize_docs(revived) != [host_doc(peers[j][0])
+                                         for j in div]:
+            fail(f'mixed round {r}: a revived doc (read from the card) != '
+                 f'its peer\'s host OpSet')
+        del revived
+        eng.repark([docs[j] for j in div], [ids[j] for j in div])
+        docs = list(ids)
+        if not trace:
+            hold_to_host(r, sample, hub, before, msgs, replies, saves,
+                         views)
+        return secs
+
+    def run_rounds():
+        with check.paused():
+            for r in range(MIXED_ROUNDS):
+                rounds['secs'].append(one_round(r))
+        rounds['local_ms'] = one_round(MIXED_ROUNDS, local=True) * 1e3
+    storage_leg('mixed round', legs, run_rounds,
+                needs=('lww_merge', 'bloom_build', 'bloom_probe',
+                       'hashindex_insert', 'hashindex_probe'))
+    p50 = statistics.median(rounds['secs'])
+    log(f'mixed round: {MIXED_LINKS} parked links (quiet handshakes of '
+        f'{TIER_DISTINCT} distinct docs in {hand_s:.1f} s), '
+        f'{MIXED_DIVERGENT} peers with one new change each: one batched '
+        f'revive of {MIXED_DIVERGENT} docs per receive, none per generate, '
+        f'{MIXED_LINKS - MIXED_DIVERGENT} parked syncs skipped, the '
+        f'generate 1 hash-index + 1 Bloom dispatch (the probe of the '
+        f'peers\' filters); {MIXED_SAMPLES} divergent and {MIXED_SAMPLES} '
+        f'quiet sampled links == host protocol each round (the divergent '
+        f'docs\' save() and materialize_docs too); every revived doc\'s '
+        f'heads == its peer\'s, and its materialize_docs (from the grids) '
+        f'== its peer\'s host OpSet (catch-up exchanges and links per '
+        f'round off the clock: {rounds["catch_up"]}), reparked; round ms '
+        f'{[round(s * 1e3, 1) for s in rounds["secs"]]} (p50 '
+        f'{p50 * 1e3:.1f} ms, {MIXED_LINKS / p50:.1f} links/s); a round '
+        f'whose hub docs changed too: {rounds["local_ms"]:.1f} ms, the '
+        f'generate 1 hash-index + 2 Bloom dispatches (a build, a probe; '
+        f'its kernel calls are copied for the plain-version check); '
+        f'{card_line()}')
+    with check.paused():
+        (wall, phases, rows) = one_round(MIXED_ROUNDS + 1, trace=True)
+    top = sorted(((v, k) for k, v in phases.items() if '@' not in k),
+                 reverse=True)[:8]
+    log(f'breakdown, mixed round (traced receive + generate, wall '
+        f'{wall * 1e3:.1f} ms): ' +
+        ', '.join(f'{name} {sec * 1e3:.1f} ms' for sec, name in top))
+    device_line(wall, rows)
+    eng.revive = real_revive
+    return dict(p50_ms=p50 * 1e3, links_per_s=MIXED_LINKS / p50,
+                round_ms=[s * 1e3 for s in rounds['secs']],
+                local_round_ms=rounds['local_ms'])
+
+
+def storage_path(per_doc):
+    """Durability and the storage tier on the card (see the module
+    docstring): the durable seam, recovery (LWW, exact and text), a
+    crash-injection dose, the 1,000,000-doc tier and the mixed
+    live/parked sync round. Every leg runs with the launch counts set
+    to 0 just before it, and the kernel calls each leg kept (PathCheck)
+    are held to the plain versions after it. Returns the path's launches
+    (summed over its legs), the calls held to the plain versions and
+    their max abs errors, its numbers and the inline ops it launched."""
+    from automerge_tpu_torch.fleet import crash_cases
+    legs = {}
+    root = tempfile.mkdtemp(prefix='chip-smoke-storage-')
+    log(f'storage path: scratch {root}, filesystem free '
+        f'{shutil.disk_usage(root).free} B')
+    nums = {}
+    try:
+        with InlineRecorder() as inline, PathCheck() as check:
+            mgr, handles, nums['durable'] = storage_leg(
+                'durable seam', legs,
+                lambda: durable_seam(per_doc, root, check),
+                needs=('lww_merge',))
+            check.verify('durable seam')
+            nums['recovery_docs_per_s'] = recovery_leg(mgr, handles, root,
+                                                       legs, check)
+            del mgr, handles
+            check.verify('recovery')
+            gc.collect()
+            exact_recovery_leg(root, legs, check)
+            check.verify('exact recovery')
+            text_recovery_leg(root, legs, check)
+            check.verify('text recovery')
+
+            def dose():
+                stats = crash_cases.run_crashtest(
+                    n_seeds=1, n_points=2, modes=['lww', 'exact'],
+                    device=DEVICE)
+                if stats['failures'] or stats['cases'] < 16:
+                    fail(f'crash dose: {stats["cases"]} cases, failures '
+                         f'{stats["failures"][:5]}')
+                log(f'crash dose: {stats["cases"]} cases (modes lww, '
+                    f'exact; 1 seed, 2 points), no failure')
+            storage_leg('crash dose', legs, dose,
+                        needs=('lww_merge', 'register_scan'))
+            check.verify('crash dose')
+            gc.collect()
+            eng, chunks, nums['tier'] = storage_leg(
+                'tier', legs, lambda: tier_leg(root))
+            check.verify('tier')
+            nums['mixed'] = mixed_leg(eng, chunks, legs, check)
+            check.verify('mixed round')
+            eng.close()
+            del eng
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    total = {}
+    for launches in legs.values():
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+    log(f'storage path launches: {total}; kernel calls held to their plain '
+        f'versions: {check.checked}')
+    missing = [name for name, n in total.items()
+               if n and not check.checked[name]]
+    if missing:
+        fail(f'storage path: no call of {missing} held to its plain version')
+    return total, dict(checked=check.checked, worst=check.worst), nums, \
+        inline.events
 
 
 # ---- phase 4 ---------------------------------------------------------------
@@ -2596,16 +3788,32 @@ def main():
     sync_kernel_vs_plain()
     reg_err = register_kernel_vs_plain()
     seq_err = seq_kernel_vs_plain()
+    phase_s = {'build and kernel vs plain': time.perf_counter() - t_start}
+
+    def lap(name, t0):
+        phase_s[name] = time.perf_counter() - t0
+        return time.perf_counter()
     with CallCounter() as counter:
+        t0 = time.perf_counter()
         launches, grid_bytes, grid_shape, per_doc, seam_handles = \
             main_path()
         pipelined_path(per_doc, seam_handles)
         del seam_handles
+        t0 = lap('seam and pipelined seam', t0)
         reg_launches, reg_saved, exact_batches = exact_path(per_doc)
+        t0 = lap('exact seam', t0)
         text_launches, seq_input, seq_pools, text_batches, text_reg_saved = \
             text_path()
+        t0 = lap('text seam', t0)
         load_launches, load_nums = load_path()
+        t0 = lap('load', t0)
+        # the storage path before the sync hub: its legs then run without
+        # the hub's 100,000 links alive, which each collector pass walks
+        storage_launches, storage_checks, storage_nums, inline_events = \
+            storage_path(per_doc)
+        t0 = lap('storage', t0)
         sync = sync_path()
+        t0 = lap('sync', t0)
     nums = kernel_numbers(grid_shape, base.get('merge'))
     sync_inputs = sync.pop('inputs')
     sync_nums = sync_kernel_numbers(sync_inputs, base.get('sync'))
@@ -2616,6 +3824,8 @@ def main():
     torch_op_numbers(grid_shape, tuple(reg_input[0][1].reg.shape),
                      sync_inputs['bloom_build'][0], counter.calls)
     del reg_input, sync_inputs
+    storage_nums['inline'] = inline_numbers(inline_events)
+    log(f'storage numbers: {json.dumps(storage_nums)}')
     seq_nums = seq_numbers(seq_input, seq_pools, base.get('seq'))
     del seq_input, seq_pools
     breakdown(per_doc)
@@ -2624,8 +3834,11 @@ def main():
     text_breakdown(text_batches)
     sync_breakdown(sync)
     load_breakdown(load_nums)
+    lap('numbers and breakdowns', t0)
     log(f'load path launches: {load_launches}')
     log(f'grid bytes: {grid_bytes}')
+    log('phase seconds: ' + ', '.join(f'{name} {sec:.1f}'
+                                      for name, sec in phase_s.items()))
     log(f'wall: {time.perf_counter() - t_start:.1f} s')
     log(card_line())
     main_nums = nums['noinc_fresh']
@@ -2681,6 +3894,10 @@ def main():
                      ('shape', 'route', 'serial_rows', 'ms', 'cold_ms',
                       'plain_ms', 'bound_ms', 'base_ms', 'base_cold_ms')
                      if key in nums} for nums in seq_nums['batches']]})
+    for entry in kernels:
+        entry['storage_launches'] = storage_launches[entry['name']]
+        entry['storage_checked'] = storage_checks['checked'][entry['name']]
+        entry['storage_max_abs_err'] = storage_checks['worst'][entry['name']]
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -704,3 +704,195 @@ def test_load_park_rebuild_on_the_card_matches_the_cpu(cuda, exact):
     for cls in cpu[3]:
         for a, b in zip(cpu[3][cls], gpu[3][cls]):
             np.testing.assert_array_equal(b, a)
+
+
+def _device_arrays(fleet):
+    """Copies of the fleet's device state: the registers in exact mode,
+    else the LWW grids' real key columns (column K is scratch)."""
+    from automerge_tpu_torch.fleet import registers
+    if fleet.exact_device:
+        return [a.copy() for a in
+                registers.register_state_to_numpy(fleet.reg_state)]
+    return [a[:, :fleet.key_cap].copy() for a in state_to_numpy(fleet.state)]
+
+
+@pytest.mark.parametrize('exact', [False, True])
+def test_durable_fleet_on_the_card_matches_the_cpu(cuda, tmp_path, exact):
+    """The crash harness's journaled workload (12 docs, a checkpoint, a
+    journal suffix, a freed doc) run by a DurableFleet on each device:
+    the two directories are equal file for file, and each recovers on
+    its own device to the same saves and report, the same documents read
+    from the device (materialize_docs by durable id) and the same device
+    state (the grids, or the registers in exact mode), the card's replay
+    launching the merge (or the register scan in exact mode)."""
+    import os
+    from automerge_tpu_torch.fleet import crash_cases
+    from automerge_tpu_torch.fleet.durability import DurableFleet
+
+    def tree(path):
+        return {name: open(os.path.join(path, name), 'rb').read()
+                for name in sorted(os.listdir(path))}
+    results, arrays = {}, {}
+    for dev in ('cpu', 'cuda'):
+        path = str(tmp_path / dev)
+        pre, freed = crash_cases.build_run(path, n_docs=12, seed=1,
+                                           free_doc=4, exact_device=exact,
+                                           device=dev)
+        files = tree(path)
+        before = (LAUNCHES['lww_merge'],
+                  register_kernel.LAUNCHES['register_scan'])
+        mgr, rec, report = DurableFleet.recover(path, exact_device=exact,
+                                                device=dev)
+        after = (LAUNCHES['lww_merge'],
+                 register_kernel.LAUNCHES['register_scan'])
+        saves = {did: bytes(h['state'].save()) for did, h in rec.items()}
+        assert saves == pre and freed == [4]
+        assert mgr.fleet.device.type == dev
+        launched = after[1] - before[1] if exact else after[0] - before[0]
+        assert (launched > 0) == (dev == 'cuda')
+        dids = sorted(rec)
+        docs = dict(zip(dids, backend.materialize_docs(
+            [rec[did] for did in dids])))
+        slots = {did: rec[did]['state']._impl.slot for did in dids}
+        results[dev] = (files, saves, repr(report), report.ok, docs, slots)
+        arrays[dev] = _device_arrays(mgr.fleet)
+        mgr.close()
+    assert results['cuda'] == results['cpu']
+    assert results['cuda'][3] and results['cuda'][2].count('replayed=0') == 0
+    for a, b in zip(arrays['cpu'], arrays['cuda']):
+        np.testing.assert_array_equal(b, a)
+
+
+def test_storage_engine_revives_onto_the_card(cuda, tmp_path):
+    """Chunks parked on a disk arena revive into a StorageEngine's
+    fleet on the card, equal to the same revive on the CPU (saves, the
+    documents read from the device, the grids); the revived docs take
+    one more batch (one merge launch on the card) and repark under their
+    ids."""
+    from automerge_tpu_torch.fleet.storage import StorageEngine
+    rows = [[encode_change({
+        'actor': f'{d:04x}' * 4, 'seq': 1, 'startOp': 1, 'time': 0,
+        'message': '', 'deps': [],
+        'ops': [{'action': 'set', 'obj': '_root', 'key': f'k{d % 3}',
+                 'value': d, 'datatype': 'int', 'pred': []}]})]
+        for d in range(16)]
+    src = backend.DocFleet(device='cpu')
+    handles, _ = backend.apply_changes_docs(backend.init_docs(16, src), rows,
+                                            mirror=False)
+    chunks = [bytes(h['state'].save()) for h in handles]
+    results, arrays = {}, {}
+    for dev in ('cpu', 'cuda'):
+        eng = StorageEngine(path=str(tmp_path / dev), device=dev)
+        ids = eng.ingest_chunks(chunks)
+        back = eng.revive(ids[4:12])
+        assert eng.fleet.state.winners.device.type == dev
+        assert [bytes(h['state'].save()) for h in back] == chunks[4:12]
+        revived = (backend.materialize_docs(back), _device_arrays(eng.fleet))
+        more = [[encode_change({
+            'actor': 'ee' * 16, 'seq': 1, 'startOp': 2, 'time': 0,
+            'message': '', 'deps': list(h['heads']),
+            'ops': [{'action': 'set', 'obj': '_root', 'key': 'z',
+                     'value': 1, 'datatype': 'int', 'pred': []}]})]
+            for h in back]
+        before = LAUNCHES['lww_merge']
+        back, _ = backend.apply_changes_docs(back, more, mirror=False)
+        assert (LAUNCHES['lww_merge'] - before > 0) == (dev == 'cuda')
+        saves = [bytes(h['state'].save()) for h in back]
+        edited = (backend.materialize_docs(back), _device_arrays(eng.fleet))
+        eng.repark(back, ids[4:12])
+        results[dev] = (backend.materialize_docs(eng.revive(ids)), saves,
+                        sorted(eng._row_of))
+        arrays[dev] = (revived, edited)
+        eng.close()
+    assert results['cuda'] == results['cpu']
+    assert arrays['cpu'][0][0] == [{f'k{d % 3}': d} for d in range(4, 12)]
+    for (cpu_docs, cpu_grids), (gpu_docs, gpu_grids) in zip(arrays['cpu'],
+                                                            arrays['cuda']):
+        assert gpu_docs == cpu_docs
+        for a, b in zip(cpu_grids, gpu_grids):
+            np.testing.assert_array_equal(b, a)
+
+
+def test_mixed_round_on_the_card_matches_the_cpu(cuda):
+    """64 parked docs with quiet converged peer states (the per-link
+    host protocol run to quiescence), 8 of which changed on the hub
+    since and whose peers send a new change: receive_sync_messages_mixed
+    then generate_sync_messages_mixed on each device. The same 8 docs
+    revive, the same messages go out, the revived docs read the same
+    from the device (materialize_docs, the grids), and on the card the
+    round launches the merge and the four sync kernels (the generate
+    builds the hub's filters and probes the peers')."""
+    from automerge_tpu_torch import backend as host
+    from automerge_tpu_torch.fleet.storage import StorageEngine
+    n, divergent = 64, list(range(0, 64, 8))
+    rows = [[encode_change({
+        'actor': f'{d:04x}' * 4, 'seq': 1, 'startOp': 1, 'time': 0,
+        'message': '', 'deps': [],
+        'ops': [{'action': 'set', 'obj': '_root', 'key': 'k',
+                 'value': d, 'datatype': 'int', 'pred': []}]})]
+        for d in range(n)]
+    chunks = []
+    for row in rows:
+        hb, _ = host.apply_changes(host.init(), row)
+        chunks.append(bytes(host.save(hb)))
+    quiet = []
+    for chunk in chunks:
+        ours, peer = host.load(chunk), host.init()
+        s, p = init_sync_state(), init_sync_state()
+        for _ in range(10):
+            s, m1 = host.generate_sync_message(ours, s)
+            if m1 is not None:
+                peer, p, _ = host.receive_sync_message(peer, p, m1)
+            p, m2 = host.generate_sync_message(peer, p)
+            if m2 is not None:
+                ours, s, _ = host.receive_sync_message(ours, s, m2)
+            if m1 is None and m2 is None:
+                break
+        quiet.append((s, p, peer))
+    msgs = [None] * n
+    for j in divergent:
+        hub = host.load(chunks[j])
+        hub, _ = host.apply_changes(hub, [encode_change({
+            'actor': 'f0' * 16, 'seq': 1, 'startOp': 50, 'time': 0,
+            'message': '', 'deps': host.get_heads(hub),
+            'ops': [{'action': 'set', 'obj': '_root', 'key': 'hub',
+                     'value': j, 'datatype': 'int', 'pred': []}]})])
+        chunks[j] = bytes(host.save(hub))
+        _s, p, peer = quiet[j]
+        change = encode_change({
+            'actor': f'{j:08x}' + 'e' * 24, 'seq': 1, 'startOp': 100,
+            'time': 0, 'message': '', 'deps': host.get_heads(peer),
+            'ops': [{'action': 'set', 'obj': '_root', 'key': 'peer',
+                     'value': j, 'datatype': 'int', 'pred': []}]})
+        peer2, _ = host.apply_changes(host.clone(peer), [change])
+        _p, msgs[j] = host.generate_sync_message(
+            peer2, dict(p, sentHashes=set(p['sentHashes'])))
+    results, arrays = {}, {}
+    for dev in ('cpu', 'cuda'):
+        eng = StorageEngine(device=dev)
+        eng.fleet.frontier_index(device_min=1)
+        ids = eng.ingest_chunks(chunks)
+        states = [dict(q[0], sentHashes=set(q[0]['sentHashes']))
+                  for q in quiet]
+        sync_kernels.reset_launches()
+        before = LAUNCHES['lww_merge']
+        docs, states, _p = sync_driver.receive_sync_messages_mixed(
+            eng, ids, states, msgs)
+        docs, states, replies = sync_driver.generate_sync_messages_mixed(
+            eng, docs, states)
+        live = [j for j, d in enumerate(docs) if not isinstance(d, int)]
+        launched = [LAUNCHES['lww_merge'] - before] + \
+            list(sync_kernels.LAUNCHES.values())
+        assert all(launched) if dev == 'cuda' else not any(launched)
+        results[dev] = (live, [None if m is None else bytes(m)
+                               for m in replies],
+                        [bytes(docs[j]['state'].save()) for j in live],
+                        len(eng.main),
+                        backend.materialize_docs([docs[j] for j in live]))
+        arrays[dev] = _device_arrays(eng.fleet)
+    assert results['cuda'] == results['cpu']
+    assert results['cuda'][0] == divergent and results['cuda'][3] == 56
+    assert results['cuda'][4] == [{'k': j, 'hub': j, 'peer': j}
+                                  for j in divergent]
+    for a, b in zip(arrays['cpu'], arrays['cuda']):
+        np.testing.assert_array_equal(b, a)

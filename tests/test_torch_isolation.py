@@ -37,6 +37,10 @@ def test_import_leaves_jax_and_reference_out():
     code = ('import sys\n'
             'import automerge_tpu_torch, automerge_tpu_torch.fleet.backend\n'
             'import automerge_tpu_torch.fleet.seq_cases\n'
+            'import automerge_tpu_torch.fleet.durability, '
+            'automerge_tpu_torch.fleet.storage\n'
+            'import automerge_tpu_torch.fleet.tiering, '
+            'automerge_tpu_torch.fleet.crash_cases\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "automerge_tpu")]\n'
             'assert not bad, bad\n'

@@ -627,20 +627,6 @@ def test_rebuild_loaded_and_parked_docs_exact():
     _rebuild_loaded_and_parked_docs(True)
 
 
-def test_rebuild_with_a_journal_raises():
-    """Moving a durability journal across belongs to the storage slice:
-    a source fleet that carries one (set here directly: the port's
-    attach_journal raises) makes rebuild_docs raise before it freezes
-    any handle."""
-    fleet = _fleet(tb, False)
-    handles, _ = tb.apply_changes_docs(tb.init_docs(2, fleet),
-                                       _two_change_docs(2), mirror=False)
-    fleet.journal = object()
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tb.rebuild_docs(handles, _fleet(tb, False))
-    assert not any(h.get('frozen') for h in handles)
-
-
 def test_empty_park_and_rebuild():
     assert tb.park_docs([]) == jb.park_docs([]) == 0
     assert tb.rebuild_docs([], _fleet(tb, False)) == []

@@ -23,7 +23,6 @@ from automerge_tpu.errors import MalformedChange
 from automerge_tpu.fleet import backend as jax_backend
 import automerge_tpu_torch.native as torch_native
 from automerge_tpu_torch.fleet import backend as torch_backend
-from automerge_tpu_torch.fleet import sync_driver as torch_driver
 from automerge_tpu_torch.fleet.merge_kernel import LAUNCHES
 from automerge_tpu_torch.fleet.tensor_doc import (state_from_numpy,
                                                   state_to_numpy)
@@ -249,9 +248,6 @@ def test_text_documents_raise_not_implemented():
 
 @pytest.mark.parametrize('call', [
     lambda: torch_backend.DocFleet(device='cpu', mesh=object()),
-    lambda: torch_driver.generate_sync_messages_mixed(None, [], []),
-    lambda: torch_backend.DocFleet(device='cpu').attach_journal(object()),
-    lambda: torch_driver.receive_sync_messages_mixed(None, [], [], []),
 ])
 def test_later_slices_raise_not_implemented(call):
     with pytest.raises(NotImplementedError, match='ROADMAP'):

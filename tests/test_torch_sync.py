@@ -11,8 +11,12 @@ and a reset reconnect whose peer kept it (tests/test_sync_fabric.py).
 A steady round costs one hash-index and one Bloom dispatch whatever the
 link count, as in the reference; a receive drops an already-applied
 change before the apply exactly as the reference does; the full-resync
-reset frame matches. The port's fleets run on the CPU (device='cpu'),
-where every kernel is its plain version."""
+reset frame matches. The mixed live/parked rounds over a StorageEngine
+(the reference's TestParkedGate shapes) keep quiet parked docs parked,
+revive exactly the doc a divergent peer needs, and leave storage whole
+on a deadline abort, with messages, states and patches equal to the
+reference's. The port's fleets run on the CPU (device='cpu'), where
+every kernel is its plain version."""
 
 import types
 
@@ -22,17 +26,27 @@ import torch
 import automerge_tpu.native as jax_native
 import automerge_tpu_torch.native as torch_native
 from automerge_tpu import backend as jax_host
+from automerge_tpu import errors as jax_errors
 from automerge_tpu.columnar import decode_change_meta, encode_change
 from automerge_tpu.fleet import backend as jax_fleet
 from automerge_tpu.fleet import bloom as jax_bloom
 from automerge_tpu.fleet import hashindex as jax_hi
+from automerge_tpu.fleet import storage as jax_storage
 from automerge_tpu.fleet import sync_driver as jax_driver
+from automerge_tpu.observability import health_counts as jax_health
+from automerge_tpu.observability import spans as jax_spans
+from automerge_tpu.observability import tracecontext as jax_tc
 from automerge_tpu_torch import backend as torch_host
+from automerge_tpu_torch import errors as torch_errors
 from automerge_tpu_torch.fleet import backend as torch_fleet
 from automerge_tpu_torch.fleet import bloom as torch_bloom
 from automerge_tpu_torch.fleet import hashindex as torch_hi
 from automerge_tpu_torch.fleet import sync_driver as torch_driver
+from automerge_tpu_torch.fleet import storage as torch_storage
 from automerge_tpu_torch.fleet import sync_kernels
+from automerge_tpu_torch.observability import health_counts as torch_health
+from automerge_tpu_torch.observability import spans as torch_spans
+from automerge_tpu_torch.observability import tracecontext as torch_tc
 
 # The tests' tensors are small: torch's intra-op thread pool costs far more
 # than it saves on them (~10x a scan column on the CPU), and more again
@@ -326,10 +340,228 @@ def test_fabric_rounds_in_exact_mode_match_reference():
     assert got_heads == want_heads
 
 
-@pytest.mark.parametrize('call', [
-    lambda: torch_driver.generate_sync_messages_mixed(None, [], []),
-    lambda: torch_driver.receive_sync_messages_mixed(None, [], [], []),
-])
-def test_mixed_rounds_raise_until_the_storage_slice(call):
-    with pytest.raises(NotImplementedError, match='Queue 1 E'):
-        call()
+# ---- the mixed live/parked rounds (the parked gate) ------------------------
+#
+# The shapes of the reference's tests/test_sync_driver.py TestParkedGate:
+# fleet docs synced to quiescence with host peers, parked in a
+# StorageEngine, then driven through generate/receive_sync_messages_mixed.
+# Messages, states, patches, which docs revive and the
+# storage_parked_syncs_skipped deltas must equal the reference's.
+
+def _with_storage(pkg):
+    """The storage tier, health counters, trace context, spans and
+    errors of `pkg`'s package."""
+    if pkg is REF:
+        return types.SimpleNamespace(S=jax_storage, health=jax_health,
+                                     tc=jax_tc, spans=jax_spans,
+                                     errors=jax_errors)
+    return types.SimpleNamespace(S=torch_storage, health=torch_health,
+                                 tc=torch_tc, spans=torch_spans,
+                                 errors=torch_errors)
+
+
+class _Deadline:
+    """The service's Deadline reduced to what the sync driver calls:
+    `check(what=)` raises the package's DeadlineExceeded once the clock
+    passes `at`."""
+
+    def __init__(self, at, clock, errors):
+        self.at, self.clock, self.errors = at, clock, errors
+
+    def check(self, what='request'):
+        late = self.clock() - self.at
+        if late > 0:
+            raise self.errors.DeadlineExceeded(
+                f'{what}: deadline exceeded', deadline=self.at,
+                late_by=late)
+        return self
+
+
+def _converged_population(pkg, n=6):
+    """n (fleet doc, host peer) pairs driven to sync quiescence, with
+    both sides' sync states."""
+    fleet = pkg.fleet.DocFleet(**pkg.kw)
+    docs = pkg.fleet.init_docs(n, fleet)
+    heads = [[] for _ in range(n)]
+    for r in range(3):
+        per_doc = []
+        for d in range(n):
+            buf = _change(f'{d:04x}' * 4, r + 1, r + 1, heads[d], f'k{r}',
+                          d * 10 + r)
+            heads[d] = [decode_change_meta(buf, True)['hash']]
+            per_doc.append([buf])
+        docs, _ = pkg.fleet.apply_changes_docs(docs, per_doc, mirror=False)
+    peers = [pkg.host.init() for _ in range(n)]
+    ls = [pkg.host.init_sync_state() for _ in range(n)]
+    ps = [pkg.host.init_sync_state() for _ in range(n)]
+    for _ in range(10):
+        traffic = False
+        ls, msgs = pkg.driver.generate_sync_messages_docs(docs, ls)
+        for i, m in enumerate(msgs):
+            if m is not None:
+                traffic = True
+                peers[i], ps[i], _ = pkg.host.receive_sync_message(
+                    peers[i], ps[i], m)
+        replies = []
+        for i in range(n):
+            ps[i], back = pkg.host.generate_sync_message(peers[i], ps[i])
+            replies.append(back)
+            traffic = traffic or back is not None
+        docs, ls, _ = pkg.driver.receive_sync_messages_docs(docs, ls,
+                                                            replies)
+        if not traffic:
+            break
+    for i in range(n):
+        assert pkg.host.get_heads(peers[i]) == sorted(docs[i]['state'].heads)
+    return fleet, docs, peers, ls, ps
+
+
+def _views(states):
+    """Sync states made comparable across packages: a peer-space
+    sentHashes (each package's own PeerSentSet) reads as its space id,
+    a plain set as its sorted members."""
+    out = []
+    for state in states:
+        view = dict(state)
+        sent = view.get('sentHashes')
+        view['sentHashes'] = sorted(sent) if isinstance(sent, set) else \
+            (type(sent).__name__, sent.sid)
+        out.append(view)
+    return out
+
+
+def _skipped(x):
+    return x.health()['storage_parked_syncs_skipped']
+
+
+def _quiet_parked(pkg):
+    x = _with_storage(pkg)
+    fleet, docs, peers, ls, ps = _converged_population(pkg)
+    eng = x.S.StorageEngine(fleet)
+    ids = eng.park(docs)
+    before = _skipped(x)
+    out_docs, out_ls, msgs = pkg.driver.generate_sync_messages_mixed(
+        eng, ids, ls)
+    gen = (out_docs == ids, len(eng.main), out_ls == ls, msgs,
+           _skipped(x) - before)
+    peer_msgs = [pkg.host.generate_sync_message(
+        p, dict(s, lastSentHeads=None))[1] for p, s in zip(peers, ps)]
+    before = _skipped(x)
+    out_docs, out_ls, patches = pkg.driver.receive_sync_messages_mixed(
+        eng, ids, out_ls, peer_msgs)
+    rec = (out_docs == ids, len(eng.main), _views(out_ls), patches,
+           _skipped(x) - before,
+           [sorted(s['theirHeads']) == eng.heads(ids[i])
+            for i, s in enumerate(out_ls)])
+    return ids, gen, rec
+
+
+def test_quiet_parked_docs_stay_parked_like_the_reference():
+    got = _quiet_parked(PORT)
+    assert got == _quiet_parked(REF)
+    ids, gen, rec = got
+    assert gen[:3] == (True, 6, True) and gen[3] == [None] * 6
+    assert gen[4] == 6 and rec[:2] == (True, 6) and rec[4] == 6
+    assert all(rec[5])
+
+
+def _enveloped(pkg):
+    x = _with_storage(pkg)
+    fleet, docs, peers, ls, ps = _converged_population(pkg)
+    eng = x.S.StorageEngine(fleet)
+    ids = eng.park(docs)
+    peer_msgs = [pkg.host.generate_sync_message(
+        p, dict(s, lastSentHeads=None))[1] for p, s in zip(peers, ps)]
+    ctxs = [x.tc.mint() for _ in peer_msgs]
+    wrapped = [x.tc.wrap(m, c) for m, c in zip(peer_msgs, ctxs)]
+    x.spans.enable()
+    x.spans.clear()
+    try:
+        out_docs, out_ls, patches = pkg.driver.receive_sync_messages_mixed(
+            eng, ids, ls, wrapped)
+        spans = {s['name']: s for s in x.spans.iter_spans()}
+    finally:
+        x.spans.disable()
+    adopted = spans['sync_parked_gate']['attrs']['trace'] == \
+        ctxs[0].trace_id
+    return out_docs == ids, _views(out_ls), patches, adopted
+
+
+def test_enveloped_messages_pass_the_parked_gate_like_the_reference():
+    got = _enveloped(PORT)
+    assert got == _enveloped(REF)
+    assert got[0] and got[3]
+
+
+def _divergent(pkg):
+    x = _with_storage(pkg)
+    fleet, docs, peers, ls, ps = _converged_population(pkg)
+    n = len(docs)
+    eng = x.S.StorageEngine(fleet)
+    ids = eng.park(docs)
+    edit = _change('dd' * 16, 1, 100, pkg.host.get_heads(peers[2]), 'new', 1)
+    peers[2], _ = pkg.host.apply_changes(peers[2], [edit])
+    mixed = list(ids)
+    log = []
+    for _ in range(10):
+        traffic = False
+        replies = []
+        for i in range(n):
+            ps[i], back = pkg.host.generate_sync_message(peers[i], ps[i])
+            replies.append(back)
+            traffic = traffic or back is not None
+        mixed, ls, patches = pkg.driver.receive_sync_messages_mixed(
+            eng, mixed, ls, replies)
+        mixed, ls, msgs = pkg.driver.generate_sync_messages_mixed(
+            eng, mixed, ls)
+        log.append((_msgs(replies), patches, _msgs(msgs), _views(ls)))
+        for i, m in enumerate(msgs):
+            if m is not None:
+                traffic = True
+                peers[i], ps[i], _ = pkg.host.receive_sync_message(
+                    peers[i], ps[i], m)
+        if not traffic:
+            break
+    return ([isinstance(d, int) for d in mixed], len(eng.main), log,
+            sorted(mixed[2]['state'].heads) == pkg.host.get_heads(peers[2]),
+            bytes(mixed[2]['state'].save()))
+
+
+def test_divergent_peer_revives_only_its_doc_like_the_reference():
+    got = _divergent(PORT)
+    assert got == _divergent(REF)
+    parked, stored, _log, converged, _save = got
+    assert parked == [i != 2 for i in range(6)] and stored == 5
+    assert converged
+
+
+def _deadline_abort(pkg):
+    x = _with_storage(pkg)
+    fleet, docs, peers, ls, ps = _converged_population(pkg, 3)
+    eng = x.S.StorageEngine(fleet)
+    ids = eng.park(docs)
+    heads_before = [eng.heads(i) for i in ids]
+    fresh = [dict(s, theirHeads=None) for s in ls]
+    out = []
+    with pytest.raises(x.errors.DeadlineExceeded):
+        pkg.driver.generate_sync_messages_mixed(
+            eng, ids, fresh, deadline=_Deadline(-1.0, lambda: 0.0, x.errors))
+    out.append(len(eng.main))
+    ticks = [0.0]
+
+    def clock():
+        ticks[0] += 1.0
+        return ticks[0]
+    with pytest.raises(x.errors.DeadlineExceeded):
+        pkg.driver.generate_sync_messages_mixed(
+            eng, ids, fresh, deadline=_Deadline(1.5, clock, x.errors))
+    out.append(len(eng.main))
+    out.append([eng.heads(i) == h for i, h in zip(ids, heads_before)])
+    out.append(sorted(eng._row_of) == sorted(ids))
+    return out
+
+
+def test_deadline_abort_leaves_storage_whole_like_the_reference():
+    got = _deadline_abort(PORT)
+    assert got == _deadline_abort(REF)
+    assert got == [3, 3, [True] * 3, True]
