@@ -18,7 +18,7 @@ model and controller). Multi-device sharding is a later slice
 
 from .tensor_doc import (FleetState, OpBatch, TOMBSTONE, pack_op_id,
                          state_from_numpy, state_to_numpy, unpack_op_id)
-from .apply import apply_op_batch
+from .apply import apply_op_batch, fleet_merge
 from .registers import (RegisterOpBatch, RegisterState, apply_register_batch,
                         register_state_from_numpy, register_state_to_numpy)
 from .sequence import (SeqEncoder, SeqOpBatch, SeqState, apply_seq_batch,
@@ -35,7 +35,7 @@ __all__ = [
     'HashIndex', 'FleetFrontierIndex', 'frontier_compare', 'hashes_to_rows',
     'FleetState', 'OpBatch', 'TOMBSTONE', 'pack_op_id', 'unpack_op_id',
     'state_from_numpy', 'state_to_numpy',
-    'apply_op_batch',
+    'apply_op_batch', 'fleet_merge',
     'RegisterState', 'RegisterOpBatch', 'apply_register_batch',
     'register_state_from_numpy', 'register_state_to_numpy',
     'SeqState', 'SeqOpBatch', 'SeqEncoder', 'apply_seq_batch', 'linearize',

@@ -18,10 +18,12 @@ CPU). The entry points keep the reference's names and contracts:
   iff it holds the pred'd packed id; mask every same-batch set lane a
   kill names, by per-doc sorted membership) is torch ops, as it is XLA
   code in the reference; the merge after it is the kernel;
-- `zero_doc_rows_donated` zeroes the listed doc rows of all three grids.
+- `zero_doc_rows_donated` zeroes the listed doc rows of all three grids;
+- `fleet_merge(state, batches)` runs `apply_op_batch` over a sequence of
+  OpBatches and sums their counts (a Python int).
 
-Every entry point returns (state, stats) with stats the number of valid
-op lanes (a 0-d int32 tensor).
+Every other entry point returns (state, stats) with stats the number of
+valid op lanes (a 0-d int32 tensor).
 """
 
 import torch
@@ -147,3 +149,11 @@ def zero_doc_rows_donated(state, idx):
         t.index_fill_(0, idx, 0)
     return state
 
+
+def fleet_merge(state, op_batches):
+    """Apply a sequence of OpBatches (e.g. one per change round)."""
+    total = 0
+    for ops in op_batches:
+        state, stats = apply_op_batch(state, ops)
+        total += int(stats)
+    return state, total

@@ -3039,8 +3039,9 @@ class FleetDoc:
 
 # ----------------------------------------------------------------------
 # Backend-contract module surface (ref backend/index.js:1-8): identical to
-# automerge_tpu.backend but init/load build fleet-routed documents. Pass this
-# module (or a FleetBackend instance) to automerge_tpu.set_default_backend.
+# automerge_tpu_torch.backend but init/load build fleet-routed documents.
+# Pass this module (or a FleetBackend instance) to
+# automerge_tpu_torch.set_default_backend.
 # ----------------------------------------------------------------------
 
 _default_fleet = None

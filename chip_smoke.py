@@ -101,6 +101,53 @@ Phases (any failure exits non-zero):
      size class [1024, 16387, 4], no migration, no scan launched, every
      text == the seam's), then a further batch of 256 ops, one seq_scan
      launch, every text == the host OpSet's; a traced text load;
+   - api: the port's Automerge.* API with
+     set_default_backend(FleetBackend(DocFleet(...))) on the card, each
+     leg with the launch counts set to 0 just before it. The integration
+     shapes (automerge_tpu_torch/api_cases.py integration_docs: maps,
+     nested maps, lists, rows-in-lists, Text, Table, Counter, a concurrent
+     merge with conflicts, save/load, history, the changes API and a sync
+     round; fixed actors, times and uuids) on DocFleet(64 docs, 64 keys) in
+     both modes: every document's value and save() and what
+     materialize_docs reads from the card == the same script through the
+     host backend, the sequence rows and device arrays (grids' real key
+     columns, or the registers) == a CPU fleet's; lww_merge (or
+     register_scan) and seq_scan launched. The mixed document (bench.py
+     bench_backend_mixed: a nested config map, rows-in-lists, strings,
+     floats and bools, then 15 changes; actor 'ab' * 16, seed 0, fixed
+     time) applied to 10,000 docs through apply_changes_docs into
+     DocFleet(doc_capacity=10,000, key_capacity=64) (bench.py's default
+     is 500 docs; 10,000 is the seam cells' fleet): one lww_merge launch
+     per batch, no fallback, every doc read from the card == the
+     authoring document, the grid and sequence rows == a CPU fleet's;
+     changes/s (median of 3 warm reps) and ops per change; a traced rep.
+     The per-doc API at hub scale: 1,000 docs on one FleetBackend through
+     A.load of the mixed document's save(), each taking one A.change by
+     a second actor and one A.merge of a concurrent edit, then one read
+     that flushes them: every value, and every doc read from the card, ==
+     the host backend's (its doc with the doc's own edit, held to the
+     host backend's doc on 16 sampled docs), the 16 sampled docs' save()
+     == the host backend's and their grid rows == a CPU fleet's; the API
+     calls' and the read's wall time;
+   - query: the query engine (bench.py _sec_query at BENCH_QUERY_DOCS =
+     BENCH_QUERY_SUBS = 10,000), each leg with the launch counts set to 0
+     just before it: 10,000 docs x 6 single-set changes (change c sets
+     k{c} to d * 100 + c) on DocFleet(device='cuda'), the mid frontier
+     taken after change 3; materialize_at_docs of all 10,000 docs at the
+     mid frontier: one dispatch per batched read, every doc and grid row
+     read from the card == k0..k3 = d * 100 + c, docs/s (median of 3
+     after a warm rep) and a traced rep; the subscription tick: 10,000
+     subscribers, 3 cursor classes, one new change per doc per tick, 0
+     merge dispatches and 1 frontier compare (the batched quiet proof)
+     per tick, p50 and p99 over 5 ticks, the diff reuse
+     ratio and a traced tick; the all-quiet tick (bench.py _sec_frontier
+     (b)): a fresh 10,000-doc fleet, 10,000 subscribers at head, each of
+     7 ticks exactly 1 frontier_compare dispatch, run on the card and
+     answering as the CPU does, and 0 merge dispatches, every class
+     proven quiet; the compare's device time at the tick's shape beside
+     its byte bound. In both paths the first 64 calls of each kernel
+     wrapper of each leg are held to the plain version after it, as in
+     the storage path;
    - storage: durability and the storage tier, each leg with the launch
      counts set to 0 just before it. The durable seam: the seam's batch
      through DurableFleet(fsync_bytes=4 MiB) on the card, whose grids
@@ -131,7 +178,11 @@ Phases (any failure exits non-zero):
      the ids), resident bytes per doc, disk
      bytes; a 10 % discard + vacuum_now leaves the other chunks
      byte-identical; close + StorageEngine.open recovers every id and
-     chunk. The mixed round: 100,000 of those parked docs, each with a
+     chunk. Then materialize_at_docs of 256 of the reopened engine's
+     parked docs at their heads (bench.py BENCH_TIER_MAT) in one
+     dispatch, none revived: every doc and grid row read from the card
+     and every save() == its chunk's; docs/s (median of 3). The mixed
+     round: 100,000 of those parked docs, each with a
      peer whose sync state the per-link host protocol ran to quiescence;
      1,024 peers send one new change a round: receive_sync_messages_mixed
      revives exactly those 1,024 in one batched revive,
@@ -802,11 +853,15 @@ def traced(run):
 
 
 def device_line(wall, rows):
+    """Log the device's busy time against the wall time; returns the
+    idle share."""
     busy = sum(ms for ms, _, _ in rows)
     copies = sum(ms for ms, key, _ in rows if 'Memcpy' in key)
+    idle = 1 - busy / 1e3 / wall
     log(f'device busy {busy:.3f} ms of {wall * 1e3:.1f} ms wall (idle share '
-        f'{1 - busy / 1e3 / wall:.4f}; copies {copies:.3f} ms); top: ' +
+        f'{idle:.4f}; copies {copies:.3f} ms); top: ' +
         '; '.join(f'{key} x{cnt} {ms:.3f} ms' for ms, key, cnt in rows[:6]))
+    return idle
 
 
 def breakdown(per_doc, mode='plain'):
@@ -1456,6 +1511,545 @@ def load_path():
     return launches, nums
 
 
+# ---- the Automerge.* API ----------------------------------------------------
+
+API_SHAPES_DOCS, API_SHAPES_KEYS = 64, 64
+API_DOCS = 10_000        # the mixed document's fleet: the seam cells' 10,000
+                         # docs (bench.py BENCH_MIXED_DOCS defaults to 500)
+API_REPS = 3             # changes/s: the median of 3 warm reps
+API_HUB_DOCS = 1_000     # per-doc API docs on one FleetBackend
+API_SAMPLES = 16         # of them, run through the host backend as well
+
+
+def device_arrays(fleet):
+    """Copies of the fleet's device state as numpy arrays: the registers
+    in exact mode, else the LWW grids' real key columns (column K is
+    scratch)."""
+    from automerge_tpu_torch.fleet import registers
+    from automerge_tpu_torch.fleet.tensor_doc import state_to_numpy
+    if fleet.exact_device:
+        return [a.copy() for a in
+                registers.register_state_to_numpy(fleet.reg_state)]
+    return [a[:, :fleet.key_cap].copy() for a in state_to_numpy(fleet.state)]
+
+
+def api_shapes(exact, device):
+    """api_cases.integration_docs through the port's Automerge.* API with
+    a FleetBackend(DocFleet(64 docs, 64 keys)) on `device`. Returns the
+    documents, saves, what materialize_docs read from the device, the
+    sequence rows rendered from the device, the device arrays and the
+    fleet."""
+    import automerge_tpu_torch as A
+    from automerge_tpu_torch import api_cases
+    from automerge_tpu_torch.fleet.backend import (DocFleet, FleetBackend,
+                                                   materialize_docs)
+    fleet = DocFleet(doc_capacity=API_SHAPES_DOCS,
+                     key_capacity=API_SHAPES_KEYS, exact_device=exact,
+                     device=device)
+    A.set_default_backend(FleetBackend(fleet))
+    try:
+        docs = api_cases.integration_docs(A)
+        names = list(docs)
+        read = materialize_docs(
+            [A.Frontend.get_backend_state(docs[n]) for n in names])
+        saves = [bytes(A.save(docs[n])) for n in names]
+    finally:
+        A.set_default_backend(A.backend)
+    return dict(docs=[docs[n].to_py() for n in names], saves=saves,
+                read=read, seq=fleet.render_seq_all(),
+                arrays=device_arrays(fleet), fleet=fleet)
+
+
+def api_path():
+    """The Automerge.* API on the card (see the module docstring): the
+    integration shapes in both modes, the mixed document at 10,000 docs
+    and the per-doc API at 1,000 docs. Each leg runs with every launch
+    count set to 0 just before it; the kernel calls each leg kept are
+    held to the plain versions after it. Returns the launches summed
+    over the legs and the calls held to the plain versions."""
+    import numpy as np
+    import torch
+    import automerge_tpu_torch as A
+    from automerge_tpu_torch import api_cases
+    from automerge_tpu_torch.columnar import decode_change
+    from automerge_tpu_torch.fleet.backend import (
+        DocFleet, FleetBackend, apply_changes_docs, init_docs,
+        materialize_docs)
+    legs = {}
+    host = api_cases.integration_docs(A)
+    names = list(host)
+    want = dict(docs=[host[n].to_py() for n in names],
+                saves=[bytes(A.save(host[n])) for n in names],
+                read=[api_cases.reading(A, host[n]) for n in names])
+    with PathCheck('api path') as check:
+        for exact in (False, True):
+            tag = 'integration shapes, ' + ('exact' if exact else 'lww')
+            got = storage_leg(
+                tag, legs, lambda: api_shapes(exact, DEVICE),
+                needs=('register_scan' if exact else 'lww_merge',
+                       'seq_scan'), path='api path')
+            with check.paused():
+                cpu = api_shapes(exact, 'cpu')
+            for key in ('docs', 'saves', 'read'):
+                if got[key] != want[key]:
+                    bad = next(n for n, a, b in zip(names, got[key],
+                                                    want[key]) if a != b)
+                    fail(f'api path, {tag}: {key} of {bad!r} != the host '
+                         f'backend\'s')
+            if got['seq'] != cpu['seq'] or \
+                    any(not np.array_equal(a, b) for a, b in
+                        zip(got['arrays'], cpu['arrays'])):
+                fail(f'api path, {tag}: the card\'s sequence rows or '
+                     f'device arrays != a CPU fleet\'s')
+            if got['fleet'].metrics.promotions:
+                fail(f'api path, {tag}: a document left the fleet')
+            log(f'api path, {tag}: {len(names)} documents (values, save(), '
+                f'materialize_docs read from the card) == the host '
+                f'backend\'s; sequence rows and device arrays == a CPU '
+                f'fleet\'s')
+            check.verify(tag)
+            del got, cpu
+
+        mixed = api_cases.mixed_doc(A)
+        changes = [bytes(b) for b in A.get_all_changes(mixed)]
+        ops_per_change = sum(len(decode_change(b)['ops'])
+                             for b in changes) / len(changes)
+        per_doc = [list(changes) for _ in range(API_DOCS)]
+        want_read = api_cases.reading(A, mixed)
+
+        def mixed_run():
+            fleet = DocFleet(doc_capacity=API_DOCS, key_capacity=64,
+                             device=DEVICE)
+            handles = init_docs(API_DOCS, fleet)
+            merges = kernel_launches()['lww_merge']
+            handles, _ = apply_changes_docs(handles, per_doc, mirror=False)
+            torch.cuda.synchronize()
+            merges = kernel_launches()['lww_merge'] - merges
+            if fleet.metrics.fallbacks or not fleet.metrics.turbo_calls:
+                fail(f'api path, mixed document: {fleet.metrics.fallbacks} '
+                     f'fallbacks, {fleet.metrics.turbo_calls} turbo calls')
+            if merges != 1:
+                fail(f'api path, mixed document: {merges} merge launches '
+                     f'for one batch (want 1)')
+            return fleet, handles
+
+        def mixed_leg():
+            fleet, handles = mixed_run()
+            read = materialize_docs(handles)
+            if any(doc != want_read for doc in read):
+                bad = next(i for i, doc in enumerate(read)
+                           if doc != want_read)
+                fail(f'api path, mixed document: doc {bad} read from the '
+                     f'card != the authoring document')
+            rows = grid_view(fleet, handles, 'api path, mixed document')
+            cpu = DocFleet(doc_capacity=1, key_capacity=64, device='cpu')
+            with check.paused():
+                one = init_docs(1, cpu)
+                one, _ = apply_changes_docs(one, [list(changes)],
+                                            mirror=False)
+            # the sequence rows hold links to the rows' maps: compare
+            # their reprs (a link names its object, not its fleet)
+            seq = {repr(v) for v in fleet.render_seq_all().values()}
+            if any(row != rows[0] for row in rows) or \
+                    rows[:1] != grid_view(cpu, one, 'api path, CPU doc') or \
+                    len(fleet.render_seq_all()) != API_DOCS or \
+                    seq != {repr(v) for v in cpu.render_seq_all().values()}:
+                fail('api path, mixed document: a grid row or sequence row '
+                     'on the card != a CPU fleet\'s')
+            return len(read)
+        n_read = storage_leg('mixed document', legs, mixed_leg,
+                             needs=('lww_merge', 'seq_scan'),
+                             path='api path')
+        check.verify('mixed document')
+        rates = []
+        with check.paused():
+            for _ in range(API_REPS):
+                t0 = time.perf_counter()
+                mixed_run()
+                rates.append(API_DOCS * len(changes) /
+                             (time.perf_counter() - t0))
+            wall, phases, rows = traced(mixed_run)
+        rate = statistics.median(rates)
+        log(f'api path, mixed document (bench.py bench_backend_mixed at '
+            f'{API_DOCS} docs): {len(changes)} changes, '
+            f'{ops_per_change:.2f} ops per change; changes/s (median of '
+            f'{API_REPS} warm reps) {rate:.1f} {[round(r) for r in rates]};'
+            f' one merge launch per batch, no fallback; every one of '
+            f'{n_read} docs read from the card == the authoring document, '
+            f'grid and sequence rows == a CPU fleet\'s')
+        log(f'breakdown, api mixed document (traced run, wall '
+            f'{wall * 1e3:.1f} ms): ' +
+            ', '.join(f'{name} {phases.get(name, 0) * 1e3:.1f} ms' for name
+                      in ('turbo_parse', 'turbo_gate', 'turbo_commit',
+                          'turbo_stage', 'turbo_dispatch', 'dispatch_grid',
+                          'dispatch_seq', 'python_gc')))
+        idle = device_line(wall, rows)
+
+        saved = bytes(A.save(mixed))
+        peer = api_cases.change(
+            A, A.load(saved, 'ee' * 16),
+            lambda r: (r['tags'].update({'peer': 1}),
+                       r['todo'].append({'t': 'peer', 'done': True})))
+        peer_saved = bytes(A.save(peer))
+
+        def per_doc_script(n, only=None):
+            # the second actors cycle through 128 (bench.py's d % 128): a
+            # fleet's actor table holds 256
+            out = []
+            for i in range(n) if only is None else only:
+                doc = A.load(saved, f'{i % 128:08x}' * 4)
+                doc = api_cases.change(
+                    A, doc, lambda r, i=i: r['cfg']['opts'].update(
+                        {'hub': i}))
+                out.append(A.merge(doc, A.load(peer_saved, 'ee' * 16)))
+            return out
+        sample = [k * API_HUB_DOCS // API_SAMPLES for k in range(API_SAMPLES)]
+        host_docs = per_doc_script(0, sample)
+
+        def template(i):
+            # doc i's value: the host backend's doc 0 with its own edit
+            # (held to the host backend's doc on every sampled doc)
+            value = api_cases.reading(A, host_docs[0])
+            value['cfg']['opts']['hub'] = i
+            return value
+        for i, doc in zip(sample, host_docs):
+            if api_cases.reading(A, doc) != template(i):
+                fail(f'api path, per-doc API: host doc {i} != the template')
+
+        def hub_leg(device, only=None):
+            fleet = DocFleet(doc_capacity=2 * API_HUB_DOCS, key_capacity=64,
+                             device=device)
+            A.set_default_backend(FleetBackend(fleet))
+            try:
+                t0 = time.perf_counter()
+                docs = per_doc_script(API_HUB_DOCS, only)
+                t1 = time.perf_counter()
+                handles = [A.Frontend.get_backend_state(d) for d in docs]
+                read = materialize_docs(handles)
+                if device == DEVICE:
+                    torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                saves = {i: bytes(A.save(docs[i])) for i in
+                         (sample if only is None else range(len(docs)))}
+            finally:
+                A.set_default_backend(A.backend)
+            if fleet.metrics.promotions:
+                fail('api path, per-doc API: a document left the fleet')
+            return dict(docs=docs, read=read, saves=saves,
+                        rows=grid_view(fleet, [handles[i] for i in saves],
+                                       'api path, per-doc API'),
+                        api_s=t1 - t0, read_s=t2 - t1)
+        got = storage_leg('per-doc API', legs, lambda: hub_leg(DEVICE),
+                          needs=('lww_merge',), path='api path')
+        for i, (doc, read) in enumerate(zip(got['docs'], got['read'])):
+            if api_cases.reading(A, doc) != template(i) or \
+                    read != template(i):
+                fail(f'api path, per-doc API: doc {i} (its value, or as '
+                     f'read from the card) != the host backend\'s')
+        with check.paused():
+            cpu = hub_leg('cpu', sample)
+        for k, i in enumerate(sample):
+            if got['saves'][i] != bytes(A.save(host_docs[k])) or \
+                    cpu['saves'][k] != got['saves'][i]:
+                fail(f'api path, per-doc API: save() of doc {i} != the host '
+                     f'backend\'s')
+        if got['rows'] != cpu['rows']:
+            fail('api path, per-doc API: a sampled grid row on the card != '
+                 'a CPU fleet\'s')
+        check.verify('per-doc API')
+        log(f'api path, per-doc API: {API_HUB_DOCS} docs on one '
+            f'FleetBackend (A.load of the mixed document, A.change by a '
+            f'second actor, A.merge of a concurrent edit): API calls '
+            f'{got["api_s"]:.3f} s, the read that flushes them '
+            f'{got["read_s"]:.3f} s (wall {got["api_s"] + got["read_s"]:.3f}'
+            f' s); every value and read from the card == the host '
+            f'backend\'s, {len(sample)} sampled save() and grid rows == the '
+            f'host backend\'s and a CPU fleet\'s')
+    total = {}
+    for launches in legs.values():
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+    log(f'api path launches: {total}; kernel calls held to their plain '
+        f'versions: {check.checked}')
+    missing = [name for name, n in total.items()
+               if n and not check.checked[name]]
+    if missing:
+        fail(f'api path: no call of {missing} held to its plain version')
+    return total, dict(checked=check.checked, worst=check.worst), \
+        dict(changes_per_s=rate, ops_per_change=ops_per_change,
+             mixed_idle_share=idle, hub_api_s=got['api_s'],
+             hub_read_s=got['read_s'])
+
+
+# ---- the query engine -------------------------------------------------------
+
+# BENCH_r10_query.json's at_10k_docs_10k_subs
+QUERY_DOCS, QUERY_SUBS = 10_000, 10_000
+QUERY_TICKS = 5          # timed ticks, after a warm one
+QUIET_TICKS = 7          # timed all-quiet ticks, after a warm one
+
+
+def decode_hash(buf):
+    """The hash of one encoded change."""
+    from automerge_tpu_torch.columnar import decode_change_meta
+    return decode_change_meta(buf, True)['hash']
+
+
+class CompareSpy:
+    """While on, keeps the inputs, the device and the answer of each
+    `hashindex.frontier_compare` call (the subscription hub looks it up
+    at call time)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from automerge_tpu_torch.fleet import hashindex
+        self._real = hashindex.frontier_compare
+
+        def call(*args, device=None):
+            out = self._real(*args, device=device)
+            self.calls.append(([a.copy() for a in args], device, out))
+            return out
+        hashindex.frontier_compare = call
+        return self
+
+    def __exit__(self, *exc):
+        from automerge_tpu_torch.fleet import hashindex
+        hashindex.frontier_compare = self._real
+
+
+def query_path():
+    """The query engine on the card (see the module docstring): the
+    10,000-doc history, the batched time-travel read, the 10,000-
+    subscriber tick and the all-quiet tick. Returns the launches summed
+    over the legs, the calls held to the plain versions and the
+    numbers."""
+    import numpy as np
+    import torch
+    from automerge_tpu_torch import api_cases
+    from automerge_tpu_torch.fleet import hashindex
+    from automerge_tpu_torch.fleet.backend import (
+        DocFleet, apply_changes_docs, free_docs, init_docs,
+        materialize_docs)
+    from automerge_tpu_torch.query import SubscriptionHub, materialize_at_docs
+    legs, nums = {}, {}
+    batches, heads, mid = api_cases.query_history(QUERY_DOCS)
+    want = [{f'k{c}': d * 100 + c for c in range(4)}
+            for d in range(QUERY_DOCS)]
+    with PathCheck('query path') as check:
+        def setup():
+            fleet = DocFleet(device=DEVICE)
+            handles = init_docs(QUERY_DOCS, fleet)
+            for per_doc in batches:
+                handles, _ = apply_changes_docs(handles, per_doc,
+                                                mirror=False)
+            return fleet, handles
+        fleet, handles = storage_leg('setup', legs, setup,
+                                     needs=('lww_merge',), path='query path')
+        check.verify('setup')
+
+        def read_mid():
+            d0 = fleet.metrics.dispatches
+            outs = materialize_at_docs(handles, mid, fleet=fleet)
+            torch.cuda.synchronize()
+            return outs, fleet.metrics.dispatches - d0
+
+        def mat_leg():
+            outs, dispatches = read_mid()
+            if dispatches != 1:
+                fail(f'query path, materialize_at: {dispatches} dispatches '
+                     f'for one batched read (want 1)')
+            if materialize_docs(outs) != want:
+                fail('query path, materialize_at: a doc read from the card '
+                     '!= k0..k3 = d * 100 + c')
+            rows = grid_view(fleet, outs, 'query path, materialize_at')
+            for d, row in enumerate(rows):
+                if {k: v[2] for k, v in row.items()} != want[d] or \
+                        any(v[0] != int(k[1:]) + 1 for k, v in row.items()):
+                    fail(f'query path, materialize_at: grid row of doc {d} '
+                         f'!= its first four changes')
+            free_docs(outs)
+            return dispatches
+        dispatches = storage_leg('materialize_at', legs, mat_leg,
+                                 needs=('lww_merge',), path='query path')
+        check.verify('materialize_at')
+        times = []
+        with check.paused():
+            for _ in range(3):
+                t0 = time.perf_counter()
+                outs, _d = read_mid()
+                times.append(time.perf_counter() - t0)
+                free_docs(outs)
+            wall, phases, rows = traced(lambda: free_docs(read_mid()[0]))
+        nums['materialize_docs_per_s'] = QUERY_DOCS / statistics.median(times)
+        nums['materialize_dispatches'] = dispatches
+        log(f'query path, materialize_at_docs of {QUERY_DOCS} docs at the '
+            f'mid frontier: {nums["materialize_docs_per_s"]:.1f} docs/s '
+            f'(median of 3 after a warm rep; '
+            f'{[round(QUERY_DOCS / t) for t in times]}), {dispatches} '
+            f'dispatch per batched read; every doc and grid row read from '
+            f'the card == k0..k3 = d * 100 + c')
+        log(f'breakdown, query materialize_at (traced run, wall '
+            f'{wall * 1e3:.1f} ms): ' +
+            ', '.join(f'{name} {phases.get(name, 0) * 1e3:.1f} ms' for name
+                      in ('materialize_at', 'turbo_parse', 'turbo_gate',
+                          'turbo_dispatch', 'dispatch_grid', 'python_gc')))
+        nums['materialize_idle_share'] = device_line(wall, rows)
+
+        hub = SubscriptionHub()
+        for d in range(QUERY_DOCS):
+            hub.register(d, handles[d])
+        classes = [[], None, 'head']
+        for s in range(QUERY_SUBS):
+            d = s % QUERY_DOCS
+            cls = classes[(s // QUERY_DOCS) % 3]
+            hub.subscribe(d, cursor=mid[d] if cls is None else
+                          (heads[d] if cls == 'head' else []))
+
+        def advance(rep):
+            nonlocal handles
+            per_doc = []
+            for d in range(QUERY_DOCS):
+                buf = api_cases.set_change(d, 7 + rep, heads[d], 'hot', rep)
+                heads[d] = [decode_hash(buf)]
+                per_doc.append([buf])
+            handles, _ = apply_changes_docs(handles, per_doc, mirror=False)
+            for d in range(QUERY_DOCS):
+                hub.update_source(d, handles[d])
+
+        def tick_leg():
+            ticks, stats = [], []
+            for rep in range(QUERY_TICKS + 1):
+                advance(rep)
+                c0, r0 = hub.stats['diffs_computed'], hub.stats['diffs_reused']
+                d0, n0 = fleet.metrics.dispatches, hashindex.dispatch_count()
+                t0 = time.perf_counter()
+                events = hub.tick()
+                sec = time.perf_counter() - t0
+                # the batched quiet proof runs first on every tick: one
+                # frontier compare, and no merge
+                if fleet.metrics.dispatches != d0 or \
+                        hashindex.dispatch_count() - n0 != 1:
+                    fail('query path, tick: a subscription tick dispatched a '
+                         'merge, or not exactly 1 frontier compare')
+                if len(events) != QUERY_SUBS:
+                    fail(f'query path, tick: {len(events)} events for '
+                         f'{QUERY_SUBS} subscribers')
+                if rep:
+                    ticks.append(sec)
+                    stats.append((hub.stats['diffs_computed'] - c0,
+                                  hub.stats['diffs_reused'] - r0))
+            return ticks, stats
+        ticks, stats = storage_leg('subscription tick', legs, tick_leg,
+                                   needs=('lww_merge',), path='query path')
+        check.verify('subscription tick')
+        if materialize_docs(handles) != [dict(w, k4=d * 100 + 4,
+                                              k5=d * 100 + 5,
+                                              hot=QUERY_TICKS)
+                                         for d, w in enumerate(want)]:
+            fail('query path, tick: a doc read from the card != its changes')
+        computed, reused = map(sum, zip(*stats))
+        nums.update(tick_p50_ms=float(np.median(ticks)) * 1e3,
+                    tick_p99_ms=float(np.percentile(ticks, 99)) * 1e3,
+                    tick_dispatches=0, tick_compares=1,
+                    diff_reuse=reused / max(computed + reused, 1))
+        with check.paused():
+            wall, phases, rows = traced(lambda: (advance(QUERY_TICKS + 1),
+                                                 hub.tick()))
+        log(f'query path, subscription tick ({QUERY_SUBS} subscribers over '
+            f'{QUERY_DOCS} docs, 3 cursor classes, one new change per doc '
+            f'per tick): p50 {nums["tick_p50_ms"]:.1f} ms, p99 '
+            f'{nums["tick_p99_ms"]:.1f} ms over {QUERY_TICKS} ticks, 0 '
+            f'merge dispatches and 1 frontier compare (the quiet proof, '
+            f'not all quiet) per tick, diff reuse '
+            f'{nums["diff_reuse"]:.3f}; every doc read from the card == its '
+            f'changes')
+        log(f'breakdown, query tick with its batch (traced run, wall '
+            f'{wall * 1e3:.1f} ms): ' +
+            ', '.join(f'{name} {phases.get(name, 0) * 1e3:.1f} ms' for name
+                      in ('subscription_tick', 'turbo_dispatch',
+                          'dispatch_grid', 'python_gc')))
+        nums['tick_idle_share'] = device_line(wall, rows)
+        del hub, handles, fleet
+        gc.collect()
+
+        def quiet_setup():
+            qfleet = DocFleet(device=DEVICE)
+            qhandles = init_docs(QUERY_DOCS, qfleet)
+            qhandles, _ = apply_changes_docs(qhandles, batches[0],
+                                             mirror=False)
+            return qfleet, qhandles
+        qfleet, qhandles = storage_leg('quiet setup', legs, quiet_setup,
+                                       needs=('lww_merge',),
+                                       path='query path')
+        check.verify('quiet setup')
+        qhub = SubscriptionHub()
+        for d in range(QUERY_DOCS):
+            qhub.register(d, qhandles[d])
+        first = [[decode_hash(batches[0][d][0])] for d in range(QUERY_DOCS)]
+        for s in range(QUERY_SUBS):
+            qhub.subscribe(s % QUERY_DOCS, cursor=first[s % QUERY_DOCS])
+        qhub.tick()                          # warm: builds the scan plan
+        kernel_launches(reset=True)
+        quiet_times = []
+        with CompareSpy() as spy:
+            for _ in range(QUIET_TICKS):
+                n0, d0 = hashindex.dispatch_count(), qfleet.metrics.dispatches
+                q0 = qhub.stats['quiet']
+                t0 = time.perf_counter()
+                events = qhub.tick()
+                quiet_times.append(time.perf_counter() - t0)
+                if events or (hashindex.dispatch_count() - n0,
+                              qfleet.metrics.dispatches - d0) != (1, 0):
+                    fail('query path, quiet tick: not exactly 1 compare and '
+                         '0 merge dispatches, or not all quiet')
+                if qhub.stats['quiet'] - q0 != QUERY_SUBS:
+                    fail('query path, quiet tick: not every class proven '
+                         'quiet')
+        legs['quiet tick'] = kernel_launches()
+        args, device, answer = spy.calls[-1]
+        if len(spy.calls) != QUIET_TICKS or \
+                torch.device(device).type != torch.device(DEVICE).type or \
+                not np.array_equal(answer, hashindex.frontier_compare(
+                    *args, device='cpu')) or not answer.all():
+            fail('query path, quiet tick: the compare did not run on the '
+                 'card, or its answer != the CPU\'s')
+        k = len(args[1])
+        k_pad = 1 << (k - 1).bit_length()
+        dev = torch.device(DEVICE)
+        cols = (torch.zeros((k_pad, 32), dtype=torch.uint8, device=dev),
+                torch.ones(k_pad, dtype=torch.int32, device=dev))
+        cols = cols + cols
+        compare_ms = time_ms(lambda: hashindex._compare(*cols))
+        bound = bound_of(k_pad * (32 * 2 + 4 * 2 + 1), k_pad * 40)
+        wall, phases, rows = traced(qhub.tick)
+        nums.update(quiet_tick_p50_ms=statistics.median(quiet_times) * 1e3,
+                    quiet_compares=1, compare_ms=compare_ms,
+                    compare_rows=k_pad, **{f'compare_{key}': v
+                                            for key, v in bound.items()})
+        log(f'query path, all-quiet tick ({QUERY_SUBS} subscribers at head '
+            f'over {QUERY_DOCS} docs, bench.py _sec_frontier (b)): p50 '
+            f'{nums["quiet_tick_p50_ms"]:.3f} ms over {QUIET_TICKS} ticks, '
+            f'each exactly 1 frontier_compare dispatch on the card and 0 '
+            f'merge dispatches, every class proven quiet, the answer == the '
+            f'CPU\'s; the compare at the tick\'s shape ({k} classes padded '
+            f'to {k_pad}) {compare_ms:.4f} ms, bound '
+            f'{bound["bound_ms"]:.4f} ms ({bound["bound_by"]})')
+        nums['quiet_idle_share'] = device_line(wall, rows)
+    total = {}
+    for launches in legs.values():
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+    log(f'query path launches: {total}; kernel calls held to their plain '
+        f'versions: {check.checked}')
+    missing = [name for name, n in total.items()
+               if n and not check.checked[name]]
+    if missing:
+        fail(f'query path: no call of {missing} held to its plain version')
+    return total, dict(checked=check.checked, worst=check.worst), nums
+
+
 # ---- the sync plane's main path --------------------------------------------
 
 LINKS, HUB_DOCS, DEPTH = 100_000, 4, 8
@@ -1927,7 +2521,7 @@ def _insert_err(before, kwargs, out, after):
 
 class PathCheck:
     """While entered, keeps a copy of the inputs of the first PATH_CHECKS
-    calls of each kernel wrapper in each storage leg, of what each call
+    calls of each kernel wrapper in each leg of `path`, of what each call
     returned and of the state it changed in place; `verify` then runs
     each kernel's plain version on the kept inputs, off the path's
     clock, and fails on any disagreement. `paused()` keeps nothing (the
@@ -1941,9 +2535,10 @@ class PathCheck:
                ('sync_kernels', 'hashindex_insert', 2),
                ('sync_kernels', 'hashindex_probe', 0))
 
-    def __init__(self):
+    def __init__(self, path='storage path'):
         from automerge_tpu_torch.fleet import (register_kernel, seq_kernel,
                                                sync_kernels)
+        self.path = path
         self.errs = {
             'lww_merge': _merge_err,
             'register_scan': _scan_err(register_kernel.register_scan_plain),
@@ -2005,14 +2600,14 @@ class PathCheck:
                   if k not in ('max_occupancy', 'load_max')}
             err = self.errs[name](before, kw, out, after)
             if err:
-                fail(f'storage path, {leg}: {name} != its plain version on '
+                fail(f'{self.path}, {leg}: {name} != its plain version on '
                      f'a call of the path (max abs err {err})')
             per[name] = per.get(name, 0) + 1
             self.checked[name] += 1
             self.worst[name] = max(self.worst[name], err)
         del kept
         t1 = time.perf_counter()
-        log(f'storage path, {leg}: kernel calls held to their plain '
+        log(f'{self.path}, {leg}: kernel calls held to their plain '
             f'versions (max abs err 0): {per}; leg {t0 - self._t:.1f} s, '
             f'check {t1 - t0:.1f} s')
         self._t = t1
@@ -2051,17 +2646,17 @@ def grid_view(fleet, handles, tag):
     return out
 
 
-def storage_leg(name, legs, run, needs=()):
-    """Run one leg of the storage path with every launch count set to 0
-    just before it; fail unless each kernel of `needs` launched."""
+def storage_leg(name, legs, run, needs=(), path='storage path'):
+    """Run one leg of `path` with every launch count set to 0 just
+    before it; fail unless each kernel of `needs` launched."""
     kernel_launches(reset=True)
     out = run()
     launches = kernel_launches()
     legs[name] = launches
     missing = [k for k in needs if launches[k] < 1]
     if missing:
-        fail(f'storage path, {name}: never launched {missing}')
-    log(f'storage path, {name}: launches {launches}')
+        fail(f'{path}, {name}: never launched {missing}')
+    log(f'{path}, {name}: launches {launches}')
     return out
 
 
@@ -2508,6 +3103,61 @@ def tier_leg(root):
                              major_faults=mj1 - mj0)
 
 
+TIER_MAT = 256       # bench.py BENCH_TIER_MAT: parked docs per batched read
+
+
+def tier_mat_leg(eng, chunks, check):
+    """bench.py _sec_storage_tier's mat_rate on the tier's reopened disk
+    engine: materialize_at_docs of TIER_MAT parked docs at their heads,
+    read off their chunks without reviving them. The first read is
+    checked (one dispatch; every doc read from the card and its grid row
+    == its chunk's distinct doc; no doc revived, the engine unchanged),
+    then docs/s is the median of 3."""
+    import torch
+    from automerge_tpu_torch.fleet.backend import free_docs, materialize_docs
+    from automerge_tpu_torch.query import materialize_at_docs
+    ids = [i for i in range(1, TIER_DOCS) if i % 10][:TIER_MAT]
+    sources = [(eng, i) for i in ids]
+    heads = [eng.heads(i) for i in ids]
+    parked = len(eng.main)
+
+    def read():
+        outs = materialize_at_docs(sources, heads, fleet=eng.fleet)
+        torch.cuda.synchronize()
+        return outs
+    d0 = eng.fleet.metrics.dispatches
+    outs = read()
+    if eng.fleet.metrics.dispatches - d0 != 1:
+        fail(f'tier materialize_at: {eng.fleet.metrics.dispatches - d0} '
+             f'dispatches for one batched read (want 1)')
+    want = [{'k0': d * 1000, 'k1': d * 1000 + 1}
+            for d in (i % TIER_DISTINCT for i in ids)]
+    rows = grid_view(eng.fleet, outs, 'tier materialize_at')
+    if materialize_docs(outs) != want or \
+            [{k: v[2] for k, v in row.items()} for row in rows] != want or \
+            [bytes(h['state'].save()) for h in outs] != \
+            [chunks[i % TIER_DISTINCT] for i in ids]:
+        fail('tier materialize_at: a doc read from the card, its grid row or '
+             'its save() != its chunk\'s')
+    free_docs(outs)
+    if len(eng.main) != parked or any(i not in eng._row_of for i in ids):
+        fail('tier materialize_at: the read revived a parked doc')
+    times = []
+    with check.paused():
+        for _ in range(3):
+            t0 = time.perf_counter()
+            outs = read()
+            times.append(time.perf_counter() - t0)
+            free_docs(outs)
+    rate = TIER_MAT / statistics.median(times)
+    log(f'tier materialize_at: {TIER_MAT} parked docs of the reopened disk '
+        f'engine read at their heads in one dispatch, none revived: '
+        f'{rate:.1f} docs/s (median of 3 after a checked read; '
+        f'{[round(TIER_MAT / t) for t in times]}); every doc and grid row '
+        f'read from the card and every save() == its chunk\'s')
+    return rate
+
+
 def quiet_handshakes(chunks):
     """For each chunk, both sides' sync states once the per-link host
     protocol between a host backend of the chunk and an empty peer has
@@ -2825,6 +3475,11 @@ def storage_path(per_doc):
             eng, chunks, nums['tier'] = storage_leg(
                 'tier', legs, lambda: tier_leg(root))
             check.verify('tier')
+            nums['tier_mat_docs_per_s'] = storage_leg(
+                'tier materialize_at', legs,
+                lambda: tier_mat_leg(eng, chunks, check),
+                needs=('lww_merge',))
+            check.verify('tier materialize_at')
             nums['mixed'] = mixed_leg(eng, chunks, legs, check)
             check.verify('mixed round')
             eng.close()
@@ -3807,6 +4462,10 @@ def main():
         t0 = lap('text seam', t0)
         load_launches, load_nums = load_path()
         t0 = lap('load', t0)
+        api_launches, api_checks, api_nums = api_path()
+        t0 = lap('api', t0)
+        query_launches, query_checks, query_nums = query_path()
+        t0 = lap('query', t0)
         # the storage path before the sync hub: its legs then run without
         # the hub's 100,000 links alive, which each collector pass walks
         storage_launches, storage_checks, storage_nums, inline_events = \
@@ -3826,6 +4485,9 @@ def main():
     del reg_input, sync_inputs
     storage_nums['inline'] = inline_numbers(inline_events)
     log(f'storage numbers: {json.dumps(storage_nums)}')
+    log(f'api numbers: {json.dumps(dict(api_nums, launches=api_launches))}')
+    log(f'query numbers: '
+        f'{json.dumps(dict(query_nums, launches=query_launches))}')
     seq_nums = seq_numbers(seq_input, seq_pools, base.get('seq'))
     del seq_input, seq_pools
     breakdown(per_doc)
@@ -3895,9 +4557,17 @@ def main():
                       'plain_ms', 'bound_ms', 'base_ms', 'base_cold_ms')
                      if key in nums} for nums in seq_nums['batches']]})
     for entry in kernels:
-        entry['storage_launches'] = storage_launches[entry['name']]
-        entry['storage_checked'] = storage_checks['checked'][entry['name']]
-        entry['storage_max_abs_err'] = storage_checks['worst'][entry['name']]
+        name = entry['name']
+        entry['storage_launches'] = storage_launches[name]
+        entry['storage_checked'] = storage_checks['checked'][name]
+        entry['storage_max_abs_err'] = storage_checks['worst'][name]
+        entry['api_launches'] = api_launches[name]
+        entry['api_checked'] = api_checks['checked'][name]
+        entry['query_launches'] = query_launches[name]
+        entry['query_checked'] = query_checks['checked'][name]
+        entry['max_abs_err'] = max(entry['max_abs_err'],
+                                   api_checks['worst'][name],
+                                   query_checks['worst'][name])
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

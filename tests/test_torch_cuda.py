@@ -896,3 +896,127 @@ def test_mixed_round_on_the_card_matches_the_cpu(cuda):
                                   for j in divergent]
     for a, b in zip(arrays['cpu'], arrays['cuda']):
         np.testing.assert_array_equal(b, a)
+
+
+# ---- the Automerge.* API and the query engine -------------------------------
+
+def _launches():
+    return (LAUNCHES['lww_merge'], register_kernel.LAUNCHES['register_scan'],
+            seq_kernel.LAUNCHES['seq_scan'])
+
+
+@pytest.mark.parametrize('exact', [False, True])
+def test_api_on_the_card_matches_the_cpu(cuda, exact):
+    """api_cases.integration_docs through the port's Automerge.* API with
+    a FleetBackend(DocFleet(64 docs, 64 keys)) on each device: the same
+    documents, saves, documents read from the device (materialize_docs)
+    and device state (the grids' real key columns, or the registers); all
+    equal the host backend's documents and saves, and the card's reads
+    launched the merge (or the register scan) and the sequence scan."""
+    import automerge_tpu_torch as A
+    from automerge_tpu_torch import api_cases
+    host = api_cases.integration_docs(A)
+    names = list(host)
+    results, arrays = {}, {}
+    for dev in ('cpu', 'cuda'):
+        fleet = backend.DocFleet(doc_capacity=64, key_capacity=64,
+                                 exact_device=exact, device=dev)
+        before = _launches()
+        A.set_default_backend(backend.FleetBackend(fleet))
+        try:
+            docs = api_cases.integration_docs(A)
+            read = backend.materialize_docs(
+                [A.Frontend.get_backend_state(docs[n]) for n in names])
+            saves = [bytes(A.save(docs[n])) for n in names]
+        finally:
+            A.set_default_backend(A.backend)
+        launched = [b - a for a, b in zip(before, _launches())]
+        if dev == 'cuda':
+            assert launched[1 if exact else 0] > 0 and launched[2] > 0
+        else:
+            assert not any(launched)
+        assert fleet.metrics.promotions == 0
+        results[dev] = ([docs[n].to_py() for n in names], saves, read)
+        arrays[dev] = _device_arrays(fleet)
+    assert results['cuda'] == results['cpu']
+    assert results['cuda'][0] == [host[n].to_py() for n in names]
+    assert results['cuda'][1] == [bytes(A.save(host[n])) for n in names]
+    assert results['cuda'][2] == [api_cases.reading(A, host[n])
+                                  for n in names]
+    for a, b in zip(arrays['cpu'], arrays['cuda']):
+        np.testing.assert_array_equal(b, a)
+
+
+@pytest.mark.parametrize('exact', [False, True])
+def test_materialize_at_on_the_card_matches_the_cpu(cuda, exact):
+    """query_history's 64 docs x 6 changes read at the mid frontier in
+    one batched materialize_at_docs on each device: one dispatch, the
+    same saves, documents read from the device and device state; every
+    doc holds k0..k3 = d * 100 + c."""
+    from automerge_tpu_torch import api_cases
+    from automerge_tpu_torch.query import materialize_at_docs
+    n = 64
+    batches, _heads, mid = api_cases.query_history(n)
+    results, arrays = {}, {}
+    for dev in ('cpu', 'cuda'):
+        fleet = backend.DocFleet(exact_device=exact, device=dev)
+        handles = backend.init_docs(n, fleet)
+        for per_doc in batches:
+            handles, _ = backend.apply_changes_docs(handles, per_doc,
+                                                    mirror=False)
+        before, d0 = _launches(), fleet.metrics.dispatches
+        outs = materialize_at_docs(handles, mid, fleet=fleet)
+        assert fleet.metrics.dispatches == d0 + 1
+        launched = [b - a for a, b in zip(before, _launches())]
+        assert (launched[1 if exact else 0] == 1) == (dev == 'cuda')
+        read = backend.materialize_docs(outs)
+        assert read == [{f'k{c}': d * 100 + c for c in range(4)}
+                        for d in range(n)]
+        results[dev] = ([bytes(h['state'].save()) for h in outs], read,
+                        [h['state']._impl.slot for h in outs])
+        arrays[dev] = _device_arrays(fleet)
+    assert results['cuda'] == results['cpu']
+    for a, b in zip(arrays['cpu'], arrays['cuda']):
+        np.testing.assert_array_equal(b, a)
+
+
+def test_quiet_tick_is_one_compare_on_the_card(cuda, monkeypatch):
+    """A hub with no device over docs of a fleet on the card: the
+    all-quiet tick is one frontier_compare dispatch, run on the fleet's
+    device, and no merge dispatch; the CPU fleet's hub answers the
+    same."""
+    from automerge_tpu_torch import api_cases
+    from automerge_tpu_torch.fleet import hashindex
+    from automerge_tpu_torch.query import SubscriptionHub
+    n = 64
+    batches, heads, _mid = api_cases.query_history(n, n_changes=2)
+    compare = hashindex.frontier_compare
+    seen = []
+
+    def spy(*args, device=None):
+        seen.append(torch.device(device).type)
+        return compare(*args, device=device)
+    monkeypatch.setattr(hashindex, 'frontier_compare', spy)
+    results = {}
+    for dev in ('cpu', 'cuda'):
+        fleet = backend.DocFleet(device=dev)
+        handles = backend.init_docs(n, fleet)
+        for per_doc in batches:
+            handles, _ = backend.apply_changes_docs(handles, per_doc,
+                                                    mirror=False)
+        hub = SubscriptionHub()
+        for d, handle in enumerate(handles):
+            hub.register(d, handle)
+        for s in range(4 * n):
+            hub.subscribe(s % n, cursor=heads[s % n] if s < 2 * n else [])
+        first = hub.tick()
+        seen.clear()
+        n0, d0 = hashindex.dispatch_count(), fleet.metrics.dispatches
+        assert hub.tick() == {}
+        assert (hashindex.dispatch_count() - n0,
+                fleet.metrics.dispatches - d0) == (1, 0)
+        assert seen == [dev]
+        results[dev] = ({sid: ([bytes(c) for c in ev['changes']],
+                               ev['heads']) for sid, ev in first.items()},
+                        dict(hub.stats))
+    assert results['cuda'] == results['cpu']

@@ -41,6 +41,10 @@ def test_import_leaves_jax_and_reference_out():
             'automerge_tpu_torch.fleet.storage\n'
             'import automerge_tpu_torch.fleet.tiering, '
             'automerge_tpu_torch.fleet.crash_cases\n'
+            'import automerge_tpu_torch.frontend, automerge_tpu_torch.query\n'
+            'import automerge_tpu_torch.api_cases\n'
+            'import automerge_tpu_torch.query.subscriptions, '
+            'automerge_tpu_torch.query.timetravel\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "automerge_tpu")]\n'
             'assert not bad, bad\n'
