@@ -24,10 +24,16 @@ CPU). The entry points keep the reference's names and contracts:
 
 Every other entry point returns (state, stats) with stats the number of
 valid op lanes (a 0-d int32 tensor).
+
+Each entry point is wrapped for the kernel cost ledger under the
+reference's kind name (observability/perf.py `instrument_kernel`); the
+entry points that build on another call its unwrapped body, so one call
+counts one dispatch, as one jitted call does in the reference.
 """
 
 import torch
 
+from ..observability.perf import instrument_kernel
 from .merge_kernel import lww_merge
 from .tensor_doc import FleetState
 
@@ -43,17 +49,17 @@ def _empty(n_docs, n_keys, device):
                         for _ in range(3)))
 
 
-def apply_op_batch_donated(state, ops):
+def _apply_op_batch_donated(state, ops):
     """Apply one OpBatch to the fleet in place. Returns (state, stats)."""
     return state, lww_merge(state, ops)
 
 
-def apply_op_batch(state, ops):
+def _apply_op_batch(state, ops):
     """Apply one OpBatch; the input state is not modified."""
-    return apply_op_batch_donated(_clone(state), ops)
+    return _apply_op_batch_donated(_clone(state), ops)
 
 
-def apply_op_batch_noinc_donated(state, ops):
+def _apply_op_batch_noinc_donated(state, ops):
     """Set-only batches (no inc lanes — the caller checks host-side) on a
     counter-free grid: the counter grid passes through untouched. Only
     byte-identical to the general merge while the counter grid is
@@ -61,12 +67,12 @@ def apply_op_batch_noinc_donated(state, ops):
     return state, lww_merge(state, ops, noinc=True)
 
 
-def apply_op_batch_noinc_fresh(ops, n_docs, n_keys):
+def _apply_op_batch_noinc_fresh(ops, n_docs, n_keys):
     state = _empty(n_docs, n_keys, ops.key_id.device)
     return state, lww_merge(state, ops, noinc=True, fresh=True)
 
 
-def apply_op_batch_fresh(ops, n_docs, n_keys):
+def _apply_op_batch_fresh(ops, n_docs, n_keys):
     """First dispatch of a FRESH fleet: the zero state is created inside
     the merge (one pass over the grid instead of a memset + a merge)."""
     state = _empty(n_docs, n_keys, ops.key_id.device)
@@ -113,7 +119,7 @@ def clear_killed(state, kill_key, kill_packed):
         t.masked_fill_(killed, 0)
 
 
-def apply_op_batch_kills_donated(state, ops, kill_key, kill_packed):
+def _apply_op_batch_kills_donated(state, ops, kill_key, kill_packed):
     """One OpBatch plus delete kill lanes [N, Q] (pred-scoped deletes,
     ref new.js:1204-1217), in place."""
     kill_key, kill_packed = _lanes(kill_key, state), _lanes(kill_packed, state)
@@ -121,12 +127,13 @@ def apply_op_batch_kills_donated(state, ops, kill_key, kill_packed):
     return state, lww_merge(state, mask_killed_sets(ops, kill_packed))
 
 
-def apply_op_batch_kills(state, ops, kill_key, kill_packed):
-    return apply_op_batch_kills_donated(_clone(state), ops, kill_key,
-                                        kill_packed)
+def _apply_op_batch_kills(state, ops, kill_key, kill_packed):
+    return _apply_op_batch_kills_donated(_clone(state), ops, kill_key,
+                                         kill_packed)
 
 
-def apply_op_batch_kills_fresh(ops, kill_key, kill_packed, n_docs, n_keys):
+def _apply_op_batch_kills_fresh(ops, kill_key, kill_packed, n_docs,
+                                n_keys):
     """Kills-aware fresh dispatch: kills against an all-zero grid cannot
     hit, but the lane masking of same-batch sets still runs."""
     state = _empty(n_docs, n_keys, ops.key_id.device)
@@ -140,7 +147,7 @@ def _lanes(kill, state):
                                     dtype=torch.int32)
 
 
-def zero_doc_rows_donated(state, idx):
+def _zero_doc_rows_donated(state, idx):
     """Zero the given docs' rows across every grid, in place (duplicate
     indices are fine: zeroing is idempotent)."""
     idx = torch.as_tensor(idx).to(device=state.winners.device,
@@ -148,6 +155,25 @@ def zero_doc_rows_donated(state, idx):
     for t in state.tensors():
         t.index_fill_(0, idx, 0)
     return state
+
+
+apply_op_batch = instrument_kernel('apply_op_batch', _apply_op_batch)
+apply_op_batch_donated = instrument_kernel('apply_op_batch_donated',
+                                           _apply_op_batch_donated)
+apply_op_batch_noinc_donated = instrument_kernel(
+    'apply_op_batch_noinc_donated', _apply_op_batch_noinc_donated)
+apply_op_batch_noinc_fresh = instrument_kernel(
+    'apply_op_batch_noinc_fresh', _apply_op_batch_noinc_fresh)
+apply_op_batch_fresh = instrument_kernel('apply_op_batch_fresh',
+                                         _apply_op_batch_fresh)
+apply_op_batch_kills = instrument_kernel('apply_op_batch_kills',
+                                         _apply_op_batch_kills)
+apply_op_batch_kills_donated = instrument_kernel(
+    'apply_op_batch_kills_donated', _apply_op_batch_kills_donated)
+apply_op_batch_kills_fresh = instrument_kernel(
+    'apply_op_batch_kills_fresh', _apply_op_batch_kills_fresh)
+zero_doc_rows_donated = instrument_kernel('zero_doc_rows_donated',
+                                          _zero_doc_rows_donated)
 
 
 def fleet_merge(state, op_batches):

@@ -6,7 +6,10 @@ hand-written CUDA kernels of fleet/sync_kernels.py (`bloom_build`,
 `bloom_probe`). The single-tensor API (`build_bloom_filters`,
 `probe_bloom_filters`, over uniform [N, B] bool rows) serves no sync
 round and runs as plain torch ops on the caller's device. Entry points
-run on the card unless the caller passes `device='cpu'`.
+run on the card unless the caller passes `device='cpu'`. The four
+dispatches are wrapped for the kernel cost ledger under the reference's
+kind names (`bloom_build_varsize`, `bloom_probe_varsize`,
+`bloom_build_flat_packed`, `bloom_probe_flat_packed`).
 
 The reference's description follows.
 
@@ -50,6 +53,7 @@ def dispatch_count():
 
 from ..observability import hist as _hist  # noqa: E402
 from ..observability import register_dispatch_source  # noqa: E402
+from ..observability.perf import instrument_kernel  # noqa: E402
 from ..observability.spans import spanned as _spanned  # noqa: E402
 register_dispatch_source('bloom', dispatch_count)
 
@@ -196,6 +200,23 @@ def _probe_varsize(bits, row_bits, words, valid):
     return hit.all(dim=-1) & valid
 
 
+def _build_flat_packed(words, valid, row_bits, bit_off, total_bits):
+    return sync_kernels.bloom_build(words, valid, row_bits, bit_off,
+                                    total_bits)
+
+
+def _probe_flat_packed(flat, row_bits, byte_off, words, valid):
+    return sync_kernels.bloom_probe(flat, row_bits, byte_off, words, valid)
+
+
+_build_varsize = instrument_kernel('bloom_build_varsize', _build_varsize)
+_probe_varsize = instrument_kernel('bloom_probe_varsize', _probe_varsize)
+_build_flat_packed = instrument_kernel('bloom_build_flat_packed',
+                                       _build_flat_packed)
+_probe_flat_packed = instrument_kernel('bloom_probe_flat_packed',
+                                       _probe_flat_packed)
+
+
 # Flat packed layout: filter i owns bits [bit_off[i], bit_off[i] +
 # row_bits[i]) of one flat bit vector (byte-aligned: num_filter_bits is a
 # whole number of bytes by construction). Build scatters every probe of
@@ -294,7 +315,7 @@ def build_bloom_filters_batch_begin(hash_lists, device=None):
     dev = resolve_device(device)
     words, valid, row_bits, bit_off, total_bits, byte_off = \
         flat_build_lanes(hash_lists)
-    packed = sync_kernels.bloom_build(
+    packed = _build_flat_packed(
         *lanes_to(words, valid, row_bits, bit_off, dev), total_bits)
     _dispatches += 1
     return len(hash_lists), entry_counts, live, byte_off, packed
@@ -377,8 +398,8 @@ def probe_bloom_filters_batch_begin(filter_bytes, hash_lists, device=None):
         [raw for _, raw, _ in rows], [hash_lists[i] for i, _, _ in rows])
     words_t, valid_t, row_bits_t, off_t = lanes_to(
         words, valid, row_bits, byte_off, dev)
-    hit = sync_kernels.bloom_probe(torch.from_numpy(flat).to(dev),
-                                   row_bits_t, off_t, words_t, valid_t)
+    hit = _probe_flat_packed(torch.from_numpy(flat).to(dev),
+                             row_bits_t, off_t, words_t, valid_t)
     _dispatches += 1
     return out, hash_lists, rows, hit
 

@@ -56,7 +56,10 @@ head32/head_n lanes), collapsing the subscription hub's 10k-subscriber
 quiet tick into a single device call (query/subscriptions.py).
 
 The module registers dispatch/memory/health sources like fleet/bloom.py
-does; `sync_kernels.LAUNCHES` counts the kernels' launches.
+does; `sync_kernels.LAUNCHES` counts the kernels' launches. The insert,
+the probe and the compare are wrapped for the kernel cost ledger under
+the reference's kind names (`hashindex_insert`, `hashindex_probe`,
+`frontier_compare`).
 """
 
 import weakref
@@ -150,6 +153,7 @@ def set_probe_window(width):
 from ..observability import (register_dispatch_source,  # noqa: E402
                              register_mem_source)
 from ..observability.metrics import Counters  # noqa: E402
+from ..observability.perf import instrument_kernel  # noqa: E402
 from ..observability.spans import spanned as _spanned  # noqa: E402
 register_dispatch_source('hashindex', dispatch_count)
 
@@ -224,6 +228,22 @@ def _compare(cur32, cur_n, doc32, doc_n):
     Elementwise torch ops (hashindex.py `_compare_kernel`)."""
     eq = (cur32 == doc32).all(dim=-1)
     return (cur_n == doc_n) & ((cur_n == 0) | ((cur_n == 1) & eq))
+
+
+def _insert_kernel(tkey, tspace, keys, spaces, valid, **kwargs):
+    return sync_kernels.hashindex_insert(tkey, tspace, keys, spaces, valid,
+                                         **kwargs)
+
+
+def _probe_kernel(tkey, tspace, keys, spaces, valid, **kwargs):
+    return sync_kernels.hashindex_probe(tkey, tspace, keys, spaces, valid,
+                                        **kwargs)
+
+
+_insert_kernel = instrument_kernel('hashindex_insert', _insert_kernel,
+                                   guards=('max_occupancy', 'load_max'))
+_probe_kernel = instrument_kernel('hashindex_probe', _probe_kernel)
+_compare = instrument_kernel('frontier_compare', _compare)
 
 
 def _pad_batch(words, spaces, valid, floor=8):
@@ -407,7 +427,7 @@ class HashIndex:
         global _dispatches
         words, spaces_p, valid_p = _pad_batch(
             _rows_to_words(rows), spaces, valid)
-        hit = sync_kernels.hashindex_probe(
+        hit = _probe_kernel(
             self._tkey, self._tspace, *self._to_device(words, spaces_p,
                                                        valid_p),
             window=_probe_window)
@@ -440,7 +460,7 @@ class HashIndex:
         global _dispatches
         # the kernel's walks end because the table stays under load_max
         # (_ensure_capacity sized it for every valid row)
-        n_new = sync_kernels.hashindex_insert(
+        n_new = _insert_kernel(
             self._tkey, self._tspace, keys, spaces, valid,
             max_occupancy=self.occupancy + int(valid.sum()),
             load_max=self.load_max)

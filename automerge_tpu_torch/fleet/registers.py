@@ -28,12 +28,15 @@ host engine.
 The ordered scan over each document's ops is
 `register_kernel.register_scan` (a hand-written CUDA kernel on the
 card, its plain torch version on the CPU). Row zeroing and the visible-set read are
-torch ops on the state's device.
+torch ops on the state's device. The entry points are wrapped for the
+kernel cost ledger under the reference's kind names
+(observability/perf.py `instrument_kernel`).
 """
 
 import numpy as np
 import torch
 
+from ..observability.perf import instrument_kernel
 from .register_kernel import ACTOR_MASK, DEL, INC, PAD, SET, register_scan
 
 
@@ -107,19 +110,19 @@ def _clone(state):
     return RegisterState(*(t.clone() for t in state.tensors()))
 
 
-def apply_register_batch_donated(state, ops):
+def _apply_register_batch_donated(state, ops):
     """Apply one RegisterOpBatch to `state` in place. Returns (state,
     applied) with applied the number of non-PAD op lanes (a 0-d int32
     tensor)."""
     return state, register_scan(state, ops)
 
 
-def apply_register_batch(state, ops):
+def _apply_register_batch(state, ops):
     """Apply one RegisterOpBatch; the input state is not modified."""
-    return apply_register_batch_donated(_clone(state), ops)
+    return _apply_register_batch_donated(_clone(state), ops)
 
 
-def zero_register_rows_donated(state, idx):
+def _zero_register_rows_donated(state, idx):
     """Zero the given docs' rows across every register array, in place
     (idempotent under duplicate indices)."""
     idx = torch.as_tensor(idx, dtype=torch.int64).to(state.reg.device)
@@ -128,7 +131,7 @@ def zero_register_rows_donated(state, idx):
     return state
 
 
-def visible_registers(state):
+def _visible_registers(state):
     """(visible [N, K+1, A] bool, winner_slot [N, K+1] int32,
     winner_packed [N, K+1] int32): the multi-value register contents and
     the Lamport winner per key (packed ids order like lamportCompare
@@ -144,6 +147,16 @@ def visible_registers(state):
                               masked.shape[-1]).min(dim=-1).values
     winner_packed = torch.where(visible, state.reg, 0).max(dim=-1).values
     return visible, winner_slot.to(torch.int32), winner_packed
+
+
+apply_register_batch = instrument_kernel('apply_register_batch',
+                                         _apply_register_batch)
+apply_register_batch_donated = instrument_kernel(
+    'apply_register_batch_donated', _apply_register_batch_donated)
+zero_register_rows_donated = instrument_kernel(
+    'zero_register_rows_donated', _zero_register_rows_donated)
+visible_registers = instrument_kernel('visible_registers',
+                                      _visible_registers)
 
 
 def register_state_from_numpy(reg, killed, value, counter, inexact,

@@ -5,7 +5,11 @@ class is a SeqState of torch tensors on one device; the fleet's dispatch
 paths update it IN PLACE (the counterpart of the JAX package's donated
 buffers). The per-doc scan is `seq_kernel.seq_scan` (a hand-written CUDA
 kernel on the card, its plain torch version on the CPU); visibility,
-linearize and materialize are torch ops on the state's device.
+linearize and materialize are torch ops on the state's device. The
+entry points are wrapped for the kernel cost ledger under the
+reference's kind names (observability/perf.py `instrument_kernel`);
+materialize calls the unwrapped visibility and linearize, as the
+reference's jitted materialize does.
 
 The reference's description follows.
 
@@ -51,6 +55,7 @@ that don't pred their own op, pred lists past SEQ_PRED_LANES) flag the row
 import numpy as np
 import torch
 
+from ..observability.perf import instrument_kernel
 from .seq_kernel import (ACTOR_MASK, DEL, END, HEAD, HEAD_REF, INC, INSERT,
                          PAD, SCRATCH, SET, SLOT0, seq_scan)
 from .tensor_doc import pack_op_id
@@ -252,7 +257,7 @@ def _as_tensor(col, device, dtype):
     return col.to(device).contiguous()
 
 
-def apply_seq_batch_donated(state, ops):
+def _apply_seq_batch_donated(state, ops):
     """Apply one SeqOpBatch to `state` in place. Returns (state, applied),
     applied the number of applied ops (a 0-d int32 tensor)."""
     if not isinstance(ops.kind, torch.Tensor):
@@ -260,9 +265,9 @@ def apply_seq_batch_donated(state, ops):
     return state, seq_scan(state, ops)
 
 
-def apply_seq_batch(state, ops):
+def _apply_seq_batch(state, ops):
     """Apply one SeqOpBatch; the input state is not modified."""
-    return apply_seq_batch_donated(
+    return _apply_seq_batch_donated(
         SeqState(*(t.clone() for t in state.tensors())), ops)
 
 
@@ -274,7 +279,7 @@ def _first_argmax(x):
     return torch.where(x == top, idx, x.shape[-1]).min(dim=-1).values
 
 
-def element_visibility(state):
+def _element_visibility(state):
     """Per-element visibility and Lamport winner from the registers:
     (vis [N, S+3] bool, winner [N, S+3] int32 packed, value [N, S+3],
     counter [N, S+3] — the winning lane's accumulated inc deltas)."""
@@ -287,7 +292,7 @@ def element_visibility(state):
     return vis, winner, value, cnt
 
 
-def linearize(state):
+def _linearize(state):
     """List-rank every node: returns (pos [N, S+3], length [N]).
 
     pos is node-indexed (sentinels at 0..2, real slots from SLOT0=3, in
@@ -310,7 +315,7 @@ def linearize(state):
     return dist[:, HEAD:HEAD + 1] - dist - 1, state.n
 
 
-def materialize(state):
+def _materialize(state):
     """Return (vals [N, S], cnts [N, S], vis [N, S], length [N]) in
     sequence order.
 
@@ -325,8 +330,8 @@ def materialize(state):
     n_docs, nodes = state.elem_id.shape
     capacity = nodes - 3
     dev = state.elem_id.device
-    pos, n = linearize(state)
-    e_vis, _winner, e_val, e_cnt = element_visibility(state)
+    pos, n = _linearize(state)
+    e_vis, _winner, e_val, e_cnt = _element_visibility(state)
     node_ids = torch.arange(nodes, device=dev)
     alloc = (node_ids >= SLOT0) & (node_ids < SLOT0 + n.long().unsqueeze(1))
     # Scatter into sequence order; masked lanes land on a trailing
@@ -338,6 +343,15 @@ def materialize(state):
         out.scatter_(1, tgt, torch.where(alloc, x, torch.zeros_like(x)))
         outs.append(out[:, :capacity])
     return outs[0], outs[1], outs[2], n
+
+
+apply_seq_batch = instrument_kernel('apply_seq_batch', _apply_seq_batch)
+apply_seq_batch_donated = instrument_kernel('apply_seq_batch_donated',
+                                            _apply_seq_batch_donated)
+element_visibility = instrument_kernel('element_visibility',
+                                       _element_visibility)
+linearize = instrument_kernel('linearize', _linearize)
+materialize = instrument_kernel('materialize', _materialize)
 
 
 def visible_text(state):

@@ -121,7 +121,7 @@ Phases (any failure exits non-zero):
      per batch, no fallback, every doc read from the card == the
      authoring document, the grid and sequence rows == a CPU fleet's;
      changes/s (median of 3 warm reps) and ops per change; a traced rep.
-     The per-doc API at hub scale: 1,000 docs on one FleetBackend through
+     The per-doc API at hub scale: 500 docs on one FleetBackend through
      A.load of the mixed document's save(), each taking one A.change by
      a second actor and one A.merge of a concurrent edit, then one read
      that flushes them: every value, and every doc read from the card, ==
@@ -148,6 +148,28 @@ Phases (any failure exits non-zero):
      its byte bound. In both paths the first 64 calls of each kernel
      wrapper of each leg are held to the plain version after it, as in
      the storage path;
+   - service: the multi-tenant service (bench.py _sec_service): the
+     three standing legs of automerge_tpu_torch/service_cases.py
+     run_standard_legs (clean, chaos, 2x overload) at 10,000 sessions,
+     256 tenants, 20,000 requests, seed 0 and a 0.25 sync fraction, each
+     on its own DocFleet(device='cuda') in LWW mode on the real clock,
+     with the launch counts set to 0 just before the leg and read just
+     after (lww_merge and the four sync kernels must have launched) and
+     the leg's device activity traced (the idle share): no untyped
+     escape, no edit mismatch, every drained sync session converged, the
+     SLO audit exact, brownout transitions under overload; every audited
+     edit doc's materialize_docs and grid row read from the card == a
+     CPU fleet fed exactly its committed changes; the kernel ledger on
+     for the clean leg, its report printed, its apply_op_batch*
+     dispatches == the lww_merge launches; render_prometheus of
+     the clean leg's SLO registry timed (bench.py _sec_slo (b)). Then
+     bench.py _sec_faults' quarantine round: 2,000 docs with 2 poisoned,
+     exactly those quarantined, the other 1,998 docs and grid rows read
+     from the card == a CPU fleet's, the health counters' deltas, its
+     time against a clean round's in turns; and one sync_until_quiet
+     between two card-backed docs over LossyLinks that drop, duplicate
+     and reorder, which must converge. The first 64 calls of each kernel
+     wrapper of each leg are held to the plain version after it;
    - storage: durability and the storage tier, each leg with the launch
      counts set to 0 just before it. The durable seam: the seam's batch
      through DurableFleet(fsync_bytes=4 MiB) on the card, whose grids
@@ -171,8 +193,9 @@ Phases (any failure exits non-zero):
      text and save() == pre-crash after a 256-op suffix, seq_scan
      launched. A crash dose (fleet/crash_cases.py, modes lww and exact,
      on the card) with no failure. The tier (bench.py
-     _sec_storage_tier): 1,000,000 docs of 2,048 distinct 2-change
-     documents parked on a disk arena; park docs/s, revive docs/s in
+     _sec_storage_tier, cut from 1,000,000 docs for the script's time
+     limit): 250,000 docs of 2,048 distinct 2-change documents parked on
+     a disk arena; park docs/s, revive docs/s in
      batches of 1,024 warm and after advise_cold (every revived doc's
      save(), materialize_docs and grid row == its chunk's, repark keeps
      the ids), resident bytes per doc, disk
@@ -247,7 +270,9 @@ Phases (any failure exits non-zero):
    calls on the main paths; the inline torch ops of DocFleet that the
    storage path launched (grid and register grows, the grid's actor
    remap and the register lane permutation), each at the largest shape
-   it had there, beside its byte bound and its calls; traced breakdowns
+   it had there, beside its byte bound and its calls, and the counter
+   rebase, the sequence pool grow and the sequence row copy at the
+   largest shape the main paths gave them; traced breakdowns
    of the seam, the pipelined seam, the exact seam, the text seam and
    one steady sync round; the
    grid bytes, and the card's name and power limit.
@@ -1517,7 +1542,8 @@ API_SHAPES_DOCS, API_SHAPES_KEYS = 64, 64
 API_DOCS = 10_000        # the mixed document's fleet: the seam cells' 10,000
                          # docs (bench.py BENCH_MIXED_DOCS defaults to 500)
 API_REPS = 3             # changes/s: the median of 3 warm reps
-API_HUB_DOCS = 1_000     # per-doc API docs on one FleetBackend
+API_HUB_DOCS = 500       # per-doc API docs on one FleetBackend (1,000
+                         # until the service path joined the script)
 API_SAMPLES = 16         # of them, run through the host backend as well
 
 
@@ -1563,9 +1589,9 @@ def api_shapes(exact, device):
 def api_path():
     """The Automerge.* API on the card (see the module docstring): the
     integration shapes in both modes, the mixed document at 10,000 docs
-    and the per-doc API at 1,000 docs. Each leg runs with every launch
-    count set to 0 just before it; the kernel calls each leg kept are
-    held to the plain versions after it. Returns the launches summed
+    and the per-doc API at API_HUB_DOCS docs. Each leg runs with every
+    launch count set to 0 just before it; the kernel calls each leg kept
+    are held to the plain versions after it. Returns the launches summed
     over the legs and the calls held to the plain versions."""
     import numpy as np
     import torch
@@ -2050,6 +2076,351 @@ def query_path():
     return total, dict(checked=check.checked, worst=check.worst), nums
 
 
+# ---- the service path ------------------------------------------------------
+
+SERVICE_SESSIONS, SERVICE_TENANTS, SERVICE_REQUESTS = 10_000, 256, 20_000
+SERVICE_SYNC_FRACTION = 0.25     # bench.py _sec_service: run_standard_legs
+SERVICE_NEEDS = ('lww_merge', 'bloom_build', 'bloom_probe',
+                 'hashindex_insert', 'hashindex_probe')
+RENDER_REPS = 5                  # render_prometheus: the median of 5
+FAULT_DOCS, FAULT_POISONED = 2_000, (1, 1_000)   # bench.py _sec_faults
+FAULT_REPS = 3                   # quarantine and clean rounds, in turns
+
+
+@contextlib.contextmanager
+def device_trace(out):
+    """Trace the block's device activity only (torch.profiler's CUDA
+    activity: the kernel and copy records, no host-op recording, so the
+    block runs at close to its untraced speed). Sets out['wall'] (s) and
+    out['rows'] (the device rows as `traced` returns them), summed from
+    the profiler's raw records: `key_averages()` over a service leg's
+    hundreds of thousands of records added 23-34 s of Python to each
+    leg on the card's host."""
+    import torch
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        out['wall'] = time.perf_counter() - t0
+    per = {}
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        ns, count = per.get(evt.name(), (0, 0))
+        per[evt.name()] = (ns + evt.duration_ns(), count + 1)
+    out['rows'] = sorted(((ns / 1e6, name, count)
+                          for name, (ns, count) in per.items() if ns),
+                         reverse=True)
+
+
+def fault_workload(count):
+    """bench.py _sec_faults' round: one single-set change a doc, actors
+    cycling under the fleet's 256-actor cap."""
+    from automerge_tpu_torch.columnar import encode_change
+    return [[encode_change({
+        'actor': f'{d % 128:04x}' * 4, 'seq': 1, 'startOp': 1,
+        'time': 0, 'message': '', 'deps': [],
+        'ops': [{'action': 'set', 'obj': '_root', 'key': 'k',
+                 'value': d, 'datatype': 'int', 'pred': []}]})]
+        for d in range(count)]
+
+
+def service_legs(check, legs, nums):
+    """The three standing legs of the reference's bench (bench.py
+    _sec_service: clean, chaos, 2x overload) through
+    service_cases.run_standard_legs on the card, each with the launch
+    counts set to 0 just before it and read just after, its kernel calls
+    held to the plain versions after it, and its audited edit docs read
+    from the card beside a CPU fleet fed exactly the committed changes.
+    The kernel ledger is on for the clean leg. Returns the reports."""
+    from automerge_tpu_torch import service_cases
+    from automerge_tpu_torch.fleet.backend import (
+        DocFleet, apply_changes_docs, init_docs, materialize_docs)
+    from automerge_tpu_torch.observability import perf, render_prometheus
+    current = {}
+
+    @contextlib.contextmanager
+    def around(name):
+        current['leg'] = name
+        kernel_launches(reset=True)
+        if name == 'clean':
+            perf.reset_ledger()
+            perf.enable_ledger()
+        t0 = time.perf_counter()
+        trace = {}
+        try:
+            with device_trace(trace):
+                yield
+        finally:
+            perf.disable_ledger()
+        legs[name] = launches = kernel_launches()
+        current[name] = device_line(trace['wall'], trace['rows'])
+        missing = [k for k in SERVICE_NEEDS if launches[k] < 1]
+        if missing:
+            fail(f'service path, {name}: never launched {missing}')
+        log(f'service path, {name}: launches {launches} '
+            f'({time.perf_counter() - t0:.1f} s)')
+        if name == 'clean':
+            current['ledger'] = perf.kernel_report()
+        check.verify(name)
+
+    def audit(service, handles, committed):
+        tag = f'service path, {current["leg"]}'
+        if not handles:
+            fail(f'{tag}: no edit doc to audit')
+        # the CPU fleet is no part of the leg: keep it out of the ledger
+        ledger_on = perf.ledger_on()
+        perf.disable_ledger()
+        try:
+            cpu = DocFleet(device='cpu')
+            control, _ = apply_changes_docs(init_docs(len(handles), cpu),
+                                            committed, mirror=False)
+        finally:
+            if ledger_on:
+                perf.enable_ledger()
+        if materialize_docs(handles) != materialize_docs(control):
+            fail(f'{tag}: an edit doc read from the card != a CPU fleet '
+                 f'fed exactly its committed changes')
+        fleet = handles[0]['state'].fleet
+        if grid_view(fleet, handles, tag) != grid_view(cpu, control, tag):
+            fail(f'{tag}: an edit doc\'s grid row on the card != the CPU '
+                 f'fleet\'s')
+        out = {'docs': len(handles)}
+        if current['leg'] == 'clean':
+            times = []
+            for _ in range(RENDER_REPS):
+                t0 = time.perf_counter()
+                page = render_prometheus(slo=service.slo)
+                times.append(time.perf_counter() - t0)
+            out.update(render_ms=statistics.median(times) * 1e3,
+                       render_lines=page.count('\n'))
+        return out
+
+    reports = service_cases.run_standard_legs(
+        sessions=SERVICE_SESSIONS, tenants=SERVICE_TENANTS,
+        requests=SERVICE_REQUESTS, seed=0,
+        sync_fraction=SERVICE_SYNC_FRACTION, device=DEVICE, around=around,
+        audit=audit)
+    for report in reports:
+        name = report['leg']
+        conv = report['convergence']
+        slo = report['slo_audit']
+        bad = [key for key in report['rejections']
+               if key.startswith('UNTYPED')]
+        if report['untyped_escapes'] or bad:
+            fail(f'service path, {name}: untyped escapes '
+                 f'{report["untyped_escapes"]} {bad}')
+        if conv['edit_mismatches'] or \
+                conv['sync_converged'] != conv['sync_drained']:
+            fail(f'service path, {name}: convergence {conv}')
+        if not slo or 'mismatches' not in slo or slo['mismatches'] or \
+                not slo['pairs_checked']:
+            fail(f'service path, {name}: the SLO audit is not exact: {slo}')
+        if name == 'overload' and not report['brownout_transitions']:
+            fail('service path, overload: no brownout transition')
+        if report['submitted'] < SERVICE_REQUESTS or \
+                not report['completed_ok']:
+            fail(f'service path, {name}: {report["submitted"]} submitted, '
+                 f'{report["completed_ok"]} completed')
+        nums[name] = {key: report[key] for key in (
+            'completed_ok', 'submitted', 'p50_ms', 'p95_ms', 'p99_ms',
+            'requests_per_s', 'rounds_per_s', 'elapsed_s', 'ticks',
+            'rejections', 'brownout_transitions', 'chaos_corrupted',
+            'disconnected', 'replayed')}
+        nums[name].update(edit_docs_audited=conv['edit_docs_audited'],
+                          sync_converged=conv['sync_converged'],
+                          slo_pairs=slo['pairs_checked'],
+                          card_docs_read=report['audit']['docs'],
+                          idle_share=current[name])
+        log(f'service path, {name}: {report["completed_ok"]}/'
+            f'{report["submitted"]} ok at {SERVICE_SESSIONS} sessions / '
+            f'{SERVICE_TENANTS} tenants, p50 {report["p50_ms"]} ms, p99 '
+            f'{report["p99_ms"]} ms, {report["requests_per_s"]} req/s, '
+            f'{report["rounds_per_s"]} rounds/s, rejections '
+            f'{report["rejections"]}, brownout transitions '
+            f'{report["brownout_transitions"]}, convergence {conv}, SLO '
+            f'audit exact over {slo["pairs_checked"]} pairs; '
+            f'{report["audit"]["docs"]} edit docs and grid rows read from '
+            f'the card == a CPU fleet\'s; device idle share '
+            f'{current[name]:.4f}')
+    clean = reports[0]['audit']
+    nums['render_ms'] = clean['render_ms']
+    nums['render_lines'] = clean['render_lines']
+    log(f'service path, render_prometheus of the clean leg\'s SLO registry '
+        f'({clean["render_lines"]} lines): {clean["render_ms"]:.3f} ms '
+        f'(median of {RENDER_REPS})')
+    # the ledger of the clean leg (the ledger is off during its CPU
+    # audit): every apply_op_batch* dispatch on the card is one lww_merge
+    # launch
+    ledger = current['ledger']
+    applies = sum(row['dispatches'] for kind, row in ledger.items()
+                  if kind.startswith('apply_op_batch'))
+    merges = legs['clean']['lww_merge']
+    if applies != merges:
+        fail(f'service path, clean: the ledger counts {applies} '
+             f'apply_op_batch* dispatches, lww_merge launched {merges} '
+             f'times')
+    nums['ledger'] = {kind: {'dispatches': row['dispatches'],
+                             'seconds': row['seconds'],
+                             'signatures': len(row['signatures'])}
+                      for kind, row in ledger.items()}
+    log(f'service path, clean leg kernel ledger (dispatches, host-blocking '
+        f's, signatures): ' + '; '.join(
+            f'{kind} {row["dispatches"]} {row["seconds"]:.4f} '
+            f'{len(row["signatures"])}' for kind, row in sorted(
+                ledger.items())) +
+        f'; apply_op_batch* {applies} = lww_merge launches {merges}')
+    log('service path, clean leg ledger report: ' + json.dumps(
+        {kind: row for kind, row in sorted(ledger.items())}))
+    return reports
+
+
+def fault_leg(check, legs, nums):
+    """bench.py _sec_faults on the card: one quarantine round over
+    FAULT_DOCS docs with two poisoned, against a clean round of the
+    same docs (in turns); exactly the poisoned docs quarantined, every
+    other doc and grid row read from the card == a CPU fleet's; the
+    health counters' deltas. Then one sync_until_quiet between two
+    card-backed docs over LossyLinks that drop, duplicate and reorder."""
+    from automerge_tpu_torch import observability
+    from automerge_tpu_torch.fleet import backend as fleet_backend
+    from automerge_tpu_torch.fleet.backend import DocFleet, init_docs
+    from automerge_tpu_torch.fleet.faults import LossyLink, sync_until_quiet
+    import torch
+
+    def poisoned():
+        per_doc = fault_workload(FAULT_DOCS)
+        for bad in FAULT_POISONED:
+            buf = bytearray(per_doc[bad][0])
+            buf[10] ^= 0xFF
+            per_doc[bad] = [bytes(buf)]
+        return per_doc
+
+    def quarantine_round():
+        fleet = DocFleet(device=DEVICE)
+        handles = init_docs(FAULT_DOCS, fleet)
+        per_doc = poisoned()
+        t0 = time.perf_counter()
+        out, _patches, errors = fleet_backend.apply_changes_docs(
+            handles, per_doc, mirror=False, on_error='quarantine')
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, fleet, out, errors
+
+    def clean_round():
+        fleet = DocFleet(device=DEVICE)
+        handles = init_docs(FAULT_DOCS, fleet)
+        per_doc = fault_workload(FAULT_DOCS)
+        t0 = time.perf_counter()
+        fleet_backend.apply_changes_docs(handles, per_doc, mirror=False)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def run():
+        clean_round()                       # warm: the dispatch shapes
+        h0 = observability.health_counts()
+        sec, fleet, out, errors = quarantine_round()
+        delta = {k: v for k, v in observability.health_delta(h0).items()
+                 if v}
+        bad = [d for d, e in enumerate(errors) if e is not None]
+        if bad != list(FAULT_POISONED):
+            fail(f'service path, faults: quarantined {bad}, poisoned '
+                 f'{list(FAULT_POISONED)}')
+        keep = [d for d in range(FAULT_DOCS) if d not in FAULT_POISONED]
+        cpu = DocFleet(device='cpu')
+        ref = init_docs(FAULT_DOCS, cpu)
+        ref, _patches, ref_errors = fleet_backend.apply_changes_docs(
+            ref, poisoned(), mirror=False, on_error='quarantine')
+        if [d for d, e in enumerate(ref_errors) if e is not None] != bad:
+            fail('service path, faults: the CPU fleet quarantined other '
+                 'docs')
+        got = [out[d] for d in keep]
+        want = [ref[d] for d in keep]
+        tag = 'service path, faults'
+        if fleet_backend.materialize_docs(got) != \
+                fleet_backend.materialize_docs(want) or \
+                grid_view(fleet, got, tag) != grid_view(cpu, want, tag):
+            fail(f'{tag}: a surviving doc read from the card != the CPU '
+                 f'fleet\'s')
+        quarantine, clean = [sec], []
+        with check.paused():
+            for _ in range(FAULT_REPS):
+                clean.append(clean_round())
+                quarantine.append(quarantine_round()[0])
+        q, c = statistics.median(quarantine), statistics.median(clean)
+        nums['faults'] = dict(
+            quarantined=bad, survivors_read=len(keep),
+            quarantine_docs_per_s=FAULT_DOCS / q,
+            clean_docs_per_s=FAULT_DOCS / c, quarantine_cost=q / c,
+            health_delta=delta)
+        log(f'service path, faults: a {FAULT_DOCS}-doc round with docs '
+            f'{bad} poisoned quarantined exactly them; the other '
+            f'{len(keep)} docs and grid rows read from the card == a CPU '
+            f'fleet\'s; {FAULT_DOCS / q:.1f} docs/s quarantined vs '
+            f'{FAULT_DOCS / c:.1f} clean ({q / c:.3f}x the clean round\'s '
+            f'time; medians of {FAULT_REPS + 1} and {FAULT_REPS}, in '
+            f'turns); health counters this round: {delta}')
+
+        # two card-backed docs, each on its own fleet, diverge (one holds
+        # the fault round's doc 0 and 8 changes of one actor, the other 8
+        # of another), then sync over lossy links
+        from automerge_tpu_torch.columnar import encode_change
+        pair = []
+        for actor, first in (('aa', fault_workload(1)[0]), ('bb', [])):
+            (handle,) = init_docs(1, DocFleet(device=DEVICE))
+            (handle,), _ = fleet_backend.apply_changes_docs([handle], [
+                first + [encode_change({
+                    'actor': actor * 16, 'seq': s + 1, 'startOp': s + 1,
+                    'time': 0, 'message': '', 'deps': [],
+                    'ops': [{'action': 'set', 'obj': '_root',
+                             'key': f'{actor}{s}', 'value': s,
+                             'datatype': 'int', 'pred': []}]})
+                    for s in range(8)]], mirror=False)
+            pair.append(handle)
+        fault_p = dict(p_drop=0.2, p_dup=0.1, p_reorder=0.1)
+        na, nb, rounds, stats = sync_until_quiet(
+            pair[0], pair[1], fleet_backend, fleet_backend,
+            LossyLink(seed=21, budget=12, **fault_p),
+            LossyLink(seed=22, budget=12, **fault_p))
+        docs = fleet_backend.materialize_docs([na, nb])
+        if fleet_backend.get_heads(na) != fleet_backend.get_heads(nb) or \
+                docs[0] != docs[1] or len(docs[0]) != 17:
+            fail('service path, lossy sync: the two card-backed docs did '
+                 'not converge')
+        if any(not h['state'].is_fleet for h in (na, nb)):
+            fail('service path, lossy sync: a doc left its fleet')
+        nums['lossy_sync'] = dict(rounds=rounds, stats=stats)
+        log(f'service path, lossy sync: two card-backed docs converged over '
+            f'LossyLinks (drop 0.2, dup 0.1, reorder 0.1) in {rounds} '
+            f'rounds, both read from the card == each other (17 keys); '
+            f'link stats {stats}')
+    storage_leg('faults', legs, run, needs=('lww_merge',),
+                path='service path')
+    check.verify('faults')
+
+
+def service_path():
+    """The multi-tenant service on the card (see the module docstring).
+    Returns the launches summed over its legs, the calls held to the
+    plain versions and the numbers."""
+    legs, nums = {}, {}
+    with PathCheck('service path') as check:
+        service_legs(check, legs, nums)
+        gc.collect()
+        fault_leg(check, legs, nums)
+    total = {}
+    for launches in legs.values():
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+    log(f'service path launches: {total}; kernel calls held to their plain '
+        f'versions: {check.checked}')
+    missing = [name for name, n in total.items()
+               if n and not check.checked[name]]
+    if missing:
+        fail(f'service path: no call of {missing} held to its plain version')
+    return total, dict(checked=check.checked, worst=check.worst), nums
+
+
 # ---- the sync plane's main path --------------------------------------------
 
 LINKS, HUB_DOCS, DEPTH = 100_000, 4, 8
@@ -2314,7 +2685,10 @@ DUR_PAIRS = 6            # timed pairs of the durable seam, after a warm pair
 DUR_BUDGET_PCT = 15      # the reference's journaled-seam budget (bench.py)
 RECOVERY_COPIES = 3      # recovery docs/s: the median over fresh copies
 TEXT_RECOVERY_DOCS = 256  # the text leg's cut: 256 of the text seam's docs
-TIER_DOCS, TIER_DISTINCT, REVIVE_BATCH = 1_000_000, 2_048, 1_024
+# bench.py _sec_storage_tier parks 1,000,000 docs; cut to 250,000 since
+# the service path joined the script (the reopen of the remaining 90 %
+# was its longest piece: ~107-124 s at 900,000 docs)
+TIER_DOCS, TIER_DISTINCT, REVIVE_BATCH = 250_000, 2_048, 1_024
 MIXED_LINKS, MIXED_DIVERGENT, MIXED_SAMPLES, MIXED_ROUNDS = (
     100_000, 1_024, 64, 3)
 
@@ -2335,30 +2709,59 @@ def kernel_launches(reset=False):
 
 
 class InlineRecorder:
-    """While on, records the inline torch ops of DocFleet that the
-    storage path launches: each grid and register grow (the shapes
-    before and after) and each actor remap of the grid and of the
-    registers (the shape it rewrote)."""
+    """While on, records the inline torch ops of DocFleet that the paths
+    launch: each grid and register grow (the shapes before and after),
+    each actor remap of the grid and of the registers (the shape it
+    rewrote), each counter rebase that shifted a grid row on the device
+    (the grid's shape), each sequence pool grow (the [rows, nodes,
+    lanes] before and after) and each batch of sequence row copies (the
+    two pools' shapes and the rows copied)."""
 
     METHODS = ('_ensure_capacity', '_ensure_reg_capacity', '_remap_actors',
-               '_remap_reg_actors')
+               '_remap_reg_actors', '_rebase_slot')
 
     def __init__(self):
         self.events = {'grid_grow': [], 'register_grow': [],
-                       'grid_remap': [], 'register_remap': []}
+                       'grid_remap': [], 'register_remap': [],
+                       'counter_rebase': [], 'seq_grow': [],
+                       'row_copy': []}
         self._real = {}
 
     def __enter__(self):
+        from automerge_tpu_torch.fleet import sequence
         from automerge_tpu_torch.fleet.backend import DocFleet
         for name in self.METHODS:
-            self._real[name] = getattr(DocFleet, name)
-            setattr(DocFleet, name, self._wrap(name, self._real[name]))
+            self._real[(DocFleet, name)] = getattr(DocFleet, name)
+            setattr(DocFleet, name,
+                    self._wrap(name, self._real[(DocFleet, name)]))
+        grow = self._real[(sequence, 'grow_seq_state')] = \
+            sequence.grow_seq_state
+        copy = self._real[(sequence.SeqPools, 'copy_rows')] = \
+            sequence.SeqPools.copy_rows
+        events = self.events
+
+        def lanes(st):
+            return tuple(st.reg.shape)
+
+        def grow_seq_state(state, *args, **kwargs):
+            out = grow(state, *args, **kwargs)
+            if out is not state:
+                events['seq_grow'].append((lanes(state), lanes(out)))
+            return out
+
+        def copy_rows(pools, src_cls, src_idxs, dst_cls, dst_idxs):
+            out = copy(pools, src_cls, src_idxs, dst_cls, dst_idxs)
+            events['row_copy'].append((lanes(pools.pools[src_cls]),
+                                       lanes(pools.pools[dst_cls]),
+                                       len(src_idxs)))
+            return out
+        sequence.grow_seq_state = grow_seq_state
+        sequence.SeqPools.copy_rows = copy_rows
         return self
 
     def __exit__(self, *exc):
-        from automerge_tpu_torch.fleet.backend import DocFleet
-        for name, real in self._real.items():
-            setattr(DocFleet, name, real)
+        for (owner, name), real in self._real.items():
+            setattr(owner, name, real)
 
     def _wrap(self, name, real):
         def shape(fleet, grid):
@@ -2367,6 +2770,12 @@ class InlineRecorder:
                 tuple((st.winners if grid else st.reg).shape)
 
         def call(fleet, *args, **kwargs):
+            if name == '_rebase_slot':
+                d0 = fleet.metrics.dispatches
+                out = real(fleet, *args, **kwargs)
+                if fleet.metrics.dispatches != d0:
+                    self.events['counter_rebase'].append(shape(fleet, True))
+                return out
             grid = name in ('_ensure_capacity', '_remap_actors')
             before = shape(fleet, grid)
             out = real(fleet, *args, **kwargs)
@@ -2382,12 +2791,17 @@ class InlineRecorder:
         return call
 
 
-def inline_numbers(events):
-    """Each inline op the storage path launched, timed at the largest
-    shape it had there (device ms, queued behind a sleep, L2 warm),
-    beside its byte bound and its calls on the path. Bytes: the grow
+def inline_numbers(events, main_events, grid_shape):
+    """Each inline op the storage path launched (`events`), timed at the
+    largest shape it had there (device ms, queued behind a sleep, L2
+    warm), beside its byte bound and its calls on the path; then the
+    counter rebase, the sequence pool grow and the sequence row copy at
+    the largest shape every main path gave them (`main_events`; a rebase
+    no path ran is timed on a row of the seam's grid, `grid_shape`). Bytes: the grow
     reads the old cells once and writes the new array once; the remap
-    reads and writes the cells it rewrites."""
+    reads and writes the cells it rewrites; the rebase reads and writes
+    one grid row; the row copy reads the source rows and writes as many
+    cells."""
     import numpy as np
     import torch
     import types
@@ -2448,16 +2862,83 @@ def inline_numbers(events):
             calls=len(remaps), shape=f'[{n}, {k}, {a}]',
             **bound_of(n * k * a * sum(cell['register']) * 2,
                        n * k * a * 8))
+    out.update(seq_inline_numbers(main_events, grid_shape))
     for name in ('grid_grow', 'register_grow', 'grid_remap',
-                 'register_remap'):
+                 'register_remap', 'counter_rebase', 'seq_grow', 'row_copy'):
+        where = 'main paths' if name in ('counter_rebase', 'seq_grow',
+                                         'row_copy') else 'storage path'
         if name not in out:
-            log(f'inline op backend.{name}: no call on the storage path')
+            log(f'inline op backend.{name}: no call on the {where}')
             continue
         nums = out[name]
         log(f'inline op backend.{name} at {nums["shape"]}: '
             f'{nums["ms"]:.4f} ms, bound {nums["bound_ms"]:.4f} ms '
             f'({nums["bound_by"]}, {nums["bytes"]} B), calls on the '
-            f'storage path {nums["calls"]}')
+            f'{where} {nums["calls"]}')
+    return out
+
+
+def seq_bytes(shape):
+    """Bytes of a sequence pool [rows, nodes, lanes]: elem_id and nxt per
+    node, reg, killed, val and counter per (node, lane), n and inexact
+    per row."""
+    rows, nodes, lanes = shape
+    return rows * (nodes * (4 + 4 + lanes * (4 + 1 + 4 + 4)) + 4 + 1)
+
+
+def seq_inline_numbers(events, grid_shape):
+    """The counter rebase, the sequence pool grow and the sequence row
+    copy (see inline_numbers)."""
+    import torch
+    from automerge_tpu_torch.fleet.sequence import (SeqPools, SeqState,
+                                                    grow_seq_state)
+    dev = torch.device(DEVICE)
+    out = {}
+    rebases = events['counter_rebase']
+    n, k = max(rebases, key=lambda s: s[1]) if rebases else grid_shape
+    w = torch.randint(1, 1 << 20, (n, k), dtype=torch.int32, device=dev)
+    slot, delta = n // 2, 5 << 8
+
+    def rebase():
+        w[slot] = torch.where(w[slot] != 0, w[slot] - delta, 0)
+    out['counter_rebase'] = dict(
+        ms=time_ms(rebase), calls=len(rebases),
+        shape=f'a row of [{n}, {k}] int32',
+        **bound_of(k * 4 * 2, k * 3))
+    grows = events['seq_grow']
+    copies = events['row_copy']
+    if grows:
+        before, after = max(grows, key=lambda g: seq_bytes(g[1]))
+    else:
+        # no pool grew in place (each dispatch's reserve() sizes a new
+        # class at once): time the largest pool a row copy filled
+        # doubling its rows, as the next dispatch's reserve would
+        before = max((c[1] for c in copies), key=seq_bytes,
+                     default=(1_024, 16_387, 4))
+        after = (2 * before[0],) + before[1:]
+    old = SeqState.empty(before[0], before[1] - 3, actor_slots=before[2],
+                         device=dev)
+    out['seq_grow'] = dict(
+        ms=time_ms(lambda: grow_seq_state(old, after[0], after[1] - 3,
+                                          after[2]), reps=5),
+        calls=len(grows), shape=f'{before} -> {after}',
+        **bound_of(seq_bytes(before) + seq_bytes(after), 0))
+    del old
+    if copies:
+        src, dst, rows = max(copies, key=lambda c: c[2] * c[0][1])
+        pools = SeqPools(device=dev)
+        pools.pools = {0: SeqState.empty(src[0], src[1] - 3,
+                                         actor_slots=src[2], device=dev),
+                       1: SeqState.empty(dst[0], dst[1] - 3,
+                                         actor_slots=dst[2], device=dev)}
+        idxs = list(range(rows))
+        out['row_copy'] = dict(
+            ms=time_ms(lambda: pools.copy_rows(0, idxs, 1, idxs), reps=10),
+            calls=len(copies),
+            rows=sum(c[2] for c in copies),
+            shape=f'{rows} rows of {src} -> {dst}',
+            **bound_of(2 * seq_bytes((rows,) + src[1:]), 0))
+        del pools
     return out
 
 
@@ -3430,7 +3911,7 @@ def mixed_leg(eng, chunks, legs, check):
 def storage_path(per_doc):
     """Durability and the storage tier on the card (see the module
     docstring): the durable seam, recovery (LWW, exact and text), a
-    crash-injection dose, the 1,000,000-doc tier and the mixed
+    crash-injection dose, the 250,000-doc tier and the mixed
     live/parked sync round. Every leg runs with the launch counts set
     to 0 just before it, and the kernel calls each leg kept (PathCheck)
     are held to the plain versions after it. Returns the path's launches
@@ -4448,7 +4929,7 @@ def main():
     def lap(name, t0):
         phase_s[name] = time.perf_counter() - t0
         return time.perf_counter()
-    with CallCounter() as counter:
+    with CallCounter() as counter, InlineRecorder() as inline_all:
         t0 = time.perf_counter()
         launches, grid_bytes, grid_shape, per_doc, seam_handles = \
             main_path()
@@ -4466,6 +4947,8 @@ def main():
         t0 = lap('api', t0)
         query_launches, query_checks, query_nums = query_path()
         t0 = lap('query', t0)
+        service_launches, service_checks, service_nums = service_path()
+        t0 = lap('service', t0)
         # the storage path before the sync hub: its legs then run without
         # the hub's 100,000 links alive, which each collector pass walks
         storage_launches, storage_checks, storage_nums, inline_events = \
@@ -4483,11 +4966,14 @@ def main():
     torch_op_numbers(grid_shape, tuple(reg_input[0][1].reg.shape),
                      sync_inputs['bloom_build'][0], counter.calls)
     del reg_input, sync_inputs
-    storage_nums['inline'] = inline_numbers(inline_events)
+    storage_nums['inline'] = inline_numbers(inline_events,
+                                            inline_all.events, grid_shape)
     log(f'storage numbers: {json.dumps(storage_nums)}')
     log(f'api numbers: {json.dumps(dict(api_nums, launches=api_launches))}')
     log(f'query numbers: '
         f'{json.dumps(dict(query_nums, launches=query_launches))}')
+    log(f'service numbers: '
+        f'{json.dumps(dict(service_nums, launches=service_launches))}')
     seq_nums = seq_numbers(seq_input, seq_pools, base.get('seq'))
     del seq_input, seq_pools
     breakdown(per_doc)
@@ -4565,9 +5051,12 @@ def main():
         entry['api_checked'] = api_checks['checked'][name]
         entry['query_launches'] = query_launches[name]
         entry['query_checked'] = query_checks['checked'][name]
+        entry['service_launches'] = service_launches[name]
+        entry['service_checked'] = service_checks['checked'][name]
         entry['max_abs_err'] = max(entry['max_abs_err'],
                                    api_checks['worst'][name],
-                                   query_checks['worst'][name])
+                                   query_checks['worst'][name],
+                                   service_checks['worst'][name])
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1020,3 +1020,109 @@ def test_quiet_tick_is_one_compare_on_the_card(cuda, monkeypatch):
                                ev['heads']) for sid, ev in first.items()},
                         dict(hub.stats))
     assert results['cuda'] == results['cpu']
+
+
+# ---- the service (F3) ------------------------------------------------------
+
+SERVICE_LEG = dict(sessions=96, tenants=8, requests=600, seed=5,
+                   tick_dt=0.01, collect_saves=True, chaos=True,
+                   sync_fraction=0.3)
+
+
+def test_service_leg_on_the_card_matches_the_cpu(cuda):
+    """The same fake-clock chaos leg with its fleet on the card and on the
+    CPU: equal reports (but wall time), SLO tallies and session saves,
+    and what the card's grids hold for every served doc equal to the CPU
+    fleet's; the merge launched on the card."""
+    from automerge_tpu_torch import service_cases
+    from automerge_tpu_torch.service import DocService
+    out = {}
+    for dev in ('cpu', 'cuda'):
+        kept = []
+        real = DocService.__init__
+
+        def init(self, *args, real=real, **kwargs):
+            real(self, *args, **kwargs)
+            kept.append(self)
+        DocService.__init__ = init
+        before = LAUNCHES['lww_merge']
+        try:
+            report = service_cases.run_leg('card', device=dev, **SERVICE_LEG)
+        finally:
+            DocService.__init__ = real
+        svc = kept[0]
+        handles = [s.handle for s in svc.sessions.values()]
+        out[dev] = (report, svc.slo.tallies(),
+                    backend.materialize_docs(handles),
+                    LAUNCHES['lww_merge'] - before)
+    for key in ('completed_ok', 'rejections', 'untyped_escapes', 'ticks',
+                'p99_ms', 'convergence', 'slo_audit', 'session_saves',
+                'brownout_transitions'):
+        assert out['cuda'][0][key] == out['cpu'][0][key], key
+    assert out['cuda'][0]['untyped_escapes'] == 0
+    assert out['cuda'][1] == out['cpu'][1]
+    assert out['cuda'][2] == out['cpu'][2]
+    assert out['cuda'][3] > 0 and out['cpu'][3] == 0
+
+
+def test_ledger_on_the_card_counts_the_merge_launches(cuda):
+    """With the kernel ledger on, every apply_op_batch* dispatch of a
+    seam on the card is one lww_merge launch."""
+    from automerge_tpu_torch.observability import perf
+    fleet = backend.DocFleet(device='cuda')
+    handles = backend.init_docs(32, fleet)
+    perf.disable_ledger()
+    perf.reset_ledger()
+    before = LAUNCHES['lww_merge']
+    perf.enable_ledger()
+    try:
+        for rnd in range(3):
+            per_doc = [[encode_change({
+                'actor': 'ab' * 16, 'seq': rnd + 1, 'startOp': rnd + 1,
+                'time': 0, 'message': '', 'deps': [],
+                'ops': [{'action': 'set', 'obj': '_root',
+                         'key': f'k{d % 5}', 'value': rnd, 'datatype': 'int',
+                         'pred': []}]})] for d in range(32)]
+            handles, _ = backend.apply_changes_docs(handles, per_doc,
+                                                    mirror=False)
+        report = perf.kernel_report()
+    finally:
+        perf.disable_ledger()
+        perf.reset_ledger()
+    applies = sum(row['dispatches'] for kind, row in report.items()
+                  if kind.startswith('apply_op_batch'))
+    assert applies == LAUNCHES['lww_merge'] - before == 3
+    for kind, row in report.items():
+        for sig in row['signatures']:
+            assert sig['cost']['bytes accessed'] > 0
+
+
+def test_lossy_sync_converges_between_card_docs(cuda):
+    """Two docs on fleets on the card diverge, then sync_until_quiet over
+    LossyLinks that drop, duplicate and reorder: both converge, still
+    served from their fleets, equal to the same run on the CPU."""
+    from automerge_tpu_torch.fleet.faults import LossyLink, sync_until_quiet
+    out = {}
+    for dev in ('cpu', 'cuda'):
+        pair = []
+        for actor in ('aa', 'bb'):
+            (h,) = backend.init_docs(1, backend.DocFleet(device=dev))
+            (h,), _ = backend.apply_changes_docs([h], [[encode_change({
+                'actor': actor * 16, 'seq': s + 1, 'startOp': s + 1,
+                'time': 0, 'message': '', 'deps': [],
+                'ops': [{'action': 'set', 'obj': '_root',
+                         'key': f'{actor}{s}', 'value': s,
+                         'datatype': 'int', 'pred': []}]})
+                for s in range(6)]], mirror=False)
+            pair.append(h)
+        fault_p = dict(p_drop=0.2, p_dup=0.1, p_reorder=0.1)
+        na, nb, rounds, stats = sync_until_quiet(
+            pair[0], pair[1], backend, backend,
+            LossyLink(seed=31, budget=10, **fault_p),
+            LossyLink(seed=32, budget=10, **fault_p))
+        assert backend.get_heads(na) == backend.get_heads(nb)
+        assert na['state'].is_fleet and nb['state'].is_fleet
+        out[dev] = (backend.materialize_docs([na, nb]), rounds,
+                    bytes(backend.save(na)))
+    assert out['cuda'] == out['cpu']
+    assert len(out['cuda'][0][0]) == 12

@@ -45,6 +45,16 @@ def test_import_leaves_jax_and_reference_out():
             'import automerge_tpu_torch.api_cases\n'
             'import automerge_tpu_torch.query.subscriptions, '
             'automerge_tpu_torch.query.timetravel\n'
+            'import automerge_tpu_torch.fleet.faults\n'
+            'import automerge_tpu_torch.observability.perf, '
+            'automerge_tpu_torch.observability.slo, '
+            'automerge_tpu_torch.observability.export\n'
+            # the service's core loads lazily: the fleet (faults.py takes
+            # service.backoff) must not pull it in
+            'assert "automerge_tpu_torch.service.core" not in sys.modules\n'
+            'import automerge_tpu_torch.service, '
+            'automerge_tpu_torch.service.core\n'
+            'import automerge_tpu_torch.service_cases\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "automerge_tpu")]\n'
             'assert not bad, bad\n'
