@@ -43,6 +43,7 @@ import ctypes
 import torch
 
 from . import cuda_build
+from ..observability.metrics import Counters
 
 WARP_DOCS = 8            # docs (one warp each) per CTA of the warp route
 CTA_THREADS = 128        # threads of the cta route's CTA (one doc)
@@ -53,7 +54,8 @@ FRESH_THREADS = 256
 FRESH_SMEM_BUDGET = 36 * 1024
 _ROUTES = {'warp': 0, 'cta': 1, 'fresh': 2}
 
-LAUNCHES = {'lww_merge': 0}
+# Counters: shard pumps launch from threads
+LAUNCHES = Counters({'lww_merge': 0})
 
 Plan = collections.namedtuple('Plan', (
     'route',          # 'warp', 'cta' or 'fresh'
@@ -194,7 +196,7 @@ def _launch(state, ops, plan, noinc, stats):
         raise RuntimeError(f'lww_merge kernel launch failed ({plan.route} '
                            f'route): CUDA error {err}')
     if n > 0:
-        LAUNCHES['lww_merge'] += 1
+        LAUNCHES.inc('lww_merge')
 
 
 def lww_merge_plain(state, ops, noinc=False, fresh=False):

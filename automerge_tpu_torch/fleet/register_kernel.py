@@ -47,12 +47,14 @@ import ctypes
 import torch
 
 from . import cuda_build
+from ..observability.metrics import Counters
 from .tensor_doc import MAX_ACTORS
 
 PAD, SET, DEL, INC = 0, 1, 2, 3       # op kinds of a RegisterOpBatch
 ACTOR_MASK = MAX_ACTORS - 1           # a packed id's actor bits
 
-LAUNCHES = {'register_scan': 0}
+# Counters: shard pumps launch from threads
+LAUNCHES = Counters({'register_scan': 0})
 
 
 def reset_launches():
@@ -151,7 +153,7 @@ def register_scan(state, ops):
     if err != 0:
         raise RuntimeError(f'register_scan kernel launch failed: CUDA '
                            f'error {err}')
-    LAUNCHES['register_scan'] += 1
+    LAUNCHES.inc('register_scan')
     return applied[0]
 
 

@@ -55,6 +55,7 @@ from collections import namedtuple
 import torch
 
 from . import cuda_build
+from ..observability.metrics import Counters
 from .tensor_doc import MAX_ACTORS
 
 PAD, INSERT, SET, DEL, INC = 0, 1, 2, 3, 4      # op kinds of a SeqOpBatch
@@ -63,8 +64,9 @@ HEAD_REF = 0
 ACTOR_MASK = MAX_ACTORS - 1
 INT32_MAX = 2**31 - 1
 
-LAUNCHES = {'seq_scan': 0}
-ROUTE_LAUNCHES = {'resident': 0, 'global': 0}
+# Counters: shard pumps launch from threads
+LAUNCHES = Counters({'seq_scan': 0})
+ROUTE_LAUNCHES = Counters({'resident': 0, 'global': 0})
 
 # The launch geometry, mirrored from csrc/sequence.cu.
 THREADS = 256                 # one CTA of 8 warps per row
@@ -228,8 +230,8 @@ def _launch(state, ops, plan):
         raise RuntimeError(f'seq_scan kernel launch failed ({plan.route} '
                            f'route): CUDA error {err}')
     if live:
-        LAUNCHES['seq_scan'] += 1
-        ROUTE_LAUNCHES[plan.route] += 1
+        LAUNCHES.inc('seq_scan')
+        ROUTE_LAUNCHES.inc(plan.route)
     return stats
 
 

@@ -51,6 +51,7 @@ import ctypes
 import torch
 
 from . import cuda_build
+from ..observability.metrics import Counters
 
 NUM_PROBES = 7
 GOLD = 0x9E3779B9        # Fibonacci-hash mix of the space id
@@ -60,8 +61,9 @@ BUILD_LANES = 1024       # lanes per CTA of the build kernel (4 a thread)
 BUILD_THREADS = 256      # threads per CTA of the build kernel
 WINDOW_CAP = 200 * 1024  # the build's shared-memory window, at most
 
-LAUNCHES = {'bloom_build': 0, 'bloom_probe': 0, 'hashindex_insert': 0,
-            'hashindex_probe': 0}
+# Counters: shard pumps launch from threads
+LAUNCHES = Counters({'bloom_build': 0, 'bloom_probe': 0,
+                     'hashindex_insert': 0, 'hashindex_probe': 0})
 
 
 def reset_launches():
@@ -173,7 +175,7 @@ def bloom_build(words, valid, row_bits, bit_off, total_bits):
             group, total_bits // 8, window,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, 'bloom_build')
-    LAUNCHES['bloom_build'] += 1
+    LAUNCHES.inc('bloom_build')
     return out
 
 
@@ -193,7 +195,7 @@ def bloom_probe(flat, row_bits, byte_off, words, valid):
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, 'bloom_probe')
     if rows * h:
-        LAUNCHES['bloom_probe'] += 1
+        LAUNCHES.inc('bloom_probe')
     return out
 
 
@@ -335,7 +337,7 @@ def hashindex_insert(tkey, tspace, keys, spaces, valid, max_occupancy,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, 'hashindex_insert')
     if n:
-        LAUNCHES['hashindex_insert'] += 1
+        LAUNCHES.inc('hashindex_insert')
     return n_new[0]
 
 
@@ -355,7 +357,7 @@ def hashindex_probe(tkey, tspace, keys, spaces, valid, window=16):
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, 'hashindex_probe')
     if n:
-        LAUNCHES['hashindex_probe'] += 1
+        LAUNCHES.inc('hashindex_probe')
     return out
 
 

@@ -8,8 +8,8 @@ run on the card unless the caller asks otherwise) and an `audit=` hook
 that gets the served documents and the changes each committed
 (chip_smoke.py holds the card's rows to a CPU fleet's there);
 `run_standard_legs` passes them on and takes `around=`, a context
-around each leg. The shard legs and the tier legs belong to the shard
-slice.
+around each leg. The shard legs and the tier legs are in
+shard_cases.py.
 
 The reference's description follows.
 

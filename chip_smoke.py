@@ -35,14 +35,14 @@ Phases (any failure exits non-zero):
    fleet/register_cases.py (among them one key for all of a doc's ops,
    and half the lanes on one key) at P = 0, 1, 5, 20, 31, 32 and 33 (8
    actor slots), at 256, 1, 2, 3, 4 and 16 actor slots, with 1 and 6 pred
-   lanes, and at P = 3000 (all five arrays and the lane count equal); the
+   lanes, and at P = 1000 (all five arrays and the lane count equal); the
    sequence scan on every corner of
    fleet/seq_cases.py (a row at capacity, unknown referents, a cyclic
    chain, duplicate and dead preds, wrapping counters, lanes past the
    width, refs to later inserts, duplicate ids, one node's ops inside a
-   chunk, a failing insert mid-row, ...) at P = 0, 1, 20 and 512 at 4
+   chunk, a failing insert mid-row, ...) at P = 0, 1, 20 and 256 at 4
    and at 256 actor lanes along the wrapper's own route, and at P = 40
-   and 512 along the forced 'global' route (all eight arrays and the
+   and 256 along the forced 'global' route (all eight arrays and the
    applied count equal; the 'serial' and 'capacity' corners must send
    rows to the kernel's serial route), on 3 rows of a class past the
    resident route (the plan takes 'global') and on a class of 1,025
@@ -170,6 +170,34 @@ Phases (any failure exits non-zero):
      between two card-backed docs over LossyLinks that drop, duplicate
      and reorder, which must converge. The first 64 calls of each kernel
      wrapper of each leg are held to the plain version after it;
+   - shard: the shard cluster and the control plane
+     (automerge_tpu_torch/shard_cases.py run_shard_leg, the port's copy
+     of tools/loadgen.py's shard leg), each leg with the launch counts
+     set to 0 just before it and read just after, its device activity
+     traced (the idle share), its first 64 calls of each kernel held to
+     the plain version after it (the router pumps its shards from two
+     threads: PathCheck keeps its books under a lock): bench.py
+     _sec_shards' warm-up and paced clean sweep at its own shape (96
+     tenants, 1,200 requests, 48 arrivals a tick, 30 ms ticks, 2 pump
+     threads, replication every 4 ticks) over 1, 2 and 4 shards (req/s,
+     slipped ticks); its kill-one-of-four leg (4 shards, 12 tenants, 400
+     requests, chaos links, seed 5, the kill at tick 12 and the revive
+     at 40; MTTR) in LWW and in exact mode; one shard killed and revived
+     3x (576 tenants over 3 shards), with torch.cuda.memory_allocated()
+     around each kill and revive and each dead shard's fleet freed; a
+     kill-one-of-four at a deployment's size (4,096 tenants, ~2,048 docs
+     a shard fleet, 8,192 requests, 256 arrivals a tick, a rebalance
+     after the revive); tests/test_control.py's acceptance episode
+     under an active and a shadow controller (decisions per policy,
+     reversals, settle ticks, fixed point, the two decision sequences
+     compared); and bench.py _sec_control's lockstep pair (400 ticks, 8
+     tenants, 20 submits a tenant a tick, 3 passes after a warm one:
+     the overhead, the decide latency, shadow == active). Every shard
+     leg: no untyped escape, acked_lost 0 and replica_mismatches 0 in
+     every audit, and every tenant's (512 seeded ones at the deployment
+     size) home and replica docs read from the card (materialize_docs,
+     and the grid rows or registers) == each other == a CPU fleet fed
+     its acked changes;
    - storage: durability and the storage tier, each leg with the launch
      counts set to 0 just before it. The durable seam: the seam's batch
      through DurableFleet(fsync_bytes=4 MiB) on the card, whose grids
@@ -189,7 +217,7 @@ Phases (any failure exits non-zero):
      (DurableFleet(exact_device=True), the exact seam's three batches,
      a checkpoint after the first): materialize_docs, conflicts_all and
      save() == pre-crash, nothing inexact, register_scan launched. Text
-     recovery, cut to 256 docs of the text seam's trace for time: every
+     recovery, cut to 128 docs of the text seam's trace for time: every
      text and save() == pre-crash after a 256-op suffix, seq_scan
      launched. A crash dose (fleet/crash_cases.py, modes lww and exact,
      on the card) with no failure. The tier (bench.py
@@ -566,12 +594,15 @@ def sync_kernel_vs_plain():
         del case
 
 
+# the widest register batch: 32 tiles of 32 columns (cut from 3,000
+# lanes: the host's plain loop took ~66 s of the script's time limit)
+REGISTER_WIDE_P = 1_000
 # (docs, keys, actor slots, P, D, where the plain version runs)
 REGISTER_CONFIGS = tuple(
     [(300, 40, 8, p, 4, None) for p in (0, 1, 5, 20, 31, 32, 33)] +
     [(48, 9, a, 20, 4, None) for a in (256, 1, 2, 3, 4, 16)] +
     [(64, 9, a, 33, d, None) for a in (8, 256) for d in (1, 6)] +
-    [(40, 40, 8, 3000, 4, 'cpu')])
+    [(40, 40, 8, REGISTER_WIDE_P, 4, 'cpu')])
 
 
 def register_kernel_vs_plain():
@@ -580,8 +611,8 @@ def register_kernel_vs_plain():
     and half the lanes on one key): at P = 0, 1, 5, 20, 31, 32 and 33
     lanes (8 actor slots, 4 pred lanes: 32 or 8 docs to a warp, one tile
     or two), at 256 actor slots and at 1, 2, 3, 4 and 16, with 1 and 6
-    pred lanes, and at P = 3000 (the plain version on the CPU there: its
-    Python loop would make ~200,000 launches). Returns the largest
+    pred lanes, and at P = REGISTER_WIDE_P (the plain version on the CPU
+    there: its Python loop would make ~65,000 launches). Returns the largest
     difference seen (0, or the script fails)."""
     import numpy as np
     from automerge_tpu_torch.fleet import register_cases as rc
@@ -596,7 +627,8 @@ def register_kernel_vs_plain():
                 fail(f'register_scan != plain on {name} at P = {lanes}, '
                      f'A = {slots}, D = {d}: {got}')
         log(f'kernel == plain: register_scan, {name} (P = 0, 1, 5, 20, '
-            f'31, 32, 33 and 3000 at 8 slots; P = 20 at 256, 1, 2, 3, 4 '
+            f'31, 32, 33 and {REGISTER_WIDE_P} at 8 slots; P = 20 at 256, 1, '
+            f'2, 3, 4 '
             f'and 16 slots; D = 1 and 6 at P = 33)')
     return max_err
 
@@ -615,11 +647,16 @@ def one_cpu_thread():
         torch.set_num_threads(before)
 
 
+# the widest sequence batch: two of phase B's 128-column windows (cut
+# from 512 lanes: the host's plain loop took ~65 s of the script's time
+# limit)
+SEQ_WIDE_P = 256
 # (rows, actor lanes, P, route): None = the wrapper's own plan
 SEQ_CONFIGS = ((64, 4, 0, None), (64, 4, 1, None), (64, 4, 20, None),
-               (16, 4, 512, None), (16, 256, 0, None), (16, 256, 1, None),
-               (16, 256, 20, None), (16, 256, 512, None),
-               (32, 4, 40, 'global'), (16, 4, 512, 'global'))
+               (16, 4, SEQ_WIDE_P, None), (16, 256, 0, None),
+               (16, 256, 1, None), (16, 256, 20, None),
+               (16, 256, SEQ_WIDE_P, None), (32, 4, 40, 'global'),
+               (16, 4, SEQ_WIDE_P, 'global'))
 
 
 def seq_kernel_vs_plain():
@@ -627,12 +664,13 @@ def seq_kernel_vs_plain():
     corner of fleet/seq_cases.py (among them a row at capacity, unknown
     referents, a cyclic chain, refs to later inserts, duplicate ids, one
     node's ops inside a chunk, a failing insert mid-row), at P = 0, 1, 20
-    and 512 op lanes at 4 and at 256 actor lanes along the wrapper's own
-    route ('resident' at these classes) and at P = 40 and 512 along the
+    and SEQ_WIDE_P op lanes at 4 and at 256 actor lanes along the
+    wrapper's own route ('resident' at these classes) and at P = 40 and
+    SEQ_WIDE_P along the
     'global' route (forced), exactly (all eight arrays and the applied
     count); the
     'serial' and 'capacity' corners must send rows to the kernel's serial
-    route. At P = 512 the plain version runs on the host (one torch
+    route. At P = SEQ_WIDE_P the plain version runs on the host (one torch
     thread): on the card its Python loop costs ~8 ms a column whatever
     the rows. Then a class past the resident route (the wrapper's plan
     takes 'global') and a fleet whose rows x nodes x lanes pass 2^31
@@ -646,14 +684,16 @@ def seq_kernel_vs_plain():
                 rng = np.random.default_rng(120 + i)
                 state, batch = sc.case(name, rng, n, 64, slots, lanes)
                 got = sc.both(state, batch, DEVICE,
-                              'cpu' if lanes == 512 else None, route=route)
+                              'cpu' if lanes == SEQ_WIDE_P else None,
+                              route=route)
                 max_err = max(max_err, got['max_abs_err'])
                 if got['differ'] or got['max_abs_err']:
                     fail(f'seq_scan != plain on {name} at P = {lanes}, '
                          f'A = {slots}, {got["route"]} route: {got}')
                 serial[name] = serial.get(name, 0) + got['serial_rows']
-            log(f'kernel == plain: seq_scan, {name} (P = 0, 1, 20 and 512 '
-                f'at 4 and 256 lanes, the wrapper\'s plan; P = 40 and 512 '
+            log(f'kernel == plain: seq_scan, {name} (P = 0, 1, 20 and '
+                f'{SEQ_WIDE_P} at 4 and 256 lanes, the wrapper\'s plan; P = 40 '
+                f'and {SEQ_WIDE_P} '
                 f'along the global route; {serial[name]} rows on the serial '
                 f'route)')
         if not serial['serial'] or not serial['capacity']:
@@ -2421,6 +2461,485 @@ def service_path():
     return total, dict(checked=check.checked, worst=check.worst), nums
 
 
+# ---- the shard cluster and the control plane -------------------------------
+
+# bench.py _sec_shards: the warm-up, the paced clean sweep at its own shape
+# and the kill-one-of-four leg (its tenants: max(8, 96 // 8))
+SHARD_WARMUP = dict(n_shards=2, tenants=8, requests=100, arrivals_per_tick=8,
+                    service_kwargs={'batch_limit': 8}, seed=0)
+SHARD_SWEEP = (1, 2, 4)
+SHARD_CLEAN = dict(tenants=96, requests=1_200, arrivals_per_tick=48, seed=0,
+                   tick_dt=0.03, subscribe_fraction=0.1, sync_fraction=0.05,
+                   service_kwargs={'batch_limit': 8}, pump_threads=2,
+                   repl_every=4, pace=True)
+SHARD_KILL = dict(n_shards=4, tenants=12, requests=400, arrivals_per_tick=8,
+                  chaos=True, seed=5, kills=((12, 1, 40),), mttr_bound=12)
+# one shard killed and revived 3x (tests/test_service_chaos.py's schedule)
+# at 64x its tenants: the card's memory before the first kill and after
+# the last revive says whether a dead shard's fleet is freed
+SHARD_CYCLES = dict(n_shards=3, tenants=576, requests=1_728,
+                    arrivals_per_tick=48, chaos=True, seed=7,
+                    kills=((10, 0, 30), (60, 0, 80), (110, 0, 130)))
+# a deployment's size on one card: ~2,048 docs a shard fleet, counting
+# homes and replicas; SCALE_AUDITED tenants (seeded) read from the card
+SHARD_SCALE = dict(n_shards=4, tenants=4_096, requests=8_192,
+                   arrivals_per_tick=256, chaos=True, seed=0,
+                   kills=((20, 1, 60),))
+SCALE_AUDITED = 512
+# tests/test_control.py's acceptance episode, active and then shadow
+CONTROL_KILL = dict(n_shards=4, tenants=16, requests=600, chaos=True, seed=2,
+                    kills=((25, 0, 50),), settle_bound=300)
+# bench.py _sec_control's lockstep pair
+CONTROL_TICKS, CONTROL_TENANTS, CONTROL_SUBMITS = 400, 8, 20
+CONTROL_WINDOW = 10
+CONTROL_PASSES = 3       # bench.py takes max(REPS, 9): cut for the time limit
+SHARD_NEEDS = ('lww_merge',)         # every LWW shard leg
+# the path: every apply, replication receive and migration revive
+# (lww_merge; register_scan in exact mode), every replication round's
+# generate and receive (the Bloom pair), the hash index once a shard
+# fleet holds more keys than its host mode (the deployment-size leg)
+SHARD_PATH_NEEDS = ('lww_merge', 'register_scan', 'bloom_build',
+                    'bloom_probe', 'hashindex_insert', 'hashindex_probe')
+
+
+def register_view(fleet, handles, tag):
+    """Each doc's registers as an exact fleet on the card holds them, in
+    terms that do not depend on the fleet's slot, key, actor or lane
+    numbering: {key: sorted (op id, killed, value, counter sum) of its
+    live lanes}; 'inexact' for a doc whose inexact flag the register
+    scan raised (its history left the registers' exact shape: the host
+    mirror serves it). Fails unless each doc is fleet-resident."""
+    import numpy as np
+    from automerge_tpu_torch.fleet import registers
+    reg, killed, value, counter, inexact = \
+        registers.register_state_to_numpy(fleet.reg_state)
+    keys = fleet.keys.keys
+    out = []
+    for h in handles:
+        st = h['state']
+        slot = st._impl.slot
+        if not st.is_fleet or st.fleet is not fleet:
+            fail(f'{tag}: a doc is not served from the registers (slot '
+                 f'{slot})')
+        if inexact[slot]:
+            out.append('inexact')
+            continue
+        cells = {}
+        for k, lane in zip(*np.nonzero(reg[slot, :len(keys)])):
+            v = int(value[slot, k, lane])
+            cells.setdefault(keys[k], []).append((
+                _op_name(fleet, reg[slot, k, lane]),
+                bool(killed[slot, k, lane]),
+                repr(fleet.value_table[-v - 2]) if v <= -2 else v,
+                int(counter[slot, k, lane])))
+        out.append({key: sorted(lanes) for key, lanes in cells.items()})
+    return out
+
+
+def card_view(handles, tag):
+    """Each doc's device state read from its own fleet on the card
+    (`grid_view` for an LWW fleet, `register_view` for an exact one), in
+    the order of `handles`, whose docs may live on several fleets."""
+    groups = {}
+    for i, h in enumerate(handles):
+        fleet = h['state'].fleet
+        groups.setdefault(id(fleet), (fleet, []))[1].append(i)
+    out = [None] * len(handles)
+    for fleet, idx in groups.values():
+        hs = [handles[i] for i in idx]
+        view = register_view if fleet.exact_device else grid_view
+        for i, cells in zip(idx, view(fleet, hs, tag)):
+            out[i] = cells
+    return out
+
+
+def shard_audit(tag, sample=None):
+    """The `audit=` hook of a shard leg: after the leg's final audit, each
+    audited tenant's (every tenant's, or `sample` seeded ones) home doc
+    and replica doc are read from their shards' fleets on the card
+    (materialize_docs and `card_view`) and must equal each other and a
+    CPU fleet fed that tenant's acked changes, plus any change its home
+    holds whose ticket never acked (the contract is acked => present;
+    the hook's result, the report's `audit`, counts them in
+    'unacked_committed'). A one-shard cluster has no replicas: its homes
+    alone are read."""
+    import random
+    from automerge_tpu_torch import backend as host_backend
+    from automerge_tpu_torch.columnar import decode_change_meta
+    from automerge_tpu_torch.fleet.backend import (
+        DocFleet, apply_changes_docs, init_docs, materialize_docs)
+
+    def meta(buf):
+        return decode_change_meta(bytes(buf), True)
+
+    def audit(router, acked):
+        names = sorted(acked)
+        if sample is not None:
+            names = sorted(random.Random(0).sample(names, sample))
+        homes, reps, fed, extra = [], [], [], 0
+        paired = len(router.shards) > 1
+        for name in names:
+            rec = router.tenant_record(name)
+            if rec.session is None or \
+                    paired and rec.replica_handle is None:
+                fail(f'{tag}: tenant {name} ends with no home or no replica')
+            homes.append(rec.session.handle)
+            if paired:
+                reps.append(rec.replica_handle)
+            mine = {meta(b)['hash']: bytes(b) for b in acked[name]}
+            for buf in host_backend.get_all_changes(rec.session.handle):
+                h = meta(buf)['hash']
+                if h not in mine:
+                    mine[h] = bytes(buf)
+                    extra += 1
+            fed.append(sorted(mine.values(), key=lambda b: meta(b)['seq']))
+        cpu = DocFleet(exact_device=homes[0]['state'].fleet.exact_device,
+                       device='cpu')
+        control, _ = apply_changes_docs(init_docs(len(names), cpu), fed,
+                                        mirror=False)
+        want = materialize_docs(control)
+        cells = card_view(control, tag)
+        for docs in (homes, reps) if paired else (homes,):
+            if materialize_docs(docs) != want:
+                fail(f'{tag}: a home or replica doc read from the card != a '
+                     f'CPU fleet fed its acked changes')
+            if card_view(docs, tag) != cells:
+                fail(f'{tag}: a home or replica doc\'s device rows on the '
+                     f'card != the CPU fleet\'s')
+        return dict(tenants_read=len(names), replicas_read=len(reps),
+                    unacked_committed=extra,
+                    changes=sum(len(f) for f in fed),
+                    inexact=cells.count('inexact'))
+    return audit
+
+
+def shard_leg(check, legs, nums, name, sample=None, needs=SHARD_NEEDS,
+              **kw):
+    """One shard_cases.run_shard_leg on the card, with the launch counts
+    set to 0 just before it and read just after (each kernel of `needs`
+    must launch), its device activity traced (the idle share), its first
+    64 calls of each kernel held to the plain version after it, its
+    audits exact and its tenants read from the card (`shard_audit`).
+    Returns the report."""
+    from automerge_tpu_torch import shard_cases
+    kernel_launches(reset=True)
+    t0 = time.perf_counter()
+    out = {}
+    with device_trace(out):
+        report = shard_cases.run_shard_leg(
+            name, device=DEVICE,
+            audit=shard_audit(f'shard path, {name}', sample), **kw)
+    audit = report['audit']
+    legs[name] = launches = kernel_launches()
+    missing = [k for k in needs if launches[k] < 1]
+    if missing:
+        fail(f'shard path, {name}: never launched {missing}')
+    final = report['final_audit']
+    bad = [a for a in report['audits']
+           if a['acked_lost'] or a['replica_mismatches']]
+    if not report['ok'] or bad or final['acked_lost'] or \
+            final['replica_mismatches'] or report['untyped_escapes'] or \
+            not report['completed_ok']:
+        fail(f'shard path, {name}: the leg is not ok: ' + json.dumps({
+            k: report.get(k) for k in ('ok', 'untyped_escapes', 'drained',
+                                       'completed_ok', 'mttr_ticks',
+                                       'audits', 'control')}))
+    idle = device_line(out['wall'], out['rows'])
+    check.verify(name)
+    nums[name] = dict(
+        {k: report[k] for k in (
+            'shards', 'tenants', 'submitted', 'completed_ok',
+            'requests_per_s', 'elapsed_s', 'ticks', 'ticks_slipped',
+            'ticks_slipped_per_shard', 'rejections', 'kills', 'failovers',
+            'mttr_ticks', 'scrub_mismatches', 'shard_health_delta')},
+        acked_lost=final['acked_lost'],
+        replica_mismatches=final['replica_mismatches'],
+        acked_changes_checked=final['acked_changes_checked'],
+        replica_pairs=final['replica_pairs'], audits=len(report['audits']),
+        card=audit, idle_share=idle, launches=launches,
+        seconds=time.perf_counter() - t0)
+    if 'control' in report:
+        nums[name]['control'] = report['control']
+    log(f'shard path, {name}: {report["completed_ok"]}/{report["submitted"]}'
+        f' ok over {report["shards"]} shards x {report["tenants"]} tenants in'
+        f' {report["ticks"]} ticks, {report["requests_per_s"]} req/s, slipped '
+        f'ticks {report["ticks_slipped"]} {report["ticks_slipped_per_shard"]}'
+        f', kills {report["kills"]}, failovers {report["failovers"]}, MTTR '
+        f'{report["mttr_ticks"]} ticks, acked_lost {final["acked_lost"]}, '
+        f'replica_mismatches {final["replica_mismatches"]} over '
+        f'{len(report["audits"])} audits ({final["acked_changes_checked"]} '
+        f'acked changes, {final["replica_pairs"]} pairs); '
+        f'{audit["tenants_read"]} tenants\' home docs and '
+        f'{audit["replicas_read"]} replica docs, and their device rows, read '
+        f'from the card == each other == a CPU fleet fed their '
+        f'{audit["changes"]} changes ({audit["unacked_committed"]} of them '
+        f'committed but never acked; {audit["inexact"]} docs inexact on '
+        f'both); launches {launches}; idle share '
+        f'{idle:.4f}; '
+        f'{time.perf_counter() - t0:.1f} s')
+    return report
+
+
+@contextlib.contextmanager
+def memory_around_kills(out):
+    """While entered, records torch.cuda.memory_allocated() just before
+    each ShardRouter.kill_shard and just after each revive_shard (after a
+    gc.collect()), and keeps a weak reference to each killed shard's
+    fleet; `out` gets the records and how many of those fleets are still
+    alive at the end (after a gc.collect())."""
+    import weakref
+    import torch
+    from automerge_tpu_torch.shard import ShardRouter
+    real_kill, real_revive = ShardRouter.kill_shard, ShardRouter.revive_shard
+    marks, dead = [], []
+
+    def kill(self, shard_id):
+        gc.collect()
+        torch.cuda.synchronize()
+        marks.append(('kill', self.ticks, torch.cuda.memory_allocated()))
+        dead.append(weakref.ref(self.shards[shard_id].fleet))
+        real_kill(self, shard_id)
+
+    def revive(self, shard_id):
+        real_revive(self, shard_id)
+        gc.collect()
+        torch.cuda.synchronize()
+        marks.append(('revive', self.ticks, torch.cuda.memory_allocated()))
+    ShardRouter.kill_shard, ShardRouter.revive_shard = kill, revive
+    try:
+        yield
+    finally:
+        ShardRouter.kill_shard, ShardRouter.revive_shard = \
+            real_kill, real_revive
+    gc.collect()
+    out.update(marks=marks, dead_fleets_alive=sum(
+        ref() is not None for ref in dead), dead_fleets=len(dead))
+
+
+def control_kill_legs(check, legs, nums):
+    """tests/test_control.py's acceptance episode on the card, under an
+    active controller and then a shadow one: every shard leg check, and
+    fixed_point, <= 2 reversals per policy and the settle bound; the
+    decisions per policy, and whether the shadow run's decision sequence
+    (tick, policy, action, target, direction) equals the active run's."""
+    from automerge_tpu_torch.control import Controller
+    kept = []
+    real = Controller.__init__
+
+    def init(self, *args, **kwargs):
+        real(self, *args, **kwargs)
+        kept.append(self)
+    logs = {}
+    for mode in ('active', 'shadow'):
+        Controller.__init__ = init
+        try:
+            report = shard_leg(check, legs, nums, f'control_kill_{mode}',
+                               control=mode, **CONTROL_KILL)
+        finally:
+            Controller.__init__ = real
+        ctl = report['control']
+        if not ctl['fixed_point'] or \
+                any(n > 2 for n in ctl['reversals'].values()):
+            fail(f'shard path, control_kill_{mode}: no fixed point or more '
+                 f'than 2 reversals a policy: {ctl}')
+        if mode == 'active' and (not ctl['decisions'].get('shard_balance')
+                                 or ctl['settle_ticks'] is None or
+                                 ctl['settle_ticks'] >
+                                 CONTROL_KILL['settle_bound']):
+            fail(f'shard path, control_kill_active: the heal lane did not '
+                 f'settle the placement: {ctl}')
+        logs[mode] = [(e['tick'], e['policy'], e['action'], e['target'],
+                       e['direction'])
+                      for e in kept.pop().decision_log()]
+        log(f'shard path, control_kill_{mode}: decisions {ctl["decisions"]}'
+            f', reversals {ctl["reversals"]}, settle_ticks '
+            f'{ctl["settle_ticks"]}, fixed_point {ctl["fixed_point"]}, '
+            f'decide_s_max {ctl["decide_s_max"]}')
+    same = 0
+    for a, s in zip(logs['active'], logs['shadow']):
+        if a != s:
+            break
+        same += 1
+    nums['control_kill_parity'] = dict(
+        equal=logs['active'] == logs['shadow'], common_prefix=same,
+        active=len(logs['active']), shadow=len(logs['shadow']))
+    log(f'shard path, control_kill: the shadow run\'s decision sequence '
+        f'equals the active run\'s: {logs["active"] == logs["shadow"]} (the '
+        f'first {same} of {len(logs["active"])} active and '
+        f'{len(logs["shadow"])} shadow decisions agree; an active rehome '
+        f'moves the tenant, and the shadow leg keeps the loadgen\'s '
+        f'rebalance after the revive)')
+
+
+def control_overhead(legs, nums):
+    """bench.py _sec_control on the card: a service under a shadow
+    controller and a bare one, each on its own DocFleet on the card,
+    driven through the same tick loop, each tick of each timed apart in
+    alternating order (CONTROL_PASSES passes after a warm one, the
+    collector off while timing); the overhead of the per-tick-index
+    medians' sums; then one active episode's decide latencies and the
+    shadow-vs-active parity of the decision sequences."""
+    import numpy as np
+    from automerge_tpu_torch.control import Controller
+    from automerge_tpu_torch.errors import AutomergeError
+    from automerge_tpu_torch.fleet.backend import DocFleet
+    from automerge_tpu_torch.service import DocService
+    kernel_launches(reset=True)
+    t0 = time.perf_counter()
+
+    def build(mode):
+        ctrl = Controller(mode=mode, window=CONTROL_WINDOW) if mode else None
+        svc = DocService(fleet=DocFleet(device=DEVICE), control=ctrl,
+                         tenant_rate=2.0, tenant_burst=4.0)
+        sessions = [svc.open_session(f'tenant{t}')
+                    for t in range(CONTROL_TENANTS)]
+        return ctrl, svc, sessions
+
+    def run_tick(svc, sessions, now):
+        for s in sessions:
+            for _i in range(CONTROL_SUBMITS):
+                try:
+                    svc.submit(s, 'sync', None)
+                except AutomergeError:
+                    pass
+        svc.pump(now)
+
+    def lockstep(order_flip):
+        ctrl, svc_on, ses_on = build('shadow')
+        _c, svc_off, ses_off = build(None)
+        off_ns, on_ns = np.empty(CONTROL_TICKS), np.empty(CONTROL_TICKS)
+        now = 0.0
+        gc.disable()
+        try:
+            for i in range(CONTROL_TICKS):
+                first_on = (i + order_flip) % 2
+                for leg in (first_on, 1 - first_on):
+                    start = time.perf_counter_ns()
+                    if leg:
+                        run_tick(svc_on, ses_on, now)
+                    else:
+                        run_tick(svc_off, ses_off, now)
+                    (on_ns if leg else off_ns)[i] = \
+                        time.perf_counter_ns() - start
+                now += 0.1
+        finally:
+            gc.enable()
+        decisions = ctrl.decision_log()
+        del ctrl, svc_on, ses_on, svc_off, ses_off
+        gc.collect()
+        return off_ns, on_ns, decisions
+
+    off_mat, on_mat, pass_pcts = [], [], []
+    shadow_log = None
+    for p in range(CONTROL_PASSES + 1):
+        off_ns, on_ns, shadow_log = lockstep(p % 2)
+        if p == 0:
+            continue                 # the first pass is a warm-up
+        off_mat.append(off_ns)
+        on_mat.append(on_ns)
+        pass_pcts.append(float((on_ns.sum() - off_ns.sum()) / off_ns.sum())
+                         * 100.0)
+    off_total = float(np.median(np.array(off_mat), axis=0).sum()) / 1e9
+    on_total = float(np.median(np.array(on_mat), axis=0).sum()) / 1e9
+    overhead = (on_total - off_total) / off_total * 100.0
+    ctrl, svc, sessions = build('active')
+    now = 0.0
+    for _ in range(CONTROL_TICKS):
+        run_tick(svc, sessions, now)
+        now += 0.1
+    gauges = ctrl.gauges()
+    active_log = ctrl.decision_log()
+    del ctrl, svc, sessions
+    gc.collect()
+
+    def strip(entries):
+        return [(e['tick'], e['policy'], e['action'], e['target'],
+                 e['direction']) for e in entries]
+    parity = strip(shadow_log) == strip(active_log)
+    if not parity or not active_log:
+        fail(f'shard path, control_overhead: the shadow decisions != the '
+             f'active ones ({len(shadow_log)} vs {len(active_log)})')
+    legs['control_overhead'] = launches = kernel_launches()
+    reqs = CONTROL_TICKS * CONTROL_TENANTS * CONTROL_SUBMITS
+    nums['control_overhead'] = dict(
+        off_rate=reqs / off_total, on_rate=reqs / on_total,
+        overhead_pct=overhead, pass_pcts=pass_pcts, passes=len(off_mat),
+        decisions=len(active_log), windows=gauges['windows'],
+        decide_us_last=gauges['decide_s_last'] * 1e6,
+        decide_us_max=gauges['decide_s_max'] * 1e6, shadow_parity=parity,
+        launches=launches, seconds=time.perf_counter() - t0)
+    log(f'shard path, control_overhead: on {reqs / on_total:.1f} req/s vs '
+        f'off {reqs / off_total:.1f} req/s over {CONTROL_TICKS} ticks x '
+        f'{CONTROL_TENANTS} tenants x {CONTROL_SUBMITS} submits ('
+        f'{overhead:+.2f} % overhead; per-tick medians over {len(off_mat)} '
+        f'passes, passes {[round(p, 2) for p in pass_pcts]} %); decide '
+        f'{gauges["decide_s_last"] * 1e6:.1f} us last, '
+        f'{gauges["decide_s_max"] * 1e6:.1f} us max over '
+        f'{gauges["windows"]} windows; {len(active_log)} decisions, shadow '
+        f'== active: {parity}; launches {launches}; '
+        f'{time.perf_counter() - t0:.1f} s')
+
+
+def shard_path():
+    """The shard cluster and the control plane on the card (see the
+    module docstring). Returns the launches summed over its legs, the
+    calls held to the plain versions and the numbers."""
+    legs, nums = {}, {}
+    with PathCheck('shard path') as check:
+        shard_leg(check, legs, nums, 'shards_warmup', **SHARD_WARMUP)
+        for n in SHARD_SWEEP:
+            shard_leg(check, legs, nums, f'shards_clean_{n}', n_shards=n,
+                      **SHARD_CLEAN)
+        shard_leg(check, legs, nums, 'shards_kill_one_of_four', **SHARD_KILL)
+        shard_leg(check, legs, nums, 'shards_kill_one_of_four_exact',
+                  needs=('register_scan',), exact_device=True,
+                  **SHARD_KILL)
+        mem = {}
+        with memory_around_kills(mem):
+            shard_leg(check, legs, nums, 'shards_kill_revive_3x',
+                      **SHARD_CYCLES)
+        nums['shards_kill_revive_3x']['memory'] = mem
+        log(f'shard path, shards_kill_revive_3x: torch.cuda.memory_allocated'
+            f'() before the first kill {mem["marks"][0][2]} B, after the '
+            f'last revive and gc.collect() {mem["marks"][-1][2]} B (every '
+            f'mark: {mem["marks"]}); {mem["dead_fleets_alive"]} of '
+            f'{mem["dead_fleets"]} dead shards\' fleets still alive')
+        if mem['dead_fleets_alive']:
+            fail('shard path, shards_kill_revive_3x: a dead shard\'s fleet '
+                 'is still alive after its revive')
+        gc.collect()
+        shard_leg(check, legs, nums, 'shards_kill_scale',
+                  sample=SCALE_AUDITED, **SHARD_SCALE)
+        gc.collect()
+        control_kill_legs(check, legs, nums)
+        control_overhead(legs, nums)
+        check.verify('control_overhead')
+    sweep = {n: nums[f'shards_clean_{n}']['requests_per_s']
+             for n in SHARD_SWEEP}
+    nums['sweep'] = dict(req_s=sweep, monotonic=sweep[1] < sweep[2] <
+                         sweep[4])
+    log(f'shard path, clean paced sweep ({SHARD_CLEAN["tenants"]} tenants, '
+        f'batch_limit 8, tick {SHARD_CLEAN["tick_dt"] * 1e3:.0f} ms, '
+        f'repl_every 4, 2 pump threads): ' + ', '.join(
+            f'{n} shards {r} req/s ({r / sweep[1]:.2f}x, '
+            f'{nums[f"shards_clean_{n}"]["ticks_slipped"]} slipped)'
+            for n, r in sweep.items()))
+    total = {}
+    for launches in legs.values():
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+    log(f'shard path launches: {total}; kernel calls held to their plain '
+        f'versions: {check.checked}')
+    missing = [name for name in SHARD_PATH_NEEDS if not total[name]]
+    if missing:
+        fail(f'shard path: never launched {missing}')
+    missing = [name for name, n in total.items()
+               if n and not check.checked[name]]
+    if missing:
+        fail(f'shard path: no call of {missing} held to its plain version')
+    return total, dict(checked=check.checked, worst=check.worst), nums
+
+
 # ---- the sync plane's main path --------------------------------------------
 
 LINKS, HUB_DOCS, DEPTH = 100_000, 4, 8
@@ -2684,7 +3203,8 @@ def sync_breakdown(sync):
 DUR_PAIRS = 6            # timed pairs of the durable seam, after a warm pair
 DUR_BUDGET_PCT = 15      # the reference's journaled-seam budget (bench.py)
 RECOVERY_COPIES = 3      # recovery docs/s: the median over fresh copies
-TEXT_RECOVERY_DOCS = 256  # the text leg's cut: 256 of the text seam's docs
+TEXT_RECOVERY_DOCS = 128  # the text leg's cut: 128 of the text seam's docs
+                          # (cut from 256 for the shard path's time)
 # bench.py _sec_storage_tier parks 1,000,000 docs; cut to 250,000 since
 # the service path joined the script (the reopen of the remaining 90 %
 # was its longest piece: ~107-124 s at 900,000 docs)
@@ -3029,6 +3549,7 @@ class PathCheck:
             'hashindex_insert': _insert_err,
             'hashindex_probe': _output_err(sync_kernels.hashindex_probe_plain)}
         self.on, self.kept, self.seen = True, [], {}
+        self._lock = threading.Lock()
         self.checked = {name: 0 for name in self.errs}
         self.worst = {name: 0 for name in self.errs}
         self._real = []
@@ -3058,14 +3579,20 @@ class PathCheck:
 
     def _wrap(self, name, real, inplace):
         def call(*args, **kwargs):
-            n = self.seen.get(name, 0)
-            if not self.on or n >= PATH_CHECKS:
+            # the shard router pumps its shards from two threads at once
+            with self._lock:
+                n = self.seen.get(name, 0)
+                keep = self.on and n < PATH_CHECKS
+                if keep:
+                    self.seen[name] = n + 1
+            if not keep:
                 return real(*args, **kwargs)
-            self.seen[name] = n + 1
             before = [_kept(a) for a in args]
             out = real(*args, **kwargs)
-            self.kept.append((name, before, kwargs, _kept(out),
-                              [_kept(a) for a in args[:inplace]]))
+            kept = (name, before, kwargs, _kept(out),
+                    [_kept(a) for a in args[:inplace]])
+            with self._lock:
+                self.kept.append(kept)
             return out
         return call
 
@@ -3074,7 +3601,8 @@ class PathCheck:
         fail on a disagreement. Starts the next leg's count (and clock:
         the log gives the leg's seconds and the check's)."""
         t0 = time.perf_counter()
-        kept, self.kept, self.seen = self.kept, [], {}
+        with self._lock:
+            kept, self.kept, self.seen = self.kept, [], {}
         per = {}
         for name, before, kwargs, out, after in kept:
             kw = {k: v for k, v in kwargs.items()
@@ -4919,16 +5447,21 @@ def main():
     t_start = time.perf_counter()
     log(f'torch {torch.__version__} cuda {torch.version.cuda} '
         f'python {sys.version.split()[0]}')
-    build_all(baseline)
-    max_err = kernel_vs_plain()
-    sync_kernel_vs_plain()
-    reg_err = register_kernel_vs_plain()
-    seq_err = seq_kernel_vs_plain()
-    phase_s = {'build and kernel vs plain': time.perf_counter() - t_start}
+    phase_s = {}
 
     def lap(name, t0):
         phase_s[name] = time.perf_counter() - t0
         return time.perf_counter()
+    build_all(baseline)
+    t0 = lap('build', t_start)
+    max_err = kernel_vs_plain()
+    t0 = lap('merge vs plain', t0)
+    sync_kernel_vs_plain()
+    t0 = lap('sync kernels vs plain', t0)
+    reg_err = register_kernel_vs_plain()
+    t0 = lap('register scan vs plain', t0)
+    seq_err = seq_kernel_vs_plain()
+    lap('sequence scan vs plain', t0)
     with CallCounter() as counter, InlineRecorder() as inline_all:
         t0 = time.perf_counter()
         launches, grid_bytes, grid_shape, per_doc, seam_handles = \
@@ -4949,6 +5482,9 @@ def main():
         t0 = lap('query', t0)
         service_launches, service_checks, service_nums = service_path()
         t0 = lap('service', t0)
+        shard_launches, shard_checks, shard_nums = shard_path()
+        gc.collect()
+        t0 = lap('shard', t0)
         # the storage path before the sync hub: its legs then run without
         # the hub's 100,000 links alive, which each collector pass walks
         storage_launches, storage_checks, storage_nums, inline_events = \
@@ -4974,6 +5510,8 @@ def main():
         f'{json.dumps(dict(query_nums, launches=query_launches))}')
     log(f'service numbers: '
         f'{json.dumps(dict(service_nums, launches=service_launches))}')
+    log(f'shard numbers: '
+        f'{json.dumps(dict(shard_nums, launches=shard_launches))}')
     seq_nums = seq_numbers(seq_input, seq_pools, base.get('seq'))
     del seq_input, seq_pools
     breakdown(per_doc)
@@ -5053,10 +5591,13 @@ def main():
         entry['query_checked'] = query_checks['checked'][name]
         entry['service_launches'] = service_launches[name]
         entry['service_checked'] = service_checks['checked'][name]
+        entry['shard_launches'] = shard_launches[name]
+        entry['shard_checked'] = shard_checks['checked'][name]
         entry['max_abs_err'] = max(entry['max_abs_err'],
                                    api_checks['worst'][name],
                                    query_checks['worst'][name],
-                                   service_checks['worst'][name])
+                                   service_checks['worst'][name],
+                                   shard_checks['worst'][name])
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,8 +1,7 @@
 # The port's copy of tests/test_export.py: imports re-pointed at
 # automerge_tpu_torch; the kernel-ledger test wraps a torch function; the
 # fixture also turns the observatory off BEFORE each test, so no switch
-# another test left on leaks in; the controller tests wait for the
-# control slice.
+# another test left on leaks in.
 """Prometheus `_sum` exposition + perf-observatory gauges (ISSUE-13).
 
 The round-14 torn-read contract said: cumulative buckets always agree
@@ -180,3 +179,80 @@ def test_shard_label_composes_with_perf_gauges():
     assert ('automerge_tpu_perf_drift_ratio{shard="s7",'
             'seam="sync_round"}') in page
     assert 'automerge_tpu_mem_bytes{shard="s7",tier="rss"}' in page
+
+
+class _FlipPolicy:
+    """A synthetic policy that decides every window and alternates
+    direction — so decisions, reversals, and active-state all move on
+    every tick (the worst case for a concurrent scrape)."""
+
+    name = 'probe'
+
+    def __init__(self):
+        self.n = 0
+
+    def decide(self, sig):
+        self.n += 1
+        return [{'policy': self.name, 'action': 'nudge',
+                 'target': 'tenant:t0',
+                 'direction': 'up' if self.n % 2 else 'down',
+                 'detail': {'n': self.n}}]
+
+    def active(self):
+        return {'tenant:t0': self.n}
+
+
+def test_control_gauges_consistent_under_hammer():
+    """The controller twin of the torn-read hammer: a pump thread
+    committing a decision (with a reversal) every tick, a scraper
+    rendering pages. Every page must satisfy the invariants the
+    controller lock guarantees: decisions and reversals move TOGETHER
+    (flip policy => reversals == decisions - 1 exactly), windows trails
+    decisions by at most one, and both are monotonic across scrapes."""
+    from automerge_tpu_torch.control import Controller
+    ctrl = Controller(mode='shadow', window=1,
+                      policies=[_FlipPolicy()])
+    stop = threading.Event()
+
+    def pump():
+        while not stop.is_set():
+            ctrl.tick()
+
+    writer = threading.Thread(target=pump, daemon=True)
+    writer.start()
+    try:
+        prev_d = prev_w = 0.0
+        dkey = ('automerge_tpu_control_decisions_total'
+                '{policy="probe",action="nudge",mode="shadow"}')
+        for _ in range(50):
+            series = _parse_series(render_prometheus(control=ctrl))
+            d = series.get(dkey, 0.0)
+            w = series['automerge_tpu_control_windows_total']
+            r = series.get(
+                'automerge_tpu_control_reversals_total{policy="probe"}',
+                0.0)
+            if d >= 1:
+                assert r == d - 1, (r, d)
+            assert w <= d <= w + 1, (d, w)
+            assert d >= prev_d and w >= prev_w, (d, prev_d, w, prev_w)
+            prev_d, prev_w = d, w
+    finally:
+        stop.set()
+        writer.join(timeout=5)
+
+
+def test_control_series_compose_with_shard_label():
+    from automerge_tpu_torch.control import Controller
+    ctrl = Controller(mode='shadow', window=1,
+                      policies=[_FlipPolicy()])
+    ctrl.tick()
+    page = render_prometheus(shard='s3', control=ctrl)
+    assert 'automerge_tpu_control_windows_total{shard="s3"}' in page
+    assert ('automerge_tpu_control_decisions_total{shard="s3",'
+            'policy="probe",action="nudge",mode="shadow"}') in page
+    assert ('automerge_tpu_control_policy_active{shard="s3",'
+            'policy="probe",target="tenant:t0"}') in page
+    assert ('automerge_tpu_control_decide_seconds{shard="s3",'
+            'window="last"}') in page
+    # and the family is absent entirely when no controller is wired
+    assert 'control_windows_total' not in render_prometheus()

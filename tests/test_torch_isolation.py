@@ -55,6 +55,14 @@ def test_import_leaves_jax_and_reference_out():
             'import automerge_tpu_torch.service, '
             'automerge_tpu_torch.service.core\n'
             'import automerge_tpu_torch.service_cases\n'
+            'import automerge_tpu_torch.shard, '
+            'automerge_tpu_torch.shard.cluster, '
+            'automerge_tpu_torch.shard.ring\n'
+            'import automerge_tpu_torch.control, '
+            'automerge_tpu_torch.control.controller, '
+            'automerge_tpu_torch.control.policies, '
+            'automerge_tpu_torch.control.signals\n'
+            'import automerge_tpu_torch.shard_cases\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "automerge_tpu")]\n'
             'assert not bad, bad\n'

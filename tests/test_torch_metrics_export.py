@@ -196,8 +196,8 @@ def test_snapshot_all_is_plain_data():
 
 # Families whose values are process totals over every module that
 # registered a source (so they follow what else ran in the process, and
-# the reference registers the shard and control families the port does
-# not have yet): compared by the leg's moved counters in
+# which of each package's modules, the shard and control families among
+# them, it had imported): compared by the leg's moved counters in
 # test_torch_service.py instead.
 PROCESS_TOTALS = ('automerge_tpu_health_total', 'automerge_tpu_dispatch_total')
 

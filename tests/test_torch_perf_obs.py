@@ -3,8 +3,8 @@
 # ledger's tests are rewritten for the port's torch ledger, with a
 # differential against the reference's. Not copied: TestBenchLedger,
 # TestPerfGate and the trajectory test (they test tools/bench_ledger.py
-# and tools/perf_gate.py, not the package), and the threaded ShardRouter
-# count (the shard slice).
+# and tools/perf_gate.py, not the package). The threaded ShardRouter
+# count runs its routers' shard fleets on the CPU.
 """Performance observatory coverage (ISSUE-13).
 
 - DRIFT DETECTOR NOISE IMMUNITY: the seam-baseline detector replayed
@@ -381,6 +381,88 @@ class TestAtomicCounters:
         c['reset_me'] = 7
         c['reset_me'] = 0
         assert c['reset_me'] == 0
+
+    @pytest.mark.parametrize('module', ['merge_kernel', 'register_kernel',
+                                        'seq_kernel', 'sync_kernels'])
+    def test_kernel_launch_counts_exact_under_threads(self, module):
+        """The shard router pumps its shards from a thread pool, so the
+        kernel wrappers count their launches from several threads at
+        once: every launch table takes the locked increment."""
+        import importlib
+        import sys
+        mod = importlib.import_module(f'automerge_tpu_torch.fleet.{module}')
+        threads, per_thread = 16, 2000
+        saved = dict(mod.LAUNCHES)
+        interval = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+        try:
+            mod.reset_launches()
+
+            def launch():
+                for _ in range(per_thread):
+                    for name in mod.LAUNCHES:
+                        mod.LAUNCHES.inc(name)
+            ts = [threading.Thread(target=launch) for _ in range(threads)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(timeout=60)
+            assert not any(t.is_alive() for t in ts)
+            assert set(mod.LAUNCHES.values()) == {threads * per_thread}
+        finally:
+            sys.setswitchinterval(interval)
+            mod.LAUNCHES.update(saved)
+
+    def test_threaded_router_pump_counts_exact(self):
+        """The satellite pin: at pump_threads>1, module health counters
+        land EXACT (they are Counters now, not bare dict increments)."""
+        from automerge_tpu_torch import native
+        if not native.available():
+            pytest.skip('native codec unavailable')
+        from automerge_tpu_torch.columnar import encode_change
+        from automerge_tpu_torch.observability import health_counts
+        from automerge_tpu_torch.service.backoff import Backoff
+        from automerge_tpu_torch.shard import ShardRouter
+        clk = [0.0]
+        router = ShardRouter(n_shards=4, clock=lambda: clk[0],
+                             pump_threads=4, lease_ticks=3,
+                             backoff=Backoff(base=0.02, factor=1.5,
+                                             cap=0.32, retries=14,
+                                             seed=1), device='cpu')
+        n_tenants, per_tenant = 12, 3
+        try:
+            for i in range(n_tenants):
+                router.open_tenant(f't{i}')
+            before = health_counts()
+            tickets = []
+            for i in range(n_tenants):
+                for seq in range(1, per_tenant + 1):
+                    tickets.append(router.submit(
+                        f't{i}', 'apply', [encode_change({
+                            'actor': f'{i:02x}' * 16, 'seq': seq,
+                            'startOp': seq, 'time': 0, 'message': '',
+                            'deps': [],
+                            'ops': [{'action': 'set', 'obj': '_root',
+                                     'key': 'k', 'value': seq,
+                                     'datatype': 'int', 'pred': []}]})]))
+            for _ in range(400):
+                if all(t.done for t in tickets):
+                    break
+                router.pump(now=clk[0])
+                clk[0] += 0.02
+            assert all(t.status == 'ok' for t in tickets), \
+                [(t.status, t.error) for t in tickets if not t.done
+                 or t.status != 'ok'][:4]
+            after = health_counts()
+            moved = {k: after[k] - before.get(k, 0)
+                     for k in after if after[k] != before.get(k, 0)}
+            n = n_tenants * per_tenant
+            # no retries in a clean router: submit == dispatch == done
+            assert moved.get('shard_retries', 0) == 0
+            assert moved.get('service_requests') == n, moved
+            assert moved.get('service_completed') == n, moved
+        finally:
+            router.close()
 
 
 def test_guard_keywords_stay_out_of_the_signature():

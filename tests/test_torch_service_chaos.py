@@ -1,7 +1,7 @@
-# The port's copy of the service legs of tests/test_service_chaos.py:
-# the load generator is automerge_tpu_torch/service_cases.py and every
-# fleet is on the CPU (device='cpu'). The shard legs wait for the shard
-# slice.
+# The port's copy of tests/test_service_chaos.py: the load generators
+# are automerge_tpu_torch/service_cases.py (the service legs) and
+# automerge_tpu_torch/shard_cases.py (the shard legs), and every fleet
+# is on the CPU (device='cpu').
 """Chaos universe for the serving core (ISSUE-7, the PR 2/3 pattern).
 
 The loadgen's chaos client (service_cases.py) drives Zipf-tenant load —
@@ -33,12 +33,17 @@ import torch
 from automerge_tpu_torch import native
 from automerge_tpu_torch.service_cases import (run_leg as _run_leg,
                                                run_standard_legs)
+from automerge_tpu_torch.shard_cases import run_shard_leg as _run_shard_leg
 
 torch.set_num_threads(1)
 
 
 def run_leg(name, **kw):
     return _run_leg(name, device='cpu', **kw)
+
+
+def run_shard_leg(name, **kw):
+    return _run_shard_leg(name, device='cpu', **kw)
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason='native codec unavailable')
@@ -95,6 +100,64 @@ def test_service_chaos_identical_across_device_modes():
         assert report['session_saves'], 'empty save map'
     assert saves[False] == saves[True], \
         'device modes diverged under the identical chaos script'
+
+
+def assert_shard_leg_ok(report):
+    assert report['untyped_escapes'] == 0, report
+    assert report['drained'], report
+    for audit in report['audits']:
+        # ZERO acknowledged-write loss and byte-identical home/replica
+        # convergence at EVERY settle point, not just the end
+        assert audit['acked_lost'] == 0, audit
+        assert audit['replica_mismatches'] == 0, audit
+        assert audit['replica_pairs'] > 0, audit
+    assert report['ok'], report
+
+
+def test_shard_kill_one_of_four_smoke():
+    """The acceptance leg (ISSUE-11): kill one of 4 shards mid-workload
+    under chaos links — zero acked-write loss, the dead shard's tenants
+    served by their replicas within the lease window, post-quiet
+    byte-identical convergence across the surviving shards."""
+    report = run_shard_leg('kill_one_of_four', n_shards=4, tenants=12,
+                           requests=240, arrivals_per_tick=8,
+                           chaos=True, seed=5, kills=((12, 1, 40),),
+                           mttr_bound=12)
+    assert_shard_leg_ok(report)
+    assert report['failovers'] == 1
+    assert report['mttr_ticks'][0] is not None
+    assert report['mttr_ticks'][0] <= report['lease_ticks'] + 9
+    assert report['completed_ok'] > 0
+
+
+def test_shard_kill_revive_cycles_same_shard():
+    """The satellite: kill and revive ONE shard 3x mid-workload (with a
+    rebalance pulling its tenants home each revive), asserting the
+    byte-identical convergence audit after every round."""
+    report = run_shard_leg(
+        'kill_revive_3x', n_shards=3, tenants=9, requests=270,
+        arrivals_per_tick=6, chaos=True, seed=7,
+        kills=((10, 0, 30), (60, 0, 80), (110, 0, 130)))
+    assert_shard_leg_ok(report)
+    assert report['kills'] == 3
+    # three settle audits (one per revive) plus the final one, each
+    # byte-identical — checked in assert_shard_leg_ok
+    assert len(report['audits']) == 4
+    assert report['shard_health_delta'].get('shard_revives', 0) == 3
+
+
+@pytest.mark.slow
+def test_shard_kill_matrix_full():
+    """Scaled kill schedule: two different victims plus a repeat kill,
+    both device modes."""
+    for mode in (False, True):
+        report = run_shard_leg(
+            'kill_matrix', n_shards=4, tenants=32, requests=1600,
+            arrivals_per_tick=16, chaos=True, seed=19,
+            exact_device=mode,
+            kills=((20, 1, 60), (120, 3, 160), (220, 1, 260)))
+        assert_shard_leg_ok(report)
+        assert report['failovers'] == 3
 
 
 @pytest.mark.slow

@@ -565,3 +565,34 @@ def test_deadline_abort_leaves_storage_whole_like_the_reference():
     got = _deadline_abort(PORT)
     assert got == _deadline_abort(REF)
     assert got == [3, 3, [True] * 3, True]
+
+
+# ---- the shard cluster's pair reset ----------------------------------------
+
+@pytest.mark.parametrize('pkg', [REF, PORT], ids=lambda p: p.name)
+def test_cluster_pair_reset_releases_both_spaces(pkg):
+    """tests/test_sync_fabric.py's cluster pair reset, through each
+    package's shard cluster: a replica pair's reset hands both of its
+    peer spaces back to the index at once and starts the pair over with
+    plain sent sets and empty inboxes."""
+    import importlib
+    cluster = importlib.import_module(
+        pkg.fleet.__name__.replace('.fleet.backend', '.shard.cluster'))
+    ix = pkg.hi.HashIndex(capacity=16, device_min=1, **pkg.kw)
+    a = pkg.hi.PeerSentSet(ix)
+    b = pkg.hi.PeerSentSet(ix)
+    a.add('ab' * 32)
+    a.flush()
+
+    class _Rec:
+        pass
+
+    rec = _Rec()
+    rec.state_home = dict(pkg.host.init_sync_state(), sentHashes=a)
+    rec.state_rep = dict(pkg.host.init_sync_state(), sentHashes=b)
+    cluster._Tenant._reset_pair(rec)
+    assert not a.alive and not b.alive
+    assert not ix._live[a.sid] and not ix._live[b.sid]
+    assert isinstance(rec.state_home['sentHashes'], set)
+    assert isinstance(rec.state_rep['sentHashes'], set)
+    assert rec.inbox_home == [] and rec.inbox_rep == []
