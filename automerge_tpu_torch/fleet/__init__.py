@@ -12,8 +12,11 @@ live/parked rounds), the bulk loader (`load_docs`: saved documents
 straight to device state), durability (`durability.DurableFleet`:
 journal, checkpoints, crash recovery) and the storage tier
 (`storage.StorageEngine` over `segment`'s arenas, `tiering`'s cost
-model and controller). Multi-device sharding is a later slice
-(ROADMAP.md Queue 1).
+model and controller), and the multi-device path: `sharding`'s
+`FleetMesh`, sharded values and steps (one kernel launch per block),
+`DocFleet(mesh=...)` (one launch per docs block of a dispatch) and
+`exchange`'s cross-shard sync transport (a transpose on one device,
+`torch.distributed.all_to_all_single` across processes).
 """
 
 from .tensor_doc import (FleetState, OpBatch, TOMBSTONE, pack_op_id,

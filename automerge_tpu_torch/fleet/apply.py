@@ -20,7 +20,10 @@ CPU). The entry points keep the reference's names and contracts:
   code in the reference; the merge after it is the kernel;
 - `zero_doc_rows_donated` zeroes the listed doc rows of all three grids;
 - `fleet_merge(state, batches)` runs `apply_op_batch` over a sequence of
-  OpBatches and sums their counts (a Python int).
+  OpBatches and sums their counts (a Python int);
+- `blocks` (the donated forms): a mesh fleet's docs blocks, [(lo, hi),
+  ...] row ranges; the body runs once per block on row views, so each
+  block is one merge launch (DocFleet(mesh=...)).
 
 Every other entry point returns (state, stats) with stats the number of
 valid op lanes (a 0-d int32 tensor).
@@ -35,7 +38,7 @@ import torch
 
 from ..observability.perf import instrument_kernel
 from .merge_kernel import lww_merge
-from .tensor_doc import FleetState
+from .tensor_doc import FleetState, per_docs_block
 
 
 def _clone(state):
@@ -49,8 +52,10 @@ def _empty(n_docs, n_keys, device):
                         for _ in range(3)))
 
 
-def _apply_op_batch_donated(state, ops):
+def _apply_op_batch_donated(state, ops, blocks=None):
     """Apply one OpBatch to the fleet in place. Returns (state, stats)."""
+    if blocks is not None:
+        return per_docs_block(_apply_op_batch_donated, blocks, state, ops)
     return state, lww_merge(state, ops)
 
 
@@ -59,11 +64,14 @@ def _apply_op_batch(state, ops):
     return _apply_op_batch_donated(_clone(state), ops)
 
 
-def _apply_op_batch_noinc_donated(state, ops):
+def _apply_op_batch_noinc_donated(state, ops, blocks=None):
     """Set-only batches (no inc lanes — the caller checks host-side) on a
     counter-free grid: the counter grid passes through untouched. Only
     byte-identical to the general merge while the counter grid is
     all-zero (see automerge_tpu/fleet/apply.py for the gate)."""
+    if blocks is not None:
+        return per_docs_block(_apply_op_batch_noinc_donated, blocks, state,
+                              ops)
     return state, lww_merge(state, ops, noinc=True)
 
 
@@ -119,10 +127,14 @@ def clear_killed(state, kill_key, kill_packed):
         t.masked_fill_(killed, 0)
 
 
-def _apply_op_batch_kills_donated(state, ops, kill_key, kill_packed):
+def _apply_op_batch_kills_donated(state, ops, kill_key, kill_packed,
+                                  blocks=None):
     """One OpBatch plus delete kill lanes [N, Q] (pred-scoped deletes,
     ref new.js:1204-1217), in place."""
     kill_key, kill_packed = _lanes(kill_key, state), _lanes(kill_packed, state)
+    if blocks is not None:
+        return per_docs_block(_apply_op_batch_kills_donated, blocks, state,
+                              ops, kill_key, kill_packed)
     clear_killed(state, kill_key, kill_packed)
     return state, lww_merge(state, mask_killed_sets(ops, kill_packed))
 

@@ -13,9 +13,14 @@ bulk-load through fleet/loader.py, and `park_docs` / `rebuild_docs`
 keep the reference's parked form and rebuild. The module is a copy of
 the reference with the device calls swapped. Durability journals
 (fleet/durability.py) attach as in the reference, and `rebuild_docs`
-moves a source journal across as the reference does. Sharded meshes
-belong to a later slice of the port (ROADMAP.md "Queue 1") and raise
-NotImplementedError naming their item.
+moves a source journal across as the reference does. With a mesh
+(`DocFleet(mesh=...)`, a fleet/sharding.py `FleetMesh` whose positions
+share one device) the capacity is a multiple of the docs axis and every
+grid and register dispatch is one kernel launch per docs block, over
+that block's rows. A fleet spans one device: a mesh whose positions lie
+on several devices, or in several processes, raises ValueError — across
+cards run one process (and fleet) per card and sync the shards with
+fleet/exchange.py `drive_pairwise_sync_multihost`.
 
 The reference's description follows.
 
@@ -85,14 +90,25 @@ from .tensor_doc import (ACTOR_BITS, CTR_LIMIT, FleetState, MAX_ACTORS,
                          TOMBSTONE, pack_op_id, resolve_device)
 from .ingest import KeyInterner
 
-# A later slice of the port (ROADMAP.md Queue 1): its paths raise
-_MULTI_DEVICE = 'multi-device (fleet/sharding.py, fleet/exchange.py)'
 
-
-def _later(item):
-    return NotImplementedError(
-        f'{item} is not ported to automerge_tpu_torch yet '
-        f'(ROADMAP.md Queue 1)')
+def _mesh_device(mesh, device):
+    """The one device of a mesh fleet: every position of `mesh` must be
+    this process's and lie on one device (`device`, where given)."""
+    from .sharding import process_rank
+    devs = set(mesh.devices.reshape(-1).tolist())
+    ranks = set(int(r) for r in mesh.ranks.reshape(-1))
+    if len(devs) != 1 or ranks != {process_rank(mesh.group)}:
+        raise ValueError(
+            f'DocFleet keeps its grids on one device, but this mesh\'s '
+            f'positions span devices {sorted(map(str, devs))} in ranks '
+            f'{sorted(ranks)}: run one process (and fleet) per card and '
+            f'sync the shards with fleet.exchange.'
+            f'drive_pairwise_sync_multihost')
+    (dev,) = devs
+    if device is not None and torch.device(device) != dev:
+        raise ValueError(f'DocFleet: device {device} is not the mesh\'s '
+                         f'device {dev}')
+    return dev
 
 
 _FLAT_ACTIONS = ('set', 'del', 'inc')
@@ -293,12 +309,18 @@ class DocFleet:
     def __init__(self, doc_capacity=64, key_capacity=64,
                  exact_device=False, actor_slot_capacity=8, d_preds=4,
                  mesh=None, device=None):
-        # a mesh belongs to a later slice of the port
-        if mesh is not None:
-            raise _later(_MULTI_DEVICE)
-        # The torch device every grid lives on (CUDA unless asked)
-        self.device = resolve_device(device)
-        self.mesh = None
+        # Optional fleet/sharding.py FleetMesh with a 'docs' axis, its
+        # positions on one device: the capacity is a docs-axis multiple
+        # and every grid/register dispatch is one launch per docs block
+        # (the reference's SPMD dispatch over the docs axis). Sequence
+        # pools stay unsplit: the RGA pointer walk is a per-document
+        # scan and their row axis is not slot-aligned. mesh=None
+        # (default) is one launch per dispatch.
+        self.mesh = mesh
+        # The torch device every grid lives on (CUDA unless asked; a
+        # mesh's own device with a mesh)
+        self.device = resolve_device(device) if mesh is None else \
+            _mesh_device(mesh, device)
         self.keys = KeyInterner()
         self.actors = _SortedActorTable()
         self.value_table = _ValueTable()   # non-inline values, -(i + 2) refs
@@ -429,11 +451,31 @@ class DocFleet:
         return self._hash_index
 
     def _cap_docs(self, n_docs):
-        """Doc-capacity sizing: pow2 growth; an already-sufficient
-        capacity is returned unchanged."""
-        if n_docs <= self.doc_cap:
+        """Doc-capacity sizing shared by the grid and register allocators:
+        pow2 growth, raised to a multiple of the mesh docs axis so every
+        docs block has the same rows (a bare pow2 fails on e.g. a
+        6-position axis). An already-sufficient mesh-aligned capacity is
+        returned unchanged: on a non-pow2 mesh the stored doc_cap is
+        itself non-pow2 (e.g. 66 on a 6-position axis), and re-deriving
+        pow2 from it (128 -> 132) would regrow state ~2x on every call. A
+        constructor doc_capacity that is NOT yet a mesh multiple still
+        rounds up."""
+        m = self.mesh.shape.get('docs', 1) if self.mesh is not None else 1
+        if n_docs <= self.doc_cap and self.doc_cap % m == 0:
             return self.doc_cap
-        return max(_pow2(max(n_docs, 1)), self.doc_cap)
+        need = max(_pow2(max(n_docs, 1)), self.doc_cap)
+        return ((need + m - 1) // m) * m
+
+    def _split(self, n_rows):
+        """The `blocks` keyword of a dispatch over an n_rows state: on a
+        mesh fleet the [lo, hi) rows of each position of the docs axis,
+        one kernel launch each; none (one launch) without a split."""
+        m = self.mesh.shape.get('docs', 1) if self.mesh is not None else 1
+        if m == 1:
+            return {}
+        step = -(-n_rows // m)
+        return {'blocks': tuple((lo, min(lo + step, n_rows))
+                                for lo in range(0, n_rows, step))}
 
     @property
     def dispatches(self):
@@ -1024,8 +1066,14 @@ class DocFleet:
             self.doc_cap, self.key_cap = need_docs, need_keys
             self.host_winners = np.zeros((need_docs, need_keys + 1),
                                          dtype=np.int32)
-            # the first _dispatch_grid builds the zero state INSIDE its
-            # merge (apply.apply_op_batch_fresh) — the fill fuses with
+            if self.mesh is not None:
+                # mesh fleets allocate eagerly, as the reference's do: the
+                # first dispatch is already the in-place merge, split
+                # over the docs blocks
+                self.state = FleetState.empty(need_docs, need_keys,
+                                              self.device)
+            # else: the first _dispatch_grid builds the zero state INSIDE
+            # its merge (apply.apply_op_batch_fresh) — the fill fuses with
             # the first merge instead of being its own whole-grid memset
             return
         old_n, old_k = self.state.winners.shape
@@ -1312,13 +1360,15 @@ class DocFleet:
                         batch, self.doc_cap, self.key_cap)
                 else:
                     self.state, _stats = apply_op_batch_noinc_donated(
-                        self.state, batch)
+                        self.state, batch,
+                        **self._split(self.state.winners.shape[0]))
             elif fresh:
                 self.state, _stats = apply_op_batch_fresh(
                     batch, self.doc_cap, self.key_cap)
             else:
                 self.state, _stats = apply_op_batch_donated(
-                    self.state, batch)
+                    self.state, batch,
+                    **self._split(self.state.winners.shape[0]))
         else:
             kill_key, kill_packed = kills
             n_cap = self._grid_cap()
@@ -1336,7 +1386,8 @@ class DocFleet:
                     self.key_cap)
             else:
                 self.state, _stats = apply_op_batch_kills_donated(
-                    self.state, batch, kill_key, kill_packed)
+                    self.state, batch, kill_key, kill_packed,
+                    **self._split(self.state.winners.shape[0]))
         self.metrics.dispatches += 1
 
     def _note_grid_batch(self, set_doc, set_key, set_packed,
@@ -1514,7 +1565,8 @@ class DocFleet:
             rows['doc'], rows['flags'], rows['key'], rows['packed'],
             rows['value'], rows['pred_off'], rows['pred'],
             n_docs=n_cap, d_preds=self.d_preds)
-        apply_register_batch_donated(self.reg_state, batch.to(self.device))
+        apply_register_batch_donated(self.reg_state, batch.to(self.device),
+                                     **self._split(n_cap))
         self.metrics.dispatches += 1
         self.metrics.device_ops += len(rows['doc'])
 
@@ -1589,7 +1641,8 @@ class DocFleet:
                 np.array(preds, dtype=np.int32),
                 n_docs=n_cap, d_preds=self.d_preds)
             apply_register_batch_donated(self.reg_state,
-                                         batch.to(self.device))
+                                         batch.to(self.device),
+                                         **self._split(n_cap))
             self.metrics.dispatches += 1
             self.metrics.device_ops += len(out_doc)
         self._dispatch_seq(seq_ops)
@@ -4707,7 +4760,8 @@ def _apply_changes_turbo_inner(handles, per_doc_changes, ps, parsed=None):
                 force_overflow=bad_rows)
             ps.mark('turbo_dispatch')
             apply_register_batch_donated(fleet.reg_state,
-                                         reg_batch.to(fleet.device))
+                                         reg_batch.to(fleet.device),
+                                         **fleet._split(n_cap))
             fleet.metrics.dispatches += 1
         dispatch_seq_rows()
         fleet.metrics.device_ops += int(keep.sum())

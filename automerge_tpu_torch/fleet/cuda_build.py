@@ -27,7 +27,7 @@ NVCC_FLAGS = ('-gencode=arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 
 _libs = {}
 _locks = {}
-_guard = threading.Lock()
+_locks_lock = threading.Lock()
 
 
 def nvcc():
@@ -70,7 +70,7 @@ def _compile(name):
 
 def load(name, declare):
     """The ctypes library of csrc/<name>.cu, built on first use."""
-    with _guard:
+    with _locks_lock:
         lock = _locks.setdefault(name, threading.Lock())
     with lock:
         lib = _libs.get(name)

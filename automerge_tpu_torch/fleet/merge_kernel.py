@@ -39,6 +39,7 @@ shapes (csrc/lww_merge.cu says what bounds each route and why):
 
 import collections
 import ctypes
+import threading
 
 import torch
 
@@ -67,6 +68,7 @@ Plan = collections.namedtuple('Plan', (
                       # CTA's dynamic shared memory is 3 x smem_cells x 4 B)
 
 _set_up = set()          # devices where lww_merge_setup has run
+_set_up_lock = threading.Lock()   # shard pumps launch from threads
 
 
 def reset_launches():
@@ -176,11 +178,13 @@ def _launch(state, ops, plan, noinc, stats):
     with torch.cuda.device(dev):
         index = torch.cuda.current_device()
         if plan.route == 'fresh' and index not in _set_up:
-            err = lib.lww_merge_setup(FRESH_SMEM_BUDGET)
-            if err != 0:
-                raise RuntimeError(f'lww_merge: setting the fresh route\'s '
-                                   f'shared memory failed: CUDA error {err}')
-            _set_up.add(index)
+            with _set_up_lock:
+                err = lib.lww_merge_setup(FRESH_SMEM_BUDGET)
+                if err != 0:
+                    raise RuntimeError(f'lww_merge: setting the fresh '
+                                       f'route\'s shared memory failed: '
+                                       f'CUDA error {err}')
+                _set_up.add(index)
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.lww_merge_launch(
             ops.key_id.data_ptr(), ops.packed.data_ptr(),

@@ -43,6 +43,7 @@ between the two: a build or launch failure raises.
 """
 
 import ctypes
+import threading
 
 import torch
 
@@ -111,6 +112,7 @@ def _segment_shift(p):
 
 
 _ARRIVALS = {}      # (device, stream) -> the kernel's uint64 arrival word
+_ARRIVALS_LOCK = threading.Lock()   # shard pumps launch from threads
 
 
 def _arrivals(dev, stream):
@@ -120,8 +122,11 @@ def _arrivals(dev, stream):
     key = (dev, stream)
     word = _ARRIVALS.get(key)
     if word is None:
-        word = _ARRIVALS[key] = torch.zeros(1, dtype=torch.int64,
-                                            device=dev)
+        with _ARRIVALS_LOCK:
+            word = _ARRIVALS.get(key)
+            if word is None:
+                word = _ARRIVALS[key] = torch.zeros(1, dtype=torch.int64,
+                                                    device=dev)
     return word
 
 

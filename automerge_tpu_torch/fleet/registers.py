@@ -38,6 +38,7 @@ import torch
 
 from ..observability.perf import instrument_kernel
 from .register_kernel import ACTOR_MASK, DEL, INC, PAD, SET, register_scan
+from .tensor_doc import per_docs_block
 
 
 class RegisterState:
@@ -110,10 +111,14 @@ def _clone(state):
     return RegisterState(*(t.clone() for t in state.tensors()))
 
 
-def _apply_register_batch_donated(state, ops):
+def _apply_register_batch_donated(state, ops, blocks=None):
     """Apply one RegisterOpBatch to `state` in place. Returns (state,
     applied) with applied the number of non-PAD op lanes (a 0-d int32
-    tensor)."""
+    tensor). With `blocks` (a mesh fleet's docs blocks, [(lo, hi), ...]),
+    one scan per block on row views."""
+    if blocks is not None:
+        return per_docs_block(_apply_register_batch_donated, blocks, state,
+                              ops)
     return state, register_scan(state, ops)
 
 

@@ -50,6 +50,7 @@ only such states.
 """
 
 import ctypes
+import threading
 from collections import namedtuple
 
 import torch
@@ -92,6 +93,7 @@ Plan = namedtuple('Plan', (
                       # on the resident route, else in device scratch)
 
 _set_up = set()       # devices where seq_scan_setup has run
+_set_up_lock = threading.Lock()   # shard pumps launch from threads
 
 
 def reset_launches():
@@ -211,11 +213,13 @@ def _launch(state, ops, plan):
     with torch.cuda.device(dev):
         index = torch.cuda.current_device()
         if index not in _set_up:
-            err = lib.seq_scan_setup(SMEM_BUDGET)
-            if err != 0:
-                raise RuntimeError(f'seq_scan: setting the resident route\'s '
-                                   f'shared memory failed: CUDA error {err}')
-            _set_up.add(index)
+            with _set_up_lock:
+                err = lib.seq_scan_setup(SMEM_BUDGET)
+                if err != 0:
+                    raise RuntimeError(f'seq_scan: setting the resident '
+                                       f'route\'s shared memory failed: '
+                                       f'CUDA error {err}')
+                _set_up.add(index)
         err = lib.seq_scan_launch(
             state.elem_id.data_ptr(), state.nxt.data_ptr(),
             state.reg.data_ptr(), state.killed.data_ptr(),

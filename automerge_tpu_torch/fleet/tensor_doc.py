@@ -128,6 +128,27 @@ def _as_tensor(col, device):
     return col.to(device).contiguous()
 
 
+def docs_rows(obj, lo, hi):
+    """Rows [lo, hi) of a state or op batch (FleetState, OpBatch,
+    RegisterState, RegisterOpBatch, ...: every tensor's leading axis is
+    the docs axis), as views of its tensors."""
+    parts = obj.tensors() if hasattr(obj, 'tensors') else obj.columns()
+    return type(obj)(*(t[lo:hi] for t in parts))
+
+
+def per_docs_block(run, blocks, state, ops, *lanes):
+    """run(state, ops, *lanes) -> (state, stats) once per docs block
+    [lo, hi) of `blocks` on row views of its arguments (the runs update
+    `state` in place); returns (state, the stats summed). A mesh fleet's
+    dispatch: one kernel launch per block of the mesh's docs axis."""
+    total = None
+    for lo, hi in blocks:
+        _, stats = run(docs_rows(state, lo, hi), docs_rows(ops, lo, hi),
+                       *(lane[lo:hi] for lane in lanes))
+        total = stats if total is None else total + stats
+    return state, total
+
+
 def state_from_numpy(winners, values, counters, device):
     """A FleetState on `device` from three [N, K+1] int32 host arrays —
     e.g. ``np.asarray`` of another fleet engine's grids — so two engines

@@ -17,9 +17,10 @@ keeps the reference's API and report shape but is written for torch:
   recent spans and window means. Gauges export on the Prometheus page.
 - **Kernel cost ledger** (``instrument_kernel``): the port's kernel
   entry points (fleet/apply.py, registers.py, sequence.py, bloom.py,
-  hashindex.py) are wrapped under the reference's kind names, so one
-  dashboard reads both packages. Off (default), the wrap costs one
-  flag check per call. On (``enable_ledger()``), each call counts
+  hashindex.py, sharding.py, exchange.py) are wrapped under the
+  reference's kind names, so one dashboard reads both packages. Off
+  (default), the wrap costs one flag check per call. On
+  (``enable_ledger()``), each call counts
   per-kind dispatches and host-blocking wall seconds (no
   ``torch.cuda.synchronize()``: on the card that is launch time, and
   device time belongs to ``observability.trace`` captures) and records
@@ -30,12 +31,12 @@ keeps the reference's API and report shape but is written for torch:
   accessed'`` is the nbytes of the tensors the call reads and writes
   (its arguments' leaves and its result's). No ``'flops'`` is
   reported, as the reference drops a key its backend does not report.
-  Two kinds have no counterpart here: ``pallas_apply_op_batch``,
+  One kind has no counterpart here: ``pallas_apply_op_batch``,
   because the port's merge entry points launch the hand kernel
-  themselves (fleet/merge_kernel.py), and the mesh kinds
-  (``sharded_*``, ``exchange_all_to_all``), which wait for the
-  multi-device slice. ``kernel_report()`` / ``dump_ledger()`` keep the
-  shape ``tools/obs_report.py --floor`` reads.
+  themselves (fleet/merge_kernel.py). The mesh kinds (``sharded_*``,
+  ``exchange_all_to_all``) register when fleet/sharding.py and
+  fleet/exchange.py import. ``kernel_report()`` / ``dump_ledger()`` keep
+  the shape ``tools/obs_report.py --floor`` reads.
 - **Memory watermarks** (``sample_watermarks``): process RSS plus
   per-tier byte gauges from registered sources (fleet-resident device
   state, the storage tier's lanes and arena, the journal's loss window,

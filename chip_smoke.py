@@ -35,14 +35,15 @@ Phases (any failure exits non-zero):
    fleet/register_cases.py (among them one key for all of a doc's ops,
    and half the lanes on one key) at P = 0, 1, 5, 20, 31, 32 and 33 (8
    actor slots), at 256, 1, 2, 3, 4 and 16 actor slots, with 1 and 6 pred
-   lanes, and at P = 1000 (all five arrays and the lane count equal); the
+   lanes, and at P = 500 (all five arrays and the lane count equal); the
    sequence scan on every corner of
    fleet/seq_cases.py (a row at capacity, unknown referents, a cyclic
    chain, duplicate and dead preds, wrapping counters, lanes past the
    width, refs to later inserts, duplicate ids, one node's ops inside a
-   chunk, a failing insert mid-row, ...) at P = 0, 1, 20 and 256 at 4
-   and at 256 actor lanes along the wrapper's own route, and at P = 40
-   and 256 along the forced 'global' route (all eight arrays and the
+   chunk, a failing insert mid-row, ...) at P = 0, 1, 20 and 128 at 4
+   and P = 0, 1, 20 and 256 at 256 actor lanes along the wrapper's own
+   route, and at P = 40 and 256 along the forced 'global' route (all
+   eight arrays and the
    applied count equal; the 'serial' and 'capacity' corners must send
    rows to the kernel's serial route), on 3 rows of a class past the
    resident route (the plan takes 'global') and on a class of 1,025
@@ -83,7 +84,7 @@ Phases (any failure exits non-zero):
      seq_scan launch per batch; every doc's text equals the host OpSet's,
      4 sampled docs' get_patch() and save() equal the host's and save()
      round-trips, nothing inexact, no fallbacks; the same once more in
-     exact-device mode; ops/s (median of 3 warm reps);
+     exact-device mode; ops/s (median of 2 warm reps);
    - load: the bulk loader and the parked form. The seam's document
      (its 20-change chain, saved) loads 10,000 times through
      load_docs(DocFleet(doc_capacity=10,000, key_capacity=1,000)):
@@ -198,6 +199,34 @@ Phases (any failure exits non-zero):
      size) home and replica docs read from the card (materialize_docs,
      and the grid rows or registers) == each other == a CPU fleet fed
      its acked changes;
+   - mesh: the multi-device path on one card (fleet/sharding.py,
+     fleet/exchange.py, DocFleet(mesh=)), each leg with every launch
+     count (the mesh steps' too) set to 0 just before it and read just
+     after, its device activity traced (wall, idle share), its first 64
+     calls of each kernel held to the plain version after it:
+     sharded_apply at the seam's width ([10000, 1024] x3 int32 grids, 20
+     lanes a doc) on a 2 x 2 (docs, keys) mesh of logical positions on
+     cuda:0, 4 lww_merge launches, the gathered grids (scratch column
+     included) and stats == one unsharded launch; sharded_seq_apply of
+     the text seam's last batch (256 lanes) on the class it ran on,
+     [1024, 16387, 4], over 4 docs positions, 4 seq_scan launches, ==
+     the unsharded scan (the first batch's 9,999 lanes would cost the
+     four blocks' plain check ~4 x 4.2 M torch ops); a long document of 262,144 elements built as arrays
+     (capacity odd, so 4 stripes pad the node axis), 1,000 edits
+     through sharded_long_seq_apply and sharded_long_seq_materialize,
+     the real prefix == the unsharded apply and materialize, the padded
+     tail unallocated; DocFleet(mesh=4 docs positions on cuda:0)
+     through the seam at 10,000 docs x 20 changes, 4 lww_merge launches
+     a dispatch, every materialize_docs and grid row read from the card
+     == a meshless card fleet's; 4 shards (FleetBackend docs of one mesh
+     fleet, 2,500 private changes each) converged by
+     drive_pairwise_sync over the card's exchange, the heads equal, each
+     shard's materialize_docs and grid row == a host backend's; and
+     drive_pairwise_sync_multihost over an NCCL group of one rank (a tcp
+     store on 127.0.0.1), 4 local shards, max_msg 64 so the round is
+     chunked (sync_retries rise), all_to_all_single on the card, rounds
+     and heads == the single-controller driver's. Each step's time,
+     plain time and bound go on the kernels line;
    - storage: durability and the storage tier, each leg with the launch
      counts set to 0 just before it. The durable seam: the seam's batch
      through DurableFleet(fsync_bytes=4 MiB) on the card, whose grids
@@ -594,9 +623,10 @@ def sync_kernel_vs_plain():
         del case
 
 
-# the widest register batch: 32 tiles of 32 columns (cut from 3,000
-# lanes: the host's plain loop took ~66 s of the script's time limit)
-REGISTER_WIDE_P = 1_000
+# the widest register batch: 16 tiles of 32 columns (cut from 3,000
+# lanes, then from 1,000 when the mesh path came: the host's plain loop
+# took ~66 s of the script's time limit at 3,000)
+REGISTER_WIDE_P = 500
 # (docs, keys, actor slots, P, D, where the plain version runs)
 REGISTER_CONFIGS = tuple(
     [(300, 40, 8, p, 4, None) for p in (0, 1, 5, 20, 31, 32, 33)] +
@@ -649,11 +679,13 @@ def one_cpu_thread():
 
 # the widest sequence batch: two of phase B's 128-column windows (cut
 # from 512 lanes: the host's plain loop took ~65 s of the script's time
-# limit)
+# limit); at 4 actor lanes one window (cut when the mesh path came: the
+# text seam's own 256-lane batches are held to the plain version in full
+# in phase 4)
 SEQ_WIDE_P = 256
 # (rows, actor lanes, P, route): None = the wrapper's own plan
 SEQ_CONFIGS = ((64, 4, 0, None), (64, 4, 1, None), (64, 4, 20, None),
-               (16, 4, SEQ_WIDE_P, None), (16, 256, 0, None),
+               (16, 4, SEQ_WIDE_P // 2, None), (16, 256, 0, None),
                (16, 256, 1, None), (16, 256, 20, None),
                (16, 256, SEQ_WIDE_P, None), (32, 4, 40, 'global'),
                (16, 4, SEQ_WIDE_P, 'global'))
@@ -664,15 +696,14 @@ def seq_kernel_vs_plain():
     corner of fleet/seq_cases.py (among them a row at capacity, unknown
     referents, a cyclic chain, refs to later inserts, duplicate ids, one
     node's ops inside a chunk, a failing insert mid-row), at P = 0, 1, 20
-    and SEQ_WIDE_P op lanes at 4 and at 256 actor lanes along the
-    wrapper's own route ('resident' at these classes) and at P = 40 and
-    SEQ_WIDE_P along the
-    'global' route (forced), exactly (all eight arrays and the applied
-    count); the
+    and SEQ_WIDE_P / 2 op lanes at 4 actor lanes and P = 0, 1, 20 and
+    SEQ_WIDE_P at 256 along the wrapper's own route ('resident' at these
+    classes) and at P = 40 and SEQ_WIDE_P along the 'global' route
+    (forced), exactly (all eight arrays and the applied count); the
     'serial' and 'capacity' corners must send rows to the kernel's serial
-    route. At P = SEQ_WIDE_P the plain version runs on the host (one torch
-    thread): on the card its Python loop costs ~8 ms a column whatever
-    the rows. Then a class past the resident route (the wrapper's plan
+    route. From P = SEQ_WIDE_P / 2 the plain version runs on the host
+    (one torch thread): on the card its Python loop costs ~8 ms a column
+    whatever the rows. Then a class past the resident route (the wrapper's plan
     takes 'global') and a fleet whose rows x nodes x lanes pass 2^31
     cells. Returns the largest difference seen (0, or the script fails)."""
     import numpy as np
@@ -684,7 +715,7 @@ def seq_kernel_vs_plain():
                 rng = np.random.default_rng(120 + i)
                 state, batch = sc.case(name, rng, n, 64, slots, lanes)
                 got = sc.both(state, batch, DEVICE,
-                              'cpu' if lanes == SEQ_WIDE_P else None,
+                              'cpu' if lanes >= SEQ_WIDE_P // 2 else None,
                               route=route)
                 max_err = max(max_err, got['max_abs_err'])
                 if got['differ'] or got['max_abs_err']:
@@ -692,10 +723,9 @@ def seq_kernel_vs_plain():
                          f'A = {slots}, {got["route"]} route: {got}')
                 serial[name] = serial.get(name, 0) + got['serial_rows']
             log(f'kernel == plain: seq_scan, {name} (P = 0, 1, 20 and '
-                f'{SEQ_WIDE_P} at 4 and 256 lanes, the wrapper\'s plan; P = 40 '
-                f'and {SEQ_WIDE_P} '
-                f'along the global route; {serial[name]} rows on the serial '
-                f'route)')
+                f'{SEQ_WIDE_P // 2} at 4 lanes, {SEQ_WIDE_P} at 256, the '
+                f'wrapper\'s plan; P = 40 and {SEQ_WIDE_P} along the global '
+                f'route; {serial[name]} rows on the serial route)')
         if not serial['serial'] or not serial['capacity']:
             fail(f'the serial route never ran: {serial}')
         rng = np.random.default_rng(5)
@@ -1139,7 +1169,8 @@ def _op_name(fleet, packed):
 
 # 1,000 docs: BASELINE config 2's 2,000, cut for the script's time limit
 TEXT_DOCS, TEXT_OPS, TEXT_MORE = 1_000, 10_000, (256, 256)
-TEXT_REPS = 3      # 5 before the storage path: the script's time limit
+TEXT_REPS = 2      # 5 before the storage path, 3 before the mesh path:
+                   # the script's time limit
 
 
 class SeqRecorder:
@@ -2938,6 +2969,556 @@ def shard_path():
     if missing:
         fail(f'shard path: no call of {missing} held to its plain version')
     return total, dict(checked=check.checked, worst=check.worst), nums
+
+
+# ---- the mesh path ----------------------------------------------------------
+
+MESH_COLS, MESH_LANES = 1_024, 20     # the seam's width (bench.py:1028-1031):
+                                      # 1,023 keys + the scratch column
+LONG_SLOTS, LONG_EDITS, LONG_STRIPES = 262_144, 1_000, 4
+# odd, with room for every edit (a padded capacity admits more inserts
+# than the unpadded one once a row is full): 4 stripes pad the node axis
+LONG_CAPACITY = LONG_SLOTS + LONG_EDITS + 63
+SYNC_SHARDS, SYNC_CHANGES, SYNC_KEYS = 4, 2_500, 250
+NCCL_SHARDS, NCCL_MAX_MSG = 4, 64     # max_msg small enough to chunk
+MESH_KINDS = {
+    'sharded_apply': 'automerge_tpu/fleet/sharding.py:173',
+    'sharded_seq_apply': 'automerge_tpu/fleet/sharding.py:90',
+    'sharded_long_seq_apply': 'automerge_tpu/fleet/sharding.py:139',
+    'sharded_long_seq_materialize': 'automerge_tpu/fleet/sharding.py:154',
+    'exchange_all_to_all': 'automerge_tpu/fleet/exchange.py:97'}
+
+
+def mesh_launches(reset=False):
+    """Every kernel's launch count and the mesh steps' (after setting
+    them all to 0 when `reset`)."""
+    from automerge_tpu_torch.fleet import exchange, sharding
+    if reset:
+        sharding.reset_launches()
+        exchange.LAUNCHES['exchange_all_to_all'] = 0
+    return {**kernel_launches(reset), **sharding.LAUNCHES,
+            **exchange.LAUNCHES}
+
+
+def idle_share(out):
+    """1 - device busy / wall of a `device_trace` block."""
+    busy_ms = sum(ms for ms, _name, _count in out['rows'])
+    return 1 - busy_ms / (out['wall'] * 1e3) if out['wall'] else None
+
+
+def mesh_leg(check, legs, nums, name, run, needs):
+    """One leg of the mesh path: every launch count set to 0 just before
+    `run()` and read just after, the run's device activity traced (its
+    wall time and idle share), each kernel's first PATH_CHECKS calls held
+    to the plain version after it; fails unless each kernel of `needs`
+    launched. Returns run()'s result."""
+    mesh_launches(reset=True)
+    trace = {}
+    with device_trace(trace):
+        out = run()
+    launches = mesh_launches()
+    legs[name] = launches
+    missing = [k for k in needs if launches[k] < 1]
+    if missing:
+        fail(f'mesh path, {name}: never launched {missing}')
+    nums[name] = dict(wall_s=trace['wall'], idle=idle_share(trace),
+                      launches={k: n for k, n in launches.items() if n})
+    log(f'mesh path, {name}: wall {trace["wall"]:.3f} s, idle '
+        f'{nums[name]["idle"]:.4f}, launches {nums[name]["launches"]}')
+    check.verify(name)
+    return out
+
+
+def _grid_ops(rng, n, k1, p, base):
+    """A seam-width op batch: P lanes a doc on keys [0, k1 - 1), packed
+    ids rising from `base`, a quarter of the lanes incs, a tenth padding."""
+    import numpy as np
+    from automerge_tpu_torch.fleet.tensor_doc import OpBatch
+    key = rng.integers(0, k1 - 1, (n, p)).astype(np.int32)
+    ctr = base + np.arange(1, p + 1, dtype=np.int64)[None, :].repeat(n, 0)
+    packed = ((ctr << 8) | rng.integers(0, 4, (n, p))).astype(np.int32)
+    inc = rng.random((n, p)) < 0.25
+    return OpBatch(key, packed,
+                   rng.integers(-100, 1 << 20, (n, p)).astype(np.int32),
+                   ~inc, inc, rng.random((n, p)) < 0.9).to(DEVICE)
+
+
+def _state_err(a, b):
+    return max(_abs_err(x, y) for x, y in zip(a.tensors(), b.tensors()))
+
+
+def mesh_apply_leg(check, legs, nums, kernels):
+    """sharded_apply at the seam's width on a 2 x 2 (docs, keys) mesh of
+    logical positions on the card: the gathered grids (the scratch
+    column too) and stats == one unsharded launch on the card."""
+    import numpy as np
+    import torch
+    from automerge_tpu_torch.fleet import apply, sharding
+    from automerge_tpu_torch.fleet.merge_kernel import lww_merge_plain
+    from automerge_tpu_torch.fleet.tensor_doc import FleetState
+    rng = np.random.default_rng(14)
+    n, k1, p = N_DOCS, MESH_COLS, MESH_LANES
+    state0 = FleetState.empty(n, k1 - 1, DEVICE)
+    apply.apply_op_batch_donated(state0, _grid_ops(rng, n, k1, p, 0))
+    ops = _grid_ops(rng, n, k1, p, p)
+    mesh = sharding.fleet_mesh([DEVICE] * 4, keys_axis=2)
+    sstate = sharding.shard_fleet(state0, mesh)
+    sops = sharding.shard_ops(ops, mesh)
+    step = sharding.sharded_apply(mesh)
+    new, stats = mesh_leg(check, legs, nums, 'sharded_apply',
+                          lambda: step(sstate, sops),
+                          ('lww_merge', 'sharded_apply'))
+    if legs['sharded_apply']['lww_merge'] != 4:
+        fail(f'mesh path, sharded_apply: {legs["sharded_apply"]} launches '
+             f'(want 4 lww_merge, one per block)')
+    whole = FleetState(*(t.gather() for t in new.tensors()))
+    ref = FleetState(*(t.clone() for t in state0.tensors()))
+    with check.paused():
+        _, want = apply.apply_op_batch_donated(ref, ops)
+    err = max(_state_err(whole, ref), abs(int(stats) - int(want)))
+    if err:
+        fail(f'mesh path, sharded_apply: gathered grids or stats != one '
+             f'unsharded launch on the card (max abs err {err})')
+    with check.paused():
+        ms = time_ms(lambda: step(sstate, sops), reps=10)
+        one_ms = time_ms(lambda: apply.apply_op_batch(state0, ops), reps=10)
+        plain_ms = time_ms(lambda: lww_merge_plain(
+            FleetState(*(t.clone() for t in state0.tensors())), ops),
+            reps=10)
+    grid = n * k1 * 4
+    bound = bound_of(6 * grid + sum(c.nelement() * c.element_size()
+                                    for c in ops.columns()), 0)
+    kernels['sharded_apply'] = dict(
+        launches=legs['sharded_apply']['sharded_apply'], max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, unsharded_ms=one_ms, **bound,
+        shape=f'[{n}, {k1}] x3 int32 on a 2 x 2 mesh, {p} lanes a doc')
+    log(f'mesh path, sharded_apply: [{n}, {k1}] x3 int32 grids on a 2 x 2 '
+        f'(docs, keys) mesh of logical positions on the card, {p} lanes a '
+        f'doc: 4 lww_merge launches, gathered grids (scratch column '
+        f'included) and stats {int(stats)} == one unsharded launch; '
+        f'{ms:.4f} ms (unsharded non-donating call {one_ms:.4f} ms, plain '
+        f'{plain_ms:.4f} ms, bound {bound["bound_ms"]:.4f} ms by '
+        f'{bound["bound_by"]})')
+
+
+def _seq_clone(state):
+    from automerge_tpu_torch.fleet.sequence import SeqState
+    return SeqState(*(t.clone() for t in state.tensors()))
+
+
+def mesh_seq_leg(check, legs, nums, kernels, seq_input):
+    """sharded_seq_apply over 4 docs positions on the card, with the
+    text seam's last batch on the state it met (the class [1024, 16387,
+    4] after the first two batches): == the unsharded seq_scan on the
+    card."""
+    import torch
+    from automerge_tpu_torch.fleet import seq_kernel, sequence, sharding
+    state0, ops = seq_input
+    mesh = sharding.fleet_mesh([DEVICE] * 4)
+    sstate = sharding.shard_seq(state0, mesh)
+    sops = sharding.shard_seq_ops(ops, mesh)
+    step = sharding.sharded_seq_apply(mesh)
+    new, applied = mesh_leg(check, legs, nums, 'sharded_seq_apply',
+                            lambda: step(sstate, sops),
+                            ('seq_scan', 'sharded_seq_apply'))
+    if legs['sharded_seq_apply']['seq_scan'] != 4:
+        fail(f'mesh path, sharded_seq_apply: {legs["sharded_seq_apply"]} '
+             f'(want 4 seq_scan launches)')
+    whole = sequence.SeqState(*(t.gather() for t in new.tensors()))
+    ref = _seq_clone(state0)
+    with check.paused():
+        want = seq_kernel.seq_scan(ref, ops)
+    err = max(_state_err(whole, ref), abs(int(applied) - int(want)))
+    if err:
+        fail(f'mesh path, sharded_seq_apply: gathered state != the '
+             f'unsharded seq_scan (max abs err {err})')
+    with check.paused():
+        ms = time_ms(lambda: step(sstate, sops), reps=5)
+        one_ms = time_ms(lambda: sequence.apply_seq_batch(state0, ops),
+                         reps=5)
+        plain = _seq_clone(state0)
+        t0 = time.perf_counter()
+        seq_kernel.seq_scan_plain(plain, ops)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    if _state_err(plain, ref):
+        fail('mesh path, sharded_seq_apply: the plain scan != the kernel')
+    bound = seq_bound(state0, ops, ref)
+    r, nodes, a = state0.reg.shape
+    kernels['sharded_seq_apply'] = dict(
+        launches=legs['sharded_seq_apply']['sharded_seq_apply'],
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, unsharded_ms=one_ms,
+        **bound, shape=f'[{r}, {nodes}, {a}] over 4 docs positions, '
+        f'{ops.kind.shape[1]} lanes')
+    log(f'mesh path, sharded_seq_apply: the text seam\'s [{r}, {nodes}, '
+        f'{a}] class over 4 docs positions, its last batch ('
+        f'{ops.kind.shape[1]} lanes): 4 seq_scan launches, every array and '
+        f'the applied count {int(applied)} == the unsharded scan; '
+        f'{ms:.4f} ms (unsharded {one_ms:.4f} ms, plain {plain_ms:.1f} ms '
+        f'host-issued, bound {bound["bound_ms"]:.4f} ms)')
+
+
+def long_doc(n_slots, capacity, seed=0):
+    """One sequence doc of `n_slots` elements typed in order (element k
+    in slot SLOT0 + k, inserted after element k - 1 by one of 3 actors),
+    built directly as arrays: the state `n_slots` inserts would leave."""
+    import numpy as np
+    from automerge_tpu_torch.fleet import seq_cases
+    from automerge_tpu_torch.fleet.sequence import END, HEAD, SLOT0
+    rng = np.random.default_rng(seed)
+    arrays = seq_cases.empty_arrays(1, capacity, 4)
+    elem_id, nxt, reg, _killed, val, _counter, n, _inexact = arrays
+    slots = SLOT0 + np.arange(n_slots)
+    actor = rng.integers(0, 3, n_slots)
+    packed = ((2 + np.arange(n_slots)) << 8 | actor).astype(np.int32)
+    elem_id[0, slots] = packed
+    nxt[0, HEAD] = SLOT0
+    nxt[0, slots] = np.append(slots[1:], END)
+    reg[0, slots, actor] = packed
+    val[0, slots, actor] = rng.integers(97, 123, n_slots)
+    n[0] = n_slots
+    return arrays
+
+
+def mesh_long_leg(check, legs, nums, kernels):
+    """One doc of LONG_SLOTS slots striped over 4 positions (odd
+    capacity: a padded tail); LONG_EDITS edits through
+    sharded_long_seq_apply, then sharded_long_seq_materialize: the real
+    prefix == the unsharded apply and materialize on the card, the tail
+    unallocated and invisible."""
+    import numpy as np
+    import torch
+    from automerge_tpu_torch.fleet import seq_cases, sequence, sharding
+    arrays = long_doc(LONG_SLOTS, LONG_CAPACITY)
+    ops = seq_cases.random_batch(np.random.default_rng(1), arrays,
+                                 LONG_EDITS, kinds=(0.0, 0.4, 0.3, 0.2, 0.1))
+    ops = ops.to(DEVICE)
+    state0 = sequence.seq_state_from_numpy(*arrays, device=DEVICE)
+    mesh = sharding.fleet_mesh([DEVICE] * LONG_STRIPES)
+    sstate = sharding.shard_long_seq(state0, mesh)
+    nodes, padded = state0.elem_id.shape[1], sstate.elem_id.shape[1]
+    if padded % LONG_STRIPES or padded == nodes:
+        fail(f'mesh path: the long doc\'s {nodes} nodes padded to {padded}')
+    step = sharding.sharded_long_seq_apply(mesh)
+    read = sharding.sharded_long_seq_materialize(mesh)
+
+    def run():
+        new, applied = step(sstate, ops)
+        return new, applied, read(new)
+    new, applied, mat = mesh_leg(
+        check, legs, nums, 'sharded_long_seq', run,
+        ('seq_scan', 'sharded_long_seq_apply',
+         'sharded_long_seq_materialize'))
+    ref = _seq_clone(state0)
+    with check.paused():
+        want = sequence.apply_seq_batch_donated(ref, ops)[1]
+    ref_mat = sequence.materialize(ref)
+    whole = sequence.SeqState(*(t.gather() for t in new.tensors()))
+    err = abs(int(applied) - int(want))
+    for x, y in zip(whole.tensors(), ref.tensors()):
+        err = max(err, _abs_err(x[:, :y.shape[1]] if x.dim() > 1 else x, y))
+    cap = ref_mat[0].shape[1]
+    for x, y in zip(mat[:3], ref_mat[:3]):
+        err = max(err, _abs_err(x.gather()[:, :cap], y))
+    err = max(err, _abs_err(mat[3], ref_mat[3]),
+              int(mat[2].gather()[:, cap:].any()),
+              int(bool((whole.elem_id[:, nodes:] != 0).any())))
+    if err:
+        fail(f'mesh path, long doc: the real prefix != the unsharded apply '
+             f'and materialize (max abs err {err})')
+    with check.paused():
+        ms = time_ms(lambda: step(sstate, ops), reps=5)
+        mat_ms = time_ms(lambda: read(new), reps=5)
+        one_ms = time_ms(lambda: sequence.apply_seq_batch(state0, ops),
+                         reps=5)
+        mat_plain_ms = time_ms(lambda: sequence.materialize(ref), reps=5)
+        plain = _seq_clone(state0)
+        t0 = time.perf_counter()
+        from automerge_tpu_torch.fleet.seq_kernel import seq_scan_plain
+        seq_scan_plain(plain, ops)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    if _state_err(plain, ref):
+        fail('mesh path, long doc: the plain scan != the kernel')
+    r, _, a = state0.reg.shape
+    bound = seq_bound(state0, ops, ref)
+    mat_bound = bound_of(r * padded * 4 + r * padded * a * 13 +
+                         r * (padded - 3) * 9 + r * 4, r * padded * a * 4)
+    kernels['sharded_long_seq_apply'] = dict(
+        launches=legs['sharded_long_seq']['sharded_long_seq_apply'],
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, unsharded_ms=one_ms,
+        **bound, shape=f'[1, {nodes}] padded to {padded} over '
+        f'{LONG_STRIPES} stripes, {LONG_EDITS} edits')
+    kernels['sharded_long_seq_materialize'] = dict(
+        launches=legs['sharded_long_seq']['sharded_long_seq_materialize'],
+        max_abs_err=err, ms=mat_ms, plain_ms=mat_plain_ms, **mat_bound,
+        shape=f'[1, {padded}] over {LONG_STRIPES} stripes')
+    log(f'mesh path, long doc: {LONG_SLOTS} elements, capacity '
+        f'{LONG_CAPACITY} ({nodes} nodes padded to {padded}, '
+        f'{LONG_STRIPES} stripes on the card), {LONG_EDITS} edits applied '
+        f'{int(applied)}: the real prefix of every array and of the '
+        f'materialized values, counts and visibility == the unsharded '
+        f'apply and materialize, the tail unallocated; apply {ms:.4f} ms '
+        f'(unsharded {one_ms:.4f} ms, plain {plain_ms:.1f} ms '
+        f'host-issued, bound {bound["bound_ms"]:.4f} ms), materialize '
+        f'{mat_ms:.4f} ms (unsharded {mat_plain_ms:.4f} ms, bound '
+        f'{mat_bound["bound_ms"]:.4f} ms)')
+
+
+def mesh_seam_leg(check, legs, nums, per_doc):
+    """DocFleet(mesh=4 docs positions on the card) through the turbo seam
+    at 10,000 docs x 20 changes: 4 lww_merge launches a dispatch, and its
+    materialize_docs and grid rows read from the card == a meshless card
+    fleet's."""
+    from automerge_tpu_torch.fleet import sharding
+    from automerge_tpu_torch.fleet.backend import (
+        DocFleet, apply_changes_docs, init_docs, materialize_docs)
+
+    import torch
+
+    def run():
+        fleet = DocFleet(doc_capacity=N_DOCS, key_capacity=N_KEYS + 1,
+                         mesh=sharding.fleet_mesh([DEVICE] * 4))
+        handles = init_docs(N_DOCS, fleet)
+        handles, _ = apply_changes_docs(handles, per_doc, mirror=False)
+        torch.cuda.synchronize()
+        return fleet, handles
+    fleet, handles = mesh_leg(check, legs, nums, 'mesh_fleet_seam', run,
+                              ('lww_merge',))
+    launches = legs['mesh_fleet_seam']['lww_merge']
+    if launches != 4 * fleet.metrics.dispatches:
+        fail(f'mesh path, mesh fleet seam: {launches} lww_merge launches '
+             f'for {fleet.metrics.dispatches} dispatches (want 4 each)')
+    with check.paused():
+        bare, bare_handles, _ = run_seam(per_doc)
+    docs, want = materialize_docs(handles), materialize_docs(bare_handles)
+    if docs != want:
+        bad = next(i for i, (a, b) in enumerate(zip(docs, want)) if a != b)
+        fail(f'mesh path, mesh fleet seam: doc {bad} != the meshless '
+             f'fleet\'s')
+    if grid_view(fleet, handles, 'mesh fleet seam') != \
+            grid_view(bare, bare_handles, 'meshless seam'):
+        fail('mesh path, mesh fleet seam: grid rows != the meshless '
+             'fleet\'s')
+    log(f'mesh path, mesh fleet seam: {N_DOCS} docs x {N_CHANGES} changes '
+        f'on DocFleet(mesh=4 docs positions on the card), grid '
+        f'{tuple(fleet.state.winners.shape)}: {fleet.metrics.dispatches} '
+        f'dispatch(es), {launches} lww_merge launches; every doc\'s '
+        f'materialize_docs and grid row read from the card == a meshless '
+        f'card fleet\'s')
+
+
+def _shard_changes(shard):
+    """SYNC_CHANGES private changes of one shard's actor: a chain of
+    single sets over SYNC_KEYS keys of its own."""
+    from automerge_tpu_torch.columnar import decode_change_meta, encode_change
+    actor = f'{shard + 1:02x}' * 16
+    out, heads = [], []
+    for c in range(SYNC_CHANGES):
+        buf = encode_change({
+            'actor': actor, 'seq': c + 1, 'startOp': c + 1, 'time': 0,
+            'message': '', 'deps': heads, 'ops': [{
+                'action': 'set', 'obj': '_root',
+                'key': f's{shard}k{c % SYNC_KEYS}', 'value': c,
+                'datatype': 'int', 'pred': [f'{c + 1 - SYNC_KEYS}@{actor}']
+                if c >= SYNC_KEYS else []}]})
+        heads = [decode_change_meta(buf, True)['hash']]
+        out.append(buf)
+    return out
+
+
+class ExchangeSpy:
+    """While on, counts the exchange's calls and the payload bytes each
+    moved (the outbox matrix and its lengths), and keeps the largest
+    outbox matrix and its lengths."""
+
+    def __enter__(self):
+        from automerge_tpu_torch.fleet import exchange
+        self.calls, self.bytes, self._real = 0, 0, exchange.exchange_changes
+        self.largest = None
+
+        def call(mesh, axis, data, lens):
+            self.calls += 1
+            self.bytes += int(data.nbytes) + int(lens.nbytes)
+            if self.largest is None or \
+                    data.nbytes > self.largest[0].nbytes:
+                self.largest = (data, lens)
+            return self._real(mesh, axis, data, lens)
+        exchange.exchange_changes = call
+        return self
+
+    def __exit__(self, *exc):
+        from automerge_tpu_torch.fleet import exchange
+        exchange.exchange_changes = self._real
+
+
+def mesh_sync_leg(check, legs, nums, kernels):
+    """4 shards, each a FleetBackend doc of one mesh fleet holding
+    SYNC_CHANGES private changes, converge through drive_pairwise_sync
+    over the card's exchange: equal heads, and each shard's
+    materialize_docs and grid row read from the card == a CPU host
+    backend's doc fed every shard's changes."""
+    import numpy as np
+    import torch
+    from automerge_tpu_torch import backend as host
+    from automerge_tpu_torch.fleet import backend as fb, exchange, sharding
+    from automerge_tpu_torch.fleet.backend import _leaf_value
+    per_shard = [_shard_changes(s) for s in range(SYNC_SHARDS)]
+    fleet = fb.DocFleet(doc_capacity=SYNC_SHARDS,
+                        key_capacity=SYNC_SHARDS * SYNC_KEYS,
+                        mesh=sharding.fleet_mesh([DEVICE] * SYNC_SHARDS))
+    docs = fb.init_docs(SYNC_SHARDS, fleet)
+    docs, _ = fb.apply_changes_docs(docs, per_shard, mirror=False)
+    peers = sharding.FleetMesh([DEVICE] * SYNC_SHARDS, ('peers',))
+
+    def run():
+        with ExchangeSpy() as spy:
+            rounds = exchange.drive_pairwise_sync(peers, 'peers', docs, fb)
+        return rounds, spy
+    rounds, spy = mesh_leg(check, legs, nums, 'mesh_sync', run,
+                           ('lww_merge', 'exchange_all_to_all'))
+    heads = {tuple(fb.get_heads(d)) for d in docs}
+    hb = host.init()
+    hb, _ = host.apply_changes(hb, [c for cs in per_shard for c in cs])
+    want = _leaf_value(host.get_patch(hb)['diffs'])
+    if len(heads) != 1 or heads != {tuple(host.get_heads(hb))}:
+        fail(f'mesh path, sync: heads did not converge ({len(heads)} sets)')
+    got = fb.materialize_docs(docs)
+    if any(g != want for g in got):
+        fail('mesh path, sync: a shard\'s materialize_docs != the host '
+             'backend\'s')
+    views = grid_view(fleet, docs, 'mesh sync')
+    if any(v != views[0] for v in views) or len(views[0]) != len(want):
+        fail('mesh path, sync: the shards\' grid rows differ')
+    nums['mesh_sync'].update(rounds=rounds, exchanges=spy.calls,
+                             exchange_bytes=spy.bytes)
+    # the exchange alone, on the largest outbox matrix the sync moved
+    out, lens = spy.largest
+    inbox, in_lens = exchange.exchange_changes(peers, 'peers', out, lens)
+    err = max(_abs_err(torch.from_numpy(np.asarray(inbox)),
+                       torch.from_numpy(out.transpose(1, 0, 2).copy())),
+              _abs_err(torch.from_numpy(np.asarray(in_lens)),
+                       torch.from_numpy(lens.T.copy())))
+    if err:
+        fail('mesh path, sync: the exchange != a numpy transpose')
+    with check.paused():
+        ms = time_ms(lambda: exchange.exchange_changes(peers, 'peers', out,
+                                                       lens), reps=20)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            np.ascontiguousarray(out.transpose(1, 0, 2))
+            np.ascontiguousarray(lens.T)
+        plain_ms = (time.perf_counter() - t0) / 20 * 1e3
+    # each input byte read once, each output byte written once
+    bound = bound_of(2 * (out.nbytes + lens.nbytes), 0)
+    kernels['exchange_all_to_all'] = dict(
+        launches=legs['mesh_sync']['exchange_all_to_all'],
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound,
+        shape=f'{list(out.shape)} uint8 outboxes from the host onto 4 '
+        f'positions of one card, delivered transposed')
+    log(f'mesh path, sync: {SYNC_SHARDS} shards x {SYNC_CHANGES} private '
+        f'changes on one mesh fleet, drive_pairwise_sync over the card\'s '
+        f'exchange: {rounds} rounds, {spy.calls} exchanges moving '
+        f'{spy.bytes} B; heads converged, every shard\'s materialize_docs '
+        f'and grid row read from the card == the host backend\'s; the '
+        f'exchange alone on the largest outbox matrix {list(out.shape)} '
+        f'{ms:.4f} ms (numpy transpose {plain_ms:.4f} ms, bound '
+        f'{bound["bound_ms"]:.4f} ms)')
+
+
+def mesh_nccl_leg(check, legs, nums):
+    """drive_pairwise_sync_multihost over NCCL: a process group of one
+    rank (in this process, a tcp store on 127.0.0.1), 4 local shards,
+    max_msg small enough that the round is chunked (sync_retries rise):
+    NCCL's all_to_all_single on the card; the heads converge to the
+    single-controller driver's."""
+    import datetime
+    import socket
+    import torch
+    import torch.distributed as dist
+    from automerge_tpu_torch import backend as host
+    from automerge_tpu_torch.columnar import encode_change
+    from automerge_tpu_torch.fleet import exchange, sharding
+
+    def seeded(i):
+        b = host.init()
+        b, _ = host.apply_changes(b, [encode_change({
+            'actor': f'{i + 1:02x}' * 16, 'seq': 1, 'startOp': 1,
+            'time': 0, 'deps': [], 'ops': [{
+                'action': 'set', 'obj': '_root', 'key': f'k{i}',
+                'value': i, 'datatype': 'int', 'pred': []}]})])
+        return b
+    single = {i: seeded(i) for i in range(NCCL_SHARDS)}
+    want_rounds = exchange.drive_pairwise_sync_multihost(
+        sharding.FleetMesh([DEVICE] * NCCL_SHARDS, ('docs',)), 'docs',
+        single, host, max_msg=NCCL_MAX_MSG)
+    sock = socket.socket()
+    sock.bind(('127.0.0.1', 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    torch.cuda.set_device(0)
+    dist.init_process_group('nccl', init_method=f'tcp://127.0.0.1:{port}',
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = sharding.fleet_mesh([DEVICE] * NCCL_SHARDS)
+        docs = {i: seeded(i) for i in range(NCCL_SHARDS)}
+        before = exchange._sync_stats['sync_retries']
+
+        def run():
+            with ExchangeSpy() as spy:
+                rounds = exchange.drive_pairwise_sync_multihost(
+                    mesh, 'docs', docs, host, max_msg=NCCL_MAX_MSG)
+            torch.cuda.synchronize()
+            return rounds, spy
+        rounds, spy = mesh_leg(check, legs, nums, 'mesh_nccl', run,
+                               ('exchange_all_to_all',))
+        retries = exchange._sync_stats['sync_retries'] - before
+    finally:
+        dist.destroy_process_group()
+    heads = [tuple(host.get_heads(docs[i])) for i in range(NCCL_SHARDS)]
+    if len(set(heads)) != 1 or retries < 1 or rounds != want_rounds or \
+            heads[0] != tuple(host.get_heads(single[0])):
+        fail(f'mesh path, nccl: rounds {rounds} (single controller '
+             f'{want_rounds}), sync_retries +{retries}, {len(set(heads))} '
+             f'head sets')
+    nums['mesh_nccl'].update(rounds=rounds, sync_retries=retries,
+                             exchanges=spy.calls, exchange_bytes=spy.bytes)
+    log(f'mesh path, nccl: a world-size-1 NCCL group, {NCCL_SHARDS} local '
+        f'shards, max_msg {NCCL_MAX_MSG}: {rounds} rounds (== the single '
+        f'controller\'s), {spy.calls} all_to_all_single exchanges of '
+        f'{spy.bytes} B, sync_retries +{retries}; heads converged')
+
+
+def mesh_path(per_doc, seq_input):
+    """The multi-device path on one card (see the module docstring).
+    Returns the launches summed over its legs, the calls held to the
+    plain versions, the numbers and the five mesh kinds' kernel rows."""
+    legs, nums, kernels = {}, {}, {}
+    with PathCheck('mesh path') as check:
+        mesh_apply_leg(check, legs, nums, kernels)
+        mesh_seq_leg(check, legs, nums, kernels, seq_input)
+        mesh_long_leg(check, legs, nums, kernels)
+        mesh_seam_leg(check, legs, nums, per_doc)
+        gc.collect()
+        mesh_sync_leg(check, legs, nums, kernels)
+        mesh_nccl_leg(check, legs, nums)
+    total = {}
+    for launches in legs.values():
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+    log(f'mesh path launches: {total}; kernel calls held to their plain '
+        f'versions: {check.checked}')
+    missing = [name for name in ('lww_merge', 'seq_scan', *MESH_KINDS)
+               if not total[name]]
+    if missing:
+        fail(f'mesh path: never launched {missing}')
+    missing = [name for name, n in total.items()
+               if n and name in check.checked and not check.checked[name]]
+    if missing:
+        fail(f'mesh path: no call of {missing} held to its plain version')
+    return total, dict(checked=check.checked, worst=check.worst), nums, \
+        kernels
 
 
 # ---- the sync plane's main path --------------------------------------------
@@ -5485,6 +6066,10 @@ def main():
         shard_launches, shard_checks, shard_nums = shard_path()
         gc.collect()
         t0 = lap('shard', t0)
+        mesh_total, mesh_checks, mesh_nums, mesh_kernels = mesh_path(
+            per_doc, seq_input[-1])
+        gc.collect()
+        t0 = lap('mesh', t0)
         # the storage path before the sync hub: its legs then run without
         # the hub's 100,000 links alive, which each collector pass walks
         storage_launches, storage_checks, storage_nums, inline_events = \
@@ -5512,6 +6097,8 @@ def main():
         f'{json.dumps(dict(service_nums, launches=service_launches))}')
     log(f'shard numbers: '
         f'{json.dumps(dict(shard_nums, launches=shard_launches))}')
+    log(f'mesh numbers: '
+        f'{json.dumps(dict(mesh_nums, launches=mesh_total))}')
     seq_nums = seq_numbers(seq_input, seq_pools, base.get('seq'))
     del seq_input, seq_pools
     breakdown(per_doc)
@@ -5593,11 +6180,27 @@ def main():
         entry['service_checked'] = service_checks['checked'][name]
         entry['shard_launches'] = shard_launches[name]
         entry['shard_checked'] = shard_checks['checked'][name]
+        entry['mesh_launches'] = mesh_total[name]
+        entry['mesh_checked'] = mesh_checks['checked'][name]
         entry['max_abs_err'] = max(entry['max_abs_err'],
                                    api_checks['worst'][name],
                                    query_checks['worst'][name],
                                    service_checks['worst'][name],
-                                   shard_checks['worst'][name])
+                                   shard_checks['worst'][name],
+                                   mesh_checks['worst'][name])
+    for name, replaces in MESH_KINDS.items():
+        k = mesh_kernels[name]
+        kernels.append({
+            'name': name, 'route': 'cuda',
+            'source': 'automerge_tpu_torch/fleet/' + (
+                'exchange.py' if name.startswith('exchange') else
+                'sharding.py'),
+            'replaces': replaces, 'launches': k['launches'],
+            'max_abs_err': k['max_abs_err'], 'ms': k['ms'],
+            'plain_ms': k['plain_ms'], 'bound_ms': k['bound_ms'],
+            'bound_by': k['bound_by'], 'library_ms': None,
+            'mesh_launches': mesh_total[name],
+            **{key: k[key] for key in ('unsharded_ms', 'shape') if key in k}})
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1126,3 +1126,91 @@ def test_lossy_sync_converges_between_card_docs(cuda):
                     bytes(backend.save(na)))
     assert out['cuda'] == out['cpu']
     assert len(out['cuda'][0][0]) == 12
+
+
+def test_sharded_apply_on_a_card_mesh_matches_one_launch(cuda):
+    """sharded_apply on a 2 x 2 (docs, keys) mesh of logical positions on
+    cuda:0: one lww_merge launch per block, and the gathered grids (the
+    scratch column too) and stats equal one unsharded launch."""
+    from automerge_tpu_torch.fleet import sharding
+    rng = np.random.default_rng(9)
+    n, k1, p = 64, 32, 20
+    key = rng.integers(0, k1 - 1, (n, p)).astype(np.int32)
+    packed = ((np.arange(1, p + 1)[None, :].repeat(n, 0) << 8) |
+              rng.integers(0, 4, (n, p))).astype(np.int32)
+    inc = rng.random((n, p)) < 0.25
+    ops = OpBatch(key, packed, rng.integers(-9, 99, (n, p)).astype(np.int32),
+                  ~inc, inc, rng.random((n, p)) < 0.9).to('cuda')
+    state = FleetState.empty(n, k1 - 1, 'cuda')
+    mesh = sharding.fleet_mesh(['cuda:0'] * 4, keys_axis=2)
+    before = LAUNCHES['lww_merge']
+    new, stats = sharding.sharded_apply(mesh)(
+        sharding.shard_fleet(state, mesh), sharding.shard_ops(ops, mesh))
+    assert LAUNCHES['lww_merge'] - before == 4
+    ref = FleetState.empty(n, k1 - 1, 'cuda')
+    want = lww_merge(ref, ops)
+    assert int(stats) == int(want)
+    for got, exp in zip(new.tensors(), ref.tensors()):
+        np.testing.assert_array_equal(np.asarray(got), exp.cpu().numpy())
+
+
+def test_single_controller_exchange_on_the_card(cuda):
+    """The exchange on 4 positions of one card: inbox[j, i] ==
+    outbox[i, j], the rows views of one transposed tensor on the card."""
+    from automerge_tpu_torch.fleet import exchange, sharding
+    rng = np.random.default_rng(3)
+    out = rng.integers(0, 256, (4, 4, 97)).astype(np.uint8)
+    lens = rng.integers(0, 98, (4, 4)).astype(np.int32)
+    mesh = sharding.FleetMesh(['cuda:0'] * 4, ('peers',))
+    before = exchange.LAUNCHES['exchange_all_to_all']
+    inbox, in_lens = exchange.exchange_changes(mesh, 'peers', out, lens)
+    assert exchange.LAUNCHES['exchange_all_to_all'] - before == 1
+    assert inbox.base.device.type == 'cuda'
+    np.testing.assert_array_equal(np.asarray(inbox), out.transpose(1, 0, 2))
+    np.testing.assert_array_equal(np.asarray(in_lens), lens.T)
+
+
+def test_world_size_one_nccl_round_on_the_card(cuda):
+    """drive_pairwise_sync_multihost over an NCCL group of one rank: the
+    chunked round (max_msg 64) runs all_to_all_single on the card and
+    converges in the single-controller driver's rounds."""
+    import datetime
+    import socket
+    import torch.distributed as dist
+    from automerge_tpu_torch import backend as host
+    from automerge_tpu_torch.fleet import exchange, sharding
+
+    def seeded(i):
+        b = host.init()
+        b, _ = host.apply_changes(b, [encode_change({
+            'actor': f'{i + 1:02x}' * 16, 'seq': 1, 'startOp': 1,
+            'time': 0, 'deps': [], 'ops': [{
+                'action': 'set', 'obj': '_root', 'key': f'k{i}',
+                'value': i, 'datatype': 'int', 'pred': []}]})])
+        return b
+    single = {i: seeded(i) for i in range(4)}
+    want = exchange.drive_pairwise_sync_multihost(
+        sharding.FleetMesh(['cuda:0'] * 4, ('docs',)), 'docs', single, host,
+        max_msg=64)
+    sock = socket.socket()
+    sock.bind(('127.0.0.1', 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    torch.cuda.set_device(0)
+    dist.init_process_group('nccl', init_method=f'tcp://127.0.0.1:{port}',
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = sharding.fleet_mesh(['cuda:0'] * 4)
+        docs = {i: seeded(i) for i in range(4)}
+        retries = exchange._sync_stats['sync_retries']
+        launches = exchange.LAUNCHES['exchange_all_to_all']
+        rounds = exchange.drive_pairwise_sync_multihost(
+            mesh, 'docs', docs, host, max_msg=64)
+        retries = exchange._sync_stats['sync_retries'] - retries
+        launches = exchange.LAUNCHES['exchange_all_to_all'] - launches
+    finally:
+        dist.destroy_process_group()
+    assert rounds == want and retries > 0 and launches > 0
+    heads = {tuple(host.get_heads(d)) for d in docs.values()}
+    assert heads == {tuple(host.get_heads(single[0]))}

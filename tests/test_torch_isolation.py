@@ -63,6 +63,10 @@ def test_import_leaves_jax_and_reference_out():
             'automerge_tpu_torch.control.policies, '
             'automerge_tpu_torch.control.signals\n'
             'import automerge_tpu_torch.shard_cases\n'
+            'import automerge_tpu_torch.fleet.sharding, '
+            'automerge_tpu_torch.fleet.exchange\n'
+            'import automerge_tpu_torch.analysis, '
+            'automerge_tpu_torch.analysis.__main__\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "automerge_tpu")]\n'
             'assert not bad, bad\n'

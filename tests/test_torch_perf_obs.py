@@ -265,15 +265,19 @@ class TestKernelLedger:
         from automerge_tpu.observability import perf as ref_perf
         import automerge_tpu.fleet.backend  # noqa: F401 (wires the kinds)
         import automerge_tpu_torch.fleet.backend  # noqa: F401
+        import automerge_tpu_torch.fleet.exchange  # noqa: F401 (mesh kinds)
         ref_kinds = set(ref_perf.kernel_kinds())
         kinds = set(obs_perf.kernel_kinds())
         # every reference kind but the Pallas merge (the port's merge
-        # entry points launch the hand kernel themselves) and the mesh
-        # kinds (the multi-device slice)
+        # entry points launch the hand kernel themselves); the mesh kinds
+        # register when the port's sharding and exchange import
         missing = {k for k in ref_kinds - kinds
-                   if not k.startswith(('sharded_', 'probe_', 'export_'))}
-        assert missing <= {'pallas_apply_op_batch', 'exchange_all_to_all'}
+                   if not k.startswith(('probe_', 'export_'))}
+        assert missing <= {'pallas_apply_op_batch'}
         assert 'pallas_apply_op_batch' not in kinds
+        assert {'sharded_apply', 'sharded_seq_apply',
+                'sharded_long_seq_apply', 'sharded_long_seq_materialize',
+                'exchange_all_to_all'} <= kinds
 
     @pytest.mark.parametrize('exact', [False, True], ids=['lww', 'exact'])
     def test_seam_dispatches_equal_the_reference(self, exact):

@@ -246,14 +246,6 @@ def test_text_documents_raise_not_implemented():
             assert docs[1] == docs[0] == [{'t': ''}, {}]
 
 
-@pytest.mark.parametrize('call', [
-    lambda: torch_backend.DocFleet(device='cpu', mesh=object()),
-])
-def test_later_slices_raise_not_implemented(call):
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        call()
-
-
 def test_cpu_seam_launches_no_kernel():
     before = LAUNCHES['lww_merge']
     _jf, _jh, tf, th = _fleets()
