@@ -738,6 +738,7 @@ class DocFleet:
         elif need_cls > place[0]:
             idx = pools.migrate(place[0], place[1], need_cls, lanes)
             place = (need_cls, idx)
+            self.metrics.seq_migrations += 1
         self.seq_place[row] = place
         return place
 
@@ -907,11 +908,23 @@ class DocFleet:
         all pending sequence ops — ONE dispatch per active size class, each
         one launch of the sequence scan on the fleet's device.
         seq_ops rows are (row, kind, ref, packed, value, pred0..D-1, flag)."""
+        if len(self.seq_rows) == 0 or len(seq_ops) == 0:
+            return
+        ps = _span_seq()
+        try:
+            self._dispatch_seq_phases(seq_ops, ps)
+        finally:
+            ps.done()
+
+    def _dispatch_seq_phases(self, seq_ops, ps):
+        """_dispatch_seq's body, tiled by contiguous `seq_place` (once),
+        then `seq_pack`, `seq_copy` and `seq_launch` (each once per
+        active size class) phases under its `dispatch_seq` span."""
         from .sequence import SeqOpBatch, apply_seq_batch_donated, \
             INSERT, \
             SEQ_PRED_LANES
-        if len(self.seq_rows) == 0 or len(seq_ops) == 0:
-            return
+        ps.mark('seq_place')
+        migrations = self.metrics.seq_migrations
         # Widen every pool's lane axis FIRST: a new actor whose hex sorts
         # after all existing ones produces no remap (identity perm), yet
         # its lane must exist before its ops apply
@@ -941,6 +954,7 @@ class DocFleet:
         for row in uniq_rows:
             cls_of[row], _ = self._place_seq_row(
                 row, self.seq_len[row] + int(ins[row]))
+        ps.add(migrated=self.metrics.seq_migrations - migrations)
         # One batch per active class, rows addressed by pool index
         by_cls = {}
         for row, cls in cls_of.items():
@@ -950,6 +964,7 @@ class DocFleet:
         pos_in_row = np.arange(len(row_sorted)) - \
             np.searchsorted(row_sorted, row_sorted, side='left')
         for cls, rows in by_cls.items():
+            ps.mark('seq_pack', rows=len(rows))
             st = self.seq_pools.state(cls)
             r_cap = st.elem_id.shape[0]
             sel = np.isin(row_sorted, rows)
@@ -971,7 +986,11 @@ class DocFleet:
             flag[rows_idx, pos] = arr[sub, 5 + D] != 0
             batch = SeqOpBatch(cols['kind'], cols['ref'], cols['packed'],
                                cols['value'], preds, flag)
-            apply_seq_batch_donated(st, batch.to(self.device))
+            ps.mark('seq_copy', bytes=sum(c.nbytes for c in batch.columns())
+                    if ps.on else None)
+            on_device = batch.to(self.device)
+            ps.mark('seq_launch')
+            apply_seq_batch_donated(st, on_device)
             self.metrics.dispatches += 1
         self.metrics.device_ops += len(seq_ops)
 
@@ -3216,6 +3235,7 @@ def init_docs(n, fleet=None):
     return out
 
 
+@_spanned('free_docs')
 def free_docs(handles):
     """Free n fleet documents with O(1) device dispatches: per owning
     fleet, one batched row-zeroing per engine kind (free_slots_batch)
@@ -4309,7 +4329,7 @@ def _apply_changes_turbo_inner(handles, per_doc_changes, ps, parsed=None):
         fleet.metrics.bytes_ingested += int(buf_len[ready].sum())
 
     # Phase 2 — infallible: record logs, queues, staleness
-    ps.mark('turbo_commit', ready=int(ready.sum()))
+    ps.mark('turbo_commit', ready=int(ready.sum()) if ps.on else None)
     start_op = nmeta['startOp']
     nops = nmeta['nops']
     last_op = start_op + nops - 1
@@ -4484,7 +4504,7 @@ def _apply_changes_turbo_inner(handles, per_doc_changes, ps, parsed=None):
     # Land any lazily-enqueued earlier changes first: the register engine
     # is order-sensitive (pred kills), and even the LWW grid's counter
     # reset bases on the pre-batch winner
-    ps.mark('turbo_stage', kept=int(keep.sum()))
+    ps.mark('turbo_stage', kept=int(keep.sum()) if ps.on else None)
     fleet.flush()
 
     # Device batch: remap the native parser's key/actor numbering into the

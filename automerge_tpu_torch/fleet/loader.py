@@ -51,7 +51,8 @@ from .. import native
 from ..columnar import (decode_value, split_containers,
                         CHUNK_TYPE_DOCUMENT, MAGIC_BYTES as _MAGIC)
 from .tensor_doc import CTR_LIMIT, MAX_ACTORS
-from ..observability.spans import spanned as _spanned
+from ..observability.spans import span_seq as _span_seq, \
+    spanned as _spanned
 
 # Wire action numbers (ref columnar.js:51-52)
 _A_MAKE_MAP, _A_SET, _A_MAKE_LIST, _A_MAKE_TEXT = 0, 1, 2, 4
@@ -97,10 +98,12 @@ def _last_per_cell(cell):
     return np.sort(order[np.r_[cs[1:] != cs[:-1], True]])
 
 
-def _device_cols(device, *cols):
-    """Host integer columns as int64 tensors on `device`, in one copy."""
+def _device_cols(device, ps, *cols):
+    """Host integer columns as int64 tensors on `device`, in one copy
+    (its bytes added to the running phase of `ps`)."""
     sizes = [len(c) for c in cols]
     flat = np.concatenate([np.asarray(c, dtype=np.int64) for c in cols])
+    ps.add(bytes=flat.nbytes)
     return torch.from_numpy(flat).to(device).split(sizes)
 
 
@@ -109,13 +112,28 @@ def load_docs(buffers, fleet=None):
     """Load N saved documents into fleet-resident handles in one native
     parse + a few batched device dispatches. Returns handles in input
     order. Docs the fast path can't represent load through the ordinary
-    per-doc path transparently."""
+    per-doc path transparently.
+
+    Phase attribution: with spans on, the `bulk_load` span is tiled by
+    contiguous `load_probe`, `load_parse`, `load_classify`,
+    `load_engines`, `load_map_cells`, `load_seq_values`,
+    `load_seq_install` and `load_fallback` phases (a phase whose work
+    does not arise is left out)."""
+    ps = _span_seq()
+    try:
+        return _load_docs(buffers, fleet, ps)
+    finally:
+        ps.done()
+
+
+def _load_docs(buffers, fleet, ps):
     from . import backend as fleet_backend
 
     fleet = fleet or fleet_backend.default_fleet()
     n_in = len(buffers)
     handles = [None] * n_in
 
+    ps.mark('load_probe', docs=n_in)
     chunks = [None] * n_in
     if native.available():
         for i, buf in enumerate(buffers):
@@ -141,23 +159,27 @@ def load_docs(buffers, fleet=None):
                 chunks[i] = parts[0]
 
     native_idx = [i for i, c in enumerate(chunks) if c is not None]
+    ps.mark('load_parse', docs=len(native_idx))
     out = native.parse_documents([chunks[i] for i in native_idx]) \
         if native_idx else None
     installed = set()
     if out is not None and native_idx:
         installed = _install_parsed(fleet, out, native_idx, chunks, handles,
-                                    fleet_backend)
+                                    fleet_backend, ps)
+    ps.mark('load_fallback', docs=n_in - len(installed))
     for i in range(n_in):
         if i not in installed:
             handles[i] = fleet_backend.load(bytes(buffers[i]), fleet)
     return handles
 
 
-def _install_parsed(fleet, out, native_idx, chunks, handles, fleet_backend):
+def _install_parsed(fleet, out, native_idx, chunks, handles, fleet_backend,
+                    ps):
     """Vectorized end-state assembly for every natively parsed doc; returns
     the set of input indexes successfully installed."""
     from .backend import FleetDoc, _FlatEngine
 
+    ps.mark('load_classify', rows=len(out['doc']))
     ok = out['ok'].astype(bool)
 
     # Fleet actor registration (one insert_many + remap for the batch)
@@ -279,6 +301,8 @@ def _install_parsed(fleet, out, native_idx, chunks, handles, fleet_backend):
     alive = ~inc_mask & (inc_per == n_succ_per)
 
     # ---- engines + per-doc metadata --------------------------------------
+    good_docs = np.flatnonzero(~bad)
+    ps.mark('load_engines', docs=len(good_docs))
     packed32 = ((id_ctr << 8) | id_actor).astype(np.int64)
     oid_str = {}                       # rid key -> 'ctr@actor' string
     obj_type = {}                      # rid key -> wire make action
@@ -289,7 +313,6 @@ def _install_parsed(fleet, out, native_idx, chunks, handles, fleet_backend):
             f'{int(id_ctr[j])}@{fleet.actors.actors[int(id_actor[j])]}'
         obj_type[int(rid[j])] = int(action[j])
 
-    good_docs = np.flatnonzero(~bad)
     slot_of = np.full(len(ok), -1, dtype=np.int64)
     engines = {}
     # one batched allocation for the whole load (init_docs' bookkeeping);
@@ -366,12 +389,14 @@ def _install_parsed(fleet, out, native_idx, chunks, handles, fleet_backend):
     if max_slot >= 0:
         _ensure_caps(fleet, max_slot + 1)
 
+    ps.mark('load_map_cells')
     keep = ~bad[doc] & (slot_of[doc] >= 0)
     _install_map_cells(fleet, out, keep & ~row_is_seq & ~inc_mask & alive,
                        keep & ~row_is_seq,
                        doc, slot_of, okey, oid_str, key_str, packed32,
                        id_actor, vtype, val_int, counter_add, action,
-                       make_mask, rid)
+                       make_mask, rid, ps)
+    ps.mark('load_seq_values')
     # sequence counter lanes bit-pack (sum << 2) | count-bits, where the
     # count bits are 0, 1, or 3 (3 = two or more incs consumed) — the
     # patch walk replays the reference's counterStates edit shapes, which
@@ -383,7 +408,7 @@ def _install_parsed(fleet, out, native_idx, chunks, handles, fleet_backend):
     _install_seq_rows(fleet, out, keep & row_is_seq, doc, slot_of, okey,
                       oid_str, obj_type, insert, alive, inc_mask,
                       packed32, id_actor, key_ctr, key_actor, vtype, val_int,
-                      make_mask, rid, seq_counter, seq_counter_over)
+                      make_mask, rid, seq_counter, seq_counter_over, ps)
 
     installed = set()
     for d, eng in engines.items():
@@ -423,7 +448,7 @@ def _decode_cell_value(fleet, out, j, vtype_j, val_int_j, exact):
 
 def _install_map_cells(fleet, out, sel, index_sel, doc, slot_of, okey,
                        oid_str, key_str, packed32, id_actor, vtype, val_int,
-                       counter_add, action, make_mask, rid):
+                       counter_add, action, make_mask, rid, ps):
     """Scatter alive map-cell ops into the register state (exact mode) or
     the LWW winners grid, one batched device write per array.
 
@@ -435,6 +460,7 @@ def _install_map_cells(fleet, out, sel, index_sel, doc, slot_of, okey,
     (an overwritten op is still a valid pred target for a concurrent op
     that saw it)."""
     idx_rows = np.flatnonzero(index_sel)
+    ps.add(rows=len(idx_rows))
     if not len(idx_rows):
         return
     # Intern cell keys once over every indexed row: root keys as plain
@@ -491,7 +517,7 @@ def _install_map_cells(fleet, out, sel, index_sel, doc, slot_of, okey,
         # written (an inexact doc's registers are read from the mirror)
         w = _last_per_cell(cell)
         s_t, k_t, l_t, p_t, v_t, c_t, d_t = _device_cols(
-            fleet.device, slots[w], key_ids[w], lanes[w], packed[w],
+            fleet.device, ps, slots[w], key_ids[w], lanes[w], packed[w],
             values[w], counters[w], dup_docs)
         idx = (s_t, k_t, l_t)
         rs.reg[idx] = p_t.to(torch.int32)
@@ -508,7 +534,7 @@ def _install_map_cells(fleet, out, sel, index_sel, doc, slot_of, okey,
         last = np.r_[cs[1:] != cs[:-1], True]     # winner = last per group
         w = order[last]
         s_t, k_t, p_t, v_t, c_t = _device_cols(
-            fleet.device, slots[w], key_ids[w], packed[w], values[w],
+            fleet.device, ps, slots[w], key_ids[w], packed[w], values[w],
             counters[w])
         idx = (s_t, k_t)
         st = fleet.state
@@ -531,7 +557,7 @@ def _install_map_cells(fleet, out, sel, index_sel, doc, slot_of, okey,
 def _install_seq_rows(fleet, out, sel, doc, slot_of, okey, oid_str, obj_type,
                       insert, alive, inc_mask, packed32, id_actor,
                       key_ctr, key_actor, vtype, val_int, make_mask, rid,
-                      counter_add, counter_over):
+                      counter_add, counter_over, ps):
     """Reconstruct SeqState rows from document-order sequence ops: element
     encounter order IS final RGA order, so the linked list is a straight
     chain — no pointer walking, no replay. Make rows (objects nested inside
@@ -540,6 +566,7 @@ def _install_seq_rows(fleet, out, sel, doc, slot_of, okey, oid_str, obj_type,
     from .sequence import END, HEAD, SLOT0
 
     rows = np.flatnonzero(sel)
+    ps.add(rows=len(rows))
     if not len(rows):
         return
     # (doc, obj) groups; rows of one object are contiguous in doc order
@@ -654,6 +681,7 @@ def _install_seq_rows(fleet, out, sel, doc, slot_of, okey, oid_str, obj_type,
 
     # place each object in its size class (host-tracked lengths), then
     # install per class: one chain/element/lane scatter set per class
+    ps.mark('load_seq_install', rows=len(rows))
     place = [fleet._place_seq_row(int(fleet_row[u]), int(n_elems[u]))
              for u in range(len(uniq))]
     cls_arr = np.array([p[0] for p in place], dtype=np.int64)
@@ -703,7 +731,7 @@ def _install_seq_rows(fleet, out, sel, doc, slot_of, okey, oid_str, obj_type,
         inex = objs[inex_obj[objs]]
         (tr, n_t, e_row, e_node, e_packed, l_row, l_node, l_actor, l_packed,
          l_val, l_counter, l_dead, inex_t) = _device_cols(
-            fleet.device, idx_arr[objs], n_host, idx_of_op[ins_sel],
+            fleet.device, ps, idx_arr[objs], n_host, idx_of_op[ins_sel],
             node[ins_sel], packed32[rows][ins_sel], idx_of_op[lane_sel],
             node[lane_sel], id_actor[rows][lane_sel],
             packed32[rows][lane_sel], values[lane_sel],

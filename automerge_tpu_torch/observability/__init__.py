@@ -16,8 +16,10 @@ phase, and what happened around it. Four layers, one package:
   at every hot seam (native parse, SHA, turbo gate/stage/commit, device
   dispatch, mirror rebuild, actor remap, journal append/commit/fsync,
   checkpoint, compaction, recovery replay, Bloom build/probe, sync
-  encode/decode). `export_chrome_trace` writes Perfetto-loadable JSON
-  that lines up beside a `trace()` device capture.
+  encode/decode). `export_chrome_trace` writes Perfetto-loadable JSON,
+  on the perf counter's clock by default or on a torch.profiler trace's
+  (`profiler_base_ns=`); `trace()` writes one file holding the
+  profiler's events and the spans on the profiler's clock.
 - **Latency histograms** (hist.py): fixed log2-bucket `Histogram`s with
   p50/p95/p99 summaries and bucketwise `snapshot()`/`delta()` — batch
   apply latency, fsync latency, sync round-trip, per-doc change bytes,

@@ -6,9 +6,10 @@
   capacity growths. `snapshot()` returns a plain dict; `delta(prev)`
   diffs two snapshots — subtract around a workload to get per-phase
   counts.
-- `trace(path)`: context manager around `torch.profiler` — writes a
-  Chrome/Perfetto trace of every host op and CUDA kernel inside the
-  block (merge the host-span Chrome trace from spans.py next to it).
+- `trace(log_dir)`: context manager around `torch.profiler`, with the
+  host-phase spans (spans.py) recording — writes one Chrome/Perfetto
+  trace of every host op and CUDA kernel inside the block and of the
+  program's spans, all on the profiler's clock.
 - `timed(metrics, key)`: context manager accumulating wall-clock seconds
   into a counter, for host-side phases (decode, gate, patch build).
 - `register_dispatch_source(name, fn)` / `dispatch_counts(fleets)`: one
@@ -90,6 +91,7 @@ class Metrics:
         'promotions',            # documents promoted to the host engine
         'remaps',                # actor renumber dispatches
         'grows',                 # capacity regrowths (doc/key axes)
+        'seq_migrations',        # sequence rows moved up a size class
         'mirror_rebuilds',       # lazy mirror replays after turbo
         'graph_builds',          # deferred hash-graph materializations
         'docs_bulk_loaded',      # documents installed by the native loader
@@ -235,14 +237,36 @@ def dispatch_delta(prev, fleets=()):
 @contextlib.contextmanager
 def trace(log_dir):
     """torch.profiler trace (CPU + CUDA activity) of everything inside
-    the block, written as Chrome-trace JSON under ``log_dir`` for
-    Perfetto."""
+    the block, with the program's host-phase spans recording, written as
+    one Chrome-trace JSON, ``log_dir/trace.json``, for Perfetto: the
+    profiler's events and the spans as 'X' events on the profiler's
+    clock (spans.profiler_ns), so a span nests around the profiler's
+    ranges and kernels it encloses. Span recording is on for the block
+    only, unless it already was: then the ring is kept, and all of it
+    is written."""
+    import json
     import os
     import torch
+    from . import spans
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(str(log_dir), exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(str(log_dir), 'trace.json'))
+    was_on = spans.on()
+    if not was_on:
+        spans.enable(capacity=1 << 16)
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            yield
+    finally:
+        if not was_on:
+            spans.disable()
+    path = os.path.join(str(log_dir), 'trace.json')
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        data = json.load(fh)
+    data.setdefault('traceEvents', []).extend(spans.export_chrome_trace(
+        pid=os.getpid(),
+        profiler_base_ns=int(data.get('baseTimeNanoseconds', 0))))
+    with open(path, 'w') as fh:
+        json.dump(data, fh, default=repr)

@@ -24,8 +24,16 @@ quarantine/rot events a forensic dump exists to preserve.
 
 ``export_chrome_trace(path)`` writes the ring as Chrome trace-event JSON
 ("X" complete events, microsecond timestamps), the format Perfetto and
-chrome://tracing load directly — drop it next to a ``torch.profiler``
-capture and the host phases line up beside the device timeline.
+chrome://tracing load directly. By default the timestamps are raw
+``perf_counter`` microseconds, a clock of their own: they do not line up
+with a ``torch.profiler`` capture, whose trace counts wall-clock
+microseconds less its ``baseTimeNanoseconds``. For that the recorder
+keeps a clock anchor, a (``perf_counter_ns``, ``time_ns``) pair read when
+recording is enabled and again whenever the spans are read;
+``profiler_ns`` maps a span's time linearly between the two, and
+``export_chrome_trace(profiler_base_ns=...)`` writes the spans on the
+profiler trace's clock. ``observability.trace(log_dir)`` does that for
+its block and writes one file holding both.
 """
 
 import json
@@ -36,7 +44,7 @@ from .metrics import register_health_source
 
 __all__ = ['enable', 'disable', 'on', 'span', 'span_seq', 'spanned',
            'clear', 'iter_spans', 'export_chrome_trace', 'Span',
-           'record_span', 'spans_dropped']
+           'record_span', 'spans_dropped', 'profiler_ns']
 
 _on = False                 # the master switch; module-global for one-load checks
 _ring = []                  # preallocated record slots (None until written)
@@ -45,6 +53,9 @@ _idx = 0                    # next write position
 _total = 0                  # lifetime spans recorded (wraparound-aware)
 _dropped_lifetime = 0       # spans evicted by wraparound, never reset
 _lock = threading.Lock()    # guards ring writes only; reads copy under it
+# (perf_counter_ns, time_ns) read at enable() and at the latest read of
+# the spans: the two ends of the map onto the profiler's wall clock
+_anchor0 = _anchor1 = None
 
 # a wrapped ring silently truncating a trace is the no-silent-caps rule's
 # textbook violation: the health counter makes the loss countable, and
@@ -58,15 +69,53 @@ def on():
     return _on
 
 
+def _clock_reading():
+    """(perf_counter_ns, time_ns) read together: the perf counter between
+    two wall-clock reads, paired with their midpoint; the tightest of
+    three tries, so the pair is off by at most half that gap."""
+    best = None
+    for _ in range(3):
+        w0 = time.time_ns()
+        p = time.perf_counter_ns()
+        w1 = time.time_ns()
+        if best is None or w1 - w0 < best[0]:
+            best = (w1 - w0, p, (w0 + w1) // 2)
+    return best[1], best[2]
+
+
+def _read_anchor():
+    global _anchor1
+    reading = _clock_reading()
+    with _lock:
+        _anchor1 = reading
+
+
 def enable(capacity=4096):
     """Turn span recording on with a bounded ring of `capacity` spans."""
-    global _on, _ring, _cap, _idx, _total
+    global _on, _ring, _cap, _idx, _total, _anchor0, _anchor1
+    reading = _clock_reading()
     with _lock:
         _ring = [None] * int(capacity)
         _cap = int(capacity)
         _idx = 0
         _total = 0
+        _anchor0 = _anchor1 = reading
         _on = True
+
+
+def profiler_ns(t_ns):
+    """A ``perf_counter_ns`` time on the wall clock that torch.profiler's
+    trace counts in (Unix ns): mapped linearly between the anchor read
+    at enable() and the one read at the latest read of the spans, so
+    the two clocks' drift over the recording is taken out. Without an
+    anchor, the offset read now."""
+    a0, a1 = _anchor0, _anchor1
+    if a0 is None:
+        a0 = a1 = _clock_reading()
+    (p0, w0), (p1, w1) = a0, a1
+    if p1 <= p0:
+        return w0 + (t_ns - p0)
+    return w0 + (t_ns - p0) * (w1 - w0) // (p1 - p0)
 
 
 def disable():
@@ -158,9 +207,12 @@ class _NullSpan:
 
 class SpanSeq:
     """Sequential phase spans: each mark() closes the running phase and
-    opens the next at the same instant, so the phases tile the interval."""
+    opens the next at the same instant, so the phases tile the interval.
+    `on` is True (the null sequence's is False): an attribute that costs
+    work to compute is computed only under ``if ps.on``."""
 
     __slots__ = ('_name', '_t0', '_attrs')
+    on = True
 
     def __init__(self):
         self._name = None
@@ -174,6 +226,17 @@ class SpanSeq:
         self._name = name
         self._t0 = t
         self._attrs = attrs or None
+
+    def add(self, **counts):
+        """Add `counts` to the running phase's attributes of those names
+        (a missing one starts at 0): bytes copied over a loop of copies,
+        rows moved in a pass."""
+        if self._name is None:
+            return
+        if self._attrs is None:
+            self._attrs = {}
+        for key, n in counts.items():
+            self._attrs[key] = self._attrs.get(key, 0) + n
 
     def done(self, error=None, **attrs):
         if self._name is None:
@@ -190,8 +253,12 @@ class SpanSeq:
 
 class _NullSeq:
     __slots__ = ()
+    on = False
 
     def mark(self, name, **attrs):
+        pass
+
+    def add(self, **counts):
         pass
 
     def done(self, error=None, **attrs):
@@ -234,7 +301,9 @@ def spanned(name):
 
 def iter_spans():
     """Recorded spans, oldest first, as dicts. Copies the ring under the
-    lock, so it is safe against concurrent recording."""
+    lock, so it is safe against concurrent recording. Reads the clock
+    anchor's second pair (see `profiler_ns`)."""
+    _read_anchor()
     with _lock:
         if _total >= _cap:
             raw = _ring[_idx:] + _ring[:_idx]
@@ -268,18 +337,26 @@ def spans_dropped():
     return max(0, _total - _cap) if _cap else 0
 
 
-def export_chrome_trace(path=None, pid=1):
+def export_chrome_trace(path=None, pid=1, profiler_base_ns=None):
     """The recorded spans as Chrome trace-event 'X' (complete) events —
     the JSON Perfetto / chrome://tracing load. Timestamps are the raw
-    perf_counter microseconds; host spans from one process share a clock,
-    so phases nest correctly. Returns the event list; writes
+    perf_counter microseconds by default; host spans from one process
+    share a clock, so phases nest correctly, but that clock is not a
+    torch.profiler trace's. With `profiler_base_ns` (a profiler trace's
+    ``baseTimeNanoseconds``; 0 for a trace in absolute microseconds) they
+    are on that trace's clock instead, mapped by `profiler_ns`: Unix
+    microseconds less the base. Returns the event list; writes
     ``{"traceEvents": [...]}`` to `path` when given."""
     events = []
     for rec in iter_spans():
+        if profiler_base_ns is None:
+            ts, dur = rec['t0_ns'] / 1000.0, rec['dur_ns'] / 1000.0
+        else:
+            t0 = profiler_ns(rec['t0_ns']) - profiler_base_ns
+            ts = t0 / 1000.0
+            dur = (profiler_ns(rec['t1_ns']) - profiler_base_ns - t0) / 1000.0
         ev = {'ph': 'X', 'name': rec['name'], 'pid': pid,
-              'tid': rec['tid'] % 1_000_000,
-              'ts': rec['t0_ns'] / 1000.0,
-              'dur': rec['dur_ns'] / 1000.0}
+              'tid': rec['tid'] % 1_000_000, 'ts': ts, 'dur': dur}
         args = dict(rec.get('attrs') or {})
         if rec.get('error'):
             args['error'] = rec['error']
