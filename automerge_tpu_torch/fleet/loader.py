@@ -603,63 +603,31 @@ def _install_seq_rows(fleet, out, sel, doc, slot_of, okey, oid_str, obj_type,
     n_elems = np.bincount(inv, weights=ins.astype(np.float64),
                           minlength=len(uniq)).astype(np.int64)
 
-    # update rows: find the target element by its insert op id
-    ins_idx = np.flatnonzero(ins)
-    ikey = inv[ins_idx] * (1 << 33) + packed32[rows][ins_idx]
-    ins_sorted = np.argsort(ikey)
-    ins_keys = ikey[ins_sorted]
-    tgt_packed = (key_ctr[rows] << 8) | np.maximum(key_actor[rows], 0)
-    tkey = inv * (1 << 33) + tgt_packed
-    if len(ins_keys):
-        pos = np.clip(np.searchsorted(ins_keys, tkey), 0, len(ins_keys) - 1)
-        matched = ins_keys[pos] == tkey
-        tgt_ord = elem_ord[ins_idx[ins_sorted[pos]]]
-    else:
-        matched = np.zeros(len(rows), dtype=bool)
-        tgt_ord = np.zeros(len(rows), dtype=np.int64)
-    bad_upd = ~ins & ~matched       # update to unknown element -> inexact
-    node = SLOT0 + np.where(ins, elem_ord, tgt_ord)
-
-    # value lanes (text: single codepoints inline; lists: ints inline;
-    # everything else boxes; counters flag the row, ref new.js:937-965)
-    txt = is_text[inv]
-    values = np.zeros(len(rows), dtype=np.int64)
-    flag_counter = np.zeros(len(rows), dtype=bool)
-    for i, j in enumerate(rows):
-        jj = int(j)
-        if inc_mask[jj]:
-            continue   # consumed via succ attribution into counter lanes
-        if make_mask[jj]:
-            # Nested object as a sequence element: fleet._make_link_value
-            # is THE shared make-op link rule (links the child, allocates
-            # an empty child sequence's device row)
-            values[i] = fleet._make_link_value(
-                int(slot_of[int(doc[jj])]), oid_str[int(rid[jj])],
-                _TYPE_NAMES[obj_type[int(rid[jj])]])
-            if txt[i]:
-                # object elements inside Text render as spans: mirror
-                # serves those reads (same rule as _pack_seq_op)
-                flag_counter[i] = True
-            continue
-        vt, vi = int(vtype[jj]), int(val_int[jj])
-        if txt[i] and vt == 6 and vi >= 0:
-            values[i] = vi
-            continue
-        elif not txt[i] and vt == 4 and 0 <= vi < (1 << 31):
-            values[i] = vi
-            continue
-        off, ln = int(out['val_off'][jj]), int(out['val_len'][jj])
-        decoded = decode_value((ln << 4) | vt, out['val_blob'][off:off + ln])
-        dt = decoded.get('datatype')
-        if isinstance(dt, str) and dt != 'int':
-            # fleet._intern_typed — THE datatype-boxing rule (shared with
-            # every other ingest path; it normalizes int wire tags itself)
-            values[i] = fleet._intern_typed(decoded['value'], dt)
+    # update rows (the non-inserts): find the target element by its insert
+    # op id; an update to an unknown element flags its object inexact
+    node = SLOT0 + elem_ord
+    bad_upd = np.zeros(len(rows), dtype=bool)
+    upd = np.flatnonzero(~ins)
+    if len(upd):
+        ins_idx = np.flatnonzero(ins)
+        ikey = inv[ins_idx] * (1 << 33) + packed32[rows][ins_idx]
+        ins_sorted = np.argsort(ikey)
+        ins_keys = ikey[ins_sorted]
+        tgt_packed = (key_ctr[rows[upd]] << 8) | \
+            np.maximum(key_actor[rows[upd]], 0)
+        tkey = inv[upd] * (1 << 33) + tgt_packed
+        if len(ins_keys):
+            pos = np.clip(np.searchsorted(ins_keys, tkey), 0,
+                          len(ins_keys) - 1)
+            bad_upd[upd] = ins_keys[pos] != tkey
+            node[upd] = SLOT0 + elem_ord[ins_idx[ins_sorted[pos]]]
         else:
-            # plain payloads box raw here (NOT _intern_typed): sequence
-            # lanes reserve inline ints for text code points, and the list
-            # inline-int fast path already ran above
-            values[i] = fleet._intern_value_boxed(decoded['value'])
+            bad_upd[upd] = True
+            node[upd] = SLOT0
+
+    values, flag_counter = _seq_lane_values(
+        fleet, out, rows, is_text[inv], doc, slot_of, oid_str, obj_type,
+        inc_mask, make_mask, vtype, val_int, rid, ps)
 
     live = alive[rows] & ~inc_mask[rows] & ~bad_upd
     live_mask = np.zeros(len(rows), dtype=bool)
@@ -753,3 +721,54 @@ def _install_seq_rows(fleet, out, sel, doc, slot_of, okey, oid_str, obj_type,
             st.inexact[inex_t] = True
         fleet.metrics.dispatches += 1
     fleet.metrics.device_ops += len(rows)
+
+
+def _seq_lane_values(fleet, out, rows, txt, doc, slot_of, oid_str, obj_type,
+                     inc_mask, make_mask, vtype, val_int, rid, ps):
+    """Value lanes of the sequence op rows `rows` (text: single codepoints
+    inline; lists: ints inline; everything else boxes; counters flag the
+    row, ref new.js:937-965) and the rows whose object element flags the
+    Text inexact. The inline rows take one column pass (the native parse
+    already decoded a single-codepoint string's code point into
+    `val_int`, -1 otherwise); the make rows and the values that box take
+    the per-row path in row order, so the value table and the child rows
+    are allocated in the reference's order."""
+    values = np.zeros(len(rows), dtype=np.int64)
+    flag_counter = np.zeros(len(rows), dtype=bool)
+    vt, vi = vtype[rows], val_int[rows]
+    inc = inc_mask[rows]
+    inline = ~inc & ~make_mask[rows] & (
+        (txt & (vt == 6) & (vi >= 0)) |
+        (~txt & (vt == 4) & (vi >= 0) & (vi < (1 << 31))))
+    values[inline] = vi[inline]
+    # inc rows are consumed via succ attribution into counter lanes
+    slow = np.flatnonzero(~inline & ~inc)
+    ps.add(boxed=len(slow))
+    for i in slow.tolist():
+        jj = int(rows[i])
+        if make_mask[jj]:
+            # Nested object as a sequence element: fleet._make_link_value
+            # is THE shared make-op link rule (links the child, allocates
+            # an empty child sequence's device row)
+            values[i] = fleet._make_link_value(
+                int(slot_of[int(doc[jj])]), oid_str[int(rid[jj])],
+                _TYPE_NAMES[obj_type[int(rid[jj])]])
+            if txt[i]:
+                # object elements inside Text render as spans: mirror
+                # serves those reads (same rule as _pack_seq_op)
+                flag_counter[i] = True
+            continue
+        off, ln = int(out['val_off'][jj]), int(out['val_len'][jj])
+        decoded = decode_value((ln << 4) | int(vt[i]),
+                               out['val_blob'][off:off + ln])
+        dt = decoded.get('datatype')
+        if isinstance(dt, str) and dt != 'int':
+            # fleet._intern_typed — THE datatype-boxing rule (shared with
+            # every other ingest path; it normalizes int wire tags itself)
+            values[i] = fleet._intern_typed(decoded['value'], dt)
+        else:
+            # plain payloads box raw here (NOT _intern_typed): sequence
+            # lanes reserve inline ints for text code points, and the
+            # column pass above already took the list ints that sit inline
+            values[i] = fleet._intern_value_boxed(decoded['value'])
+    return values, flag_counter

@@ -15,6 +15,7 @@ made with the reference's frontend (the port has none yet) and enter
 both packages as the same bytes; chunks saved by either package load in
 the other."""
 
+import datetime
 import random
 
 import numpy as np
@@ -29,6 +30,7 @@ from automerge_tpu.fleet import backend as jb
 from automerge_tpu.fleet.loader import load_docs as jax_load_docs
 import automerge_tpu_torch.native as torch_native
 from automerge_tpu_torch import backend as torch_host
+from automerge_tpu_torch import observability
 from automerge_tpu_torch.fleet import backend as tb
 from automerge_tpu_torch.fleet import load_docs as torch_load_docs
 from automerge_tpu_torch.fleet import seq_cases
@@ -522,6 +524,189 @@ def test_fuzz_differential():
 
 def test_fuzz_differential_exact():
     _fuzz_differential(True)
+
+
+# ---- the sequence value lanes: inline columns, boxed rows in order --------
+
+# one list of every value shape: (value, sits inline in a list lane)
+MIXED_LIST = [
+    (1, True), (2 ** 31, False), (7, True), (2 ** 40, False), (-3, False),
+    ('a', False), ('bb', False), ('a', False), (2.5, False), (True, False),
+    (None, False), (A.Int(2 ** 33), False), (A.Uint(7), False),
+    (datetime.datetime(2020, 5, 9, tzinfo=datetime.timezone.utc), False),
+    (A.Counter(3), False), ({'m': 1}, False), ([4, 5], False),
+    (A.Text('hi'), False), (0, True)]
+
+
+def _mixed_list_doc():
+    """The list above (its nested list and Text hold inline rows only),
+    then an inc of its counter."""
+    d = A.from_({'l': [v for v, _ in MIXED_LIST]}, A1)
+    at = [i for i, (v, _) in enumerate(MIXED_LIST)
+          if isinstance(v, A.Counter)][0]
+    return bytes(A.save(A.change(d, lambda r: r['l'][at].increment(2))))
+
+
+def _saved(changes):
+    return bytes(torch_host.save(torch_host.apply_changes(
+        torch_host.init(), changes)[0]))
+
+
+def _mixed_text_doc():
+    """A Text of 'a', a map element, the string 'xyz' as one element and
+    'b': the map and 'xyz' cannot sit in a Text lane."""
+    ins = dict(obj=f'1@{A1}', insert=True, pred=[])
+    return _saved([change_buf(A1, 1, 1, [
+        {'action': 'makeText', 'obj': '_root', 'key': 't', 'pred': []},
+        dict(ins, action='set', elemId='_head', value='a'),
+        dict(ins, action='makeMap', elemId=f'2@{A1}'),
+        {'action': 'set', 'obj': f'3@{A1}', 'key': 'k', 'value': 1,
+         'datatype': 'int', 'pred': []},
+        dict(ins, action='set', elemId=f'3@{A1}', value='xyz'),
+        dict(ins, action='set', elemId=f'5@{A1}', value='b')])])
+
+
+def _plain_text_doc():
+    d = A.from_({'t': A.Text('plaintext')}, A1)
+    return bytes(A.save(A.change(d, lambda r: r['t'].insert_at(5, '-'))))
+
+
+# the rows of one load of both mixed docs that take the per-row path: the
+# list's elements that cannot sit inline, the Text's map and 'xyz'
+MIXED_BOXED = sum(not inline for _, inline in MIXED_LIST) + 2
+
+
+def _entry(boxed):
+    """A value-table entry by its class name and repr (the packages'
+    link and typed classes are their own)."""
+    return type(boxed).__name__, repr(boxed)
+
+
+def _boxed(bufs, fleet):
+    """The port's bulk load of `bufs` with spans on; returns the handles
+    and the `boxed=` count of its `load_seq_values` phase."""
+    observability.enable(span_capacity=1024)
+    try:
+        handles = torch_load_docs(bufs, fleet)
+        (phase,) = [s for s in observability.iter_spans()
+                    if s['name'] == 'load_seq_values']
+    finally:
+        observability.disable()
+    return handles, phase['attrs']['boxed']
+
+
+@pytest.mark.parametrize('exact', MODES)
+def test_boxed_seq_values_keep_their_order(exact):
+    """Inline and boxed elements interleaved in one list, a Text holding
+    an object and a multi-character element, and a plain Text, in one
+    load: device pools, value table and reads equal the reference's, and
+    only the rows that cannot sit inline take the per-row path."""
+    bufs = [_mixed_list_doc(), _mixed_text_doc(), _plain_text_doc()]
+    seen = {}
+
+    def scenario(pkg, fleet):
+        if pkg is TORCH:
+            handles, seen['boxed'] = _boxed(bufs, fleet)
+        else:
+            handles = pkg[2](bufs, fleet)
+        assert fleet.metrics.docs_bulk_loaded == 3
+        scenario.tables.append(fleet.value_table)
+        return handles
+    scenario.tables = []
+    tf, th = _both(scenario, exact)
+    jt, tt = scenario.tables
+    assert [_entry(x) for x in tt] == [_entry(x) for x in jt]
+    assert seen['boxed'] == MIXED_BOXED
+    assert _boxed([bufs[2]], _fleet(tb, exact))[1] == 0
+    reads = tb.materialize_docs(th)
+    assert reads[0]['l'][:3] == [1, 2 ** 31, 7]
+    assert reads[2] == {'t': 'plain-text'}
+
+
+def _old_lane_values(fleet, out, rows, txt, doc, slot_of, oid_str,
+                     obj_type, inc_mask, make_mask, vtype, val_int, rid):
+    """The sequence value lanes as the loader computed them row by row
+    before its column pass, kept frozen here as the replay's reference."""
+    from automerge_tpu_torch.columnar import decode_value
+    from automerge_tpu_torch.fleet.loader import _TYPE_NAMES
+    values = np.zeros(len(rows), dtype=np.int64)
+    flag_counter = np.zeros(len(rows), dtype=bool)
+    for i, j in enumerate(rows):
+        jj = int(j)
+        if inc_mask[jj]:
+            continue
+        if make_mask[jj]:
+            values[i] = fleet._make_link_value(
+                int(slot_of[int(doc[jj])]), oid_str[int(rid[jj])],
+                _TYPE_NAMES[obj_type[int(rid[jj])]])
+            if txt[i]:
+                flag_counter[i] = True
+            continue
+        vt, vi = int(vtype[jj]), int(val_int[jj])
+        if txt[i] and vt == 6 and vi >= 0:
+            values[i] = vi
+            continue
+        elif not txt[i] and vt == 4 and 0 <= vi < (1 << 31):
+            values[i] = vi
+            continue
+        off, ln = int(out['val_off'][jj]), int(out['val_len'][jj])
+        decoded = decode_value((ln << 4) | vt, out['val_blob'][off:off + ln])
+        dt = decoded.get('datatype')
+        if isinstance(dt, str) and dt != 'int':
+            values[i] = fleet._intern_typed(decoded['value'], dt)
+        else:
+            values[i] = fleet._intern_value_boxed(decoded['value'])
+    return values, flag_counter
+
+
+class _InternLog:
+    """A fleet stand-in that logs every intern and link call in order and
+    answers each with a value ref of its own."""
+
+    def __init__(self):
+        self.calls = []
+
+    def _ref(self, *call):
+        self.calls.append(call)
+        return -(len(self.calls) + 1)
+
+    def _make_link_value(self, slot, oid, type_name):
+        return self._ref('link', slot, oid, type_name)
+
+    def _intern_typed(self, value, datatype):
+        return self._ref('typed', type(value), value, datatype)
+
+    def _intern_value_boxed(self, value):
+        return self._ref('boxed', type(value), value)
+
+
+def test_seq_lane_values_replay_the_row_loop(monkeypatch):
+    """The column pass against the frozen row loop, over the columns of
+    a bulk load of the fuzz corpus, the corpus and the mixed docs: equal
+    values and flags, and the same intern calls in the same order."""
+    from automerge_tpu_torch.fleet import loader
+    from automerge_tpu_torch.observability.spans import span_seq
+    real, captured = loader._seq_lane_values, []
+
+    def capture(fleet, out, rows, txt, *cols):
+        captured.append((out, rows.copy(), txt.copy(),
+                         [c.copy() if isinstance(c, np.ndarray) else c
+                          for c in cols[:-1]]))
+        return real(fleet, out, rows, txt, *cols)
+    monkeypatch.setattr(loader, '_seq_lane_values', capture)
+    bufs = FUZZ[0] + CORPUS + [_mixed_list_doc(), _mixed_text_doc()]
+    torch_load_docs(bufs, _fleet(tb, False, doc_capacity=32,
+                                 key_capacity=32))
+    (args,) = captured
+    out, rows, txt, cols = args
+    new_log, old_log = _InternLog(), _InternLog()
+    new = real(new_log, out, rows, txt, *cols, span_seq())
+    old = _old_lane_values(old_log, out, rows, txt, *cols)
+    np.testing.assert_array_equal(new[0], old[0])
+    np.testing.assert_array_equal(new[1], old[1])
+    assert new_log.calls == old_log.calls
+    assert len(new_log.calls) >= MIXED_BOXED and new[1].any()
+    assert (new[0] >= 0).sum() > len(new_log.calls)
 
 
 # ---- TestFleetRebuild ------------------------------------------------------
