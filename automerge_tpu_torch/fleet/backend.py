@@ -1949,11 +1949,14 @@ class _DocCols:
     with the fleet's slot count; recycled slots are reset at allocation
     time in one vectorized pass (`reset_rows`).
 
-    Head frontier: ``head_n`` is the head count when the frontier is
-    columnar-representable (0 = empty, 1 = ``head32`` holds the raw
-    hash, ``head_hex``/``head_obj`` memoize the hex string / list) and
-    -1 when the authoritative list lives in ``head_obj`` (multi-head
-    docs — the gate falls back to the host hex compare for those).
+    Head frontier: ``HEAD_LANES`` raw 32-byte hashes a doc in
+    ``head32`` ([cap, HEAD_LANES, 32]); ``head_n`` is how many lanes are
+    in use (0 = empty), in the heads list's order (sorted hex), with
+    ``head_obj`` memoizing the hex list, or -1 when the authoritative
+    list lives in ``head_obj`` (a frontier wider than the lanes, or
+    heads that are not hex hashes). The native gate checks every
+    change's deps against the lanes; a -1 doc keeps the chain shape
+    with its first change's deps compared on the host.
 
     Clock: up to ``CLOCK_LANES`` (actor, seq) lanes per doc
     (``ck_actor`` holds ids into the fleet's clock-actor registry,
@@ -1972,10 +1975,11 @@ class _DocCols:
     commit computes parked-prefix bases without touching engines."""
 
     CLOCK_LANES = 4
+    HEAD_LANES = 4
 
     __slots__ = ('cap', 'maxop', 'stale', 'bindoc', 'head_n', 'head32',
-                 'head_hex', 'head_obj', 'ck_n', 'ck_actor', 'ck_seq',
-                 'ck_obj', 'pend_doc', 'parked_n', 'pend_n')
+                 'head_obj', 'ck_n', 'ck_actor', 'ck_seq', 'ck_obj',
+                 'pend_doc', 'parked_n', 'pend_n')
 
     def __init__(self, cap=64):
         self._alloc(max(int(cap), 1))
@@ -1987,8 +1991,7 @@ class _DocCols:
         self.stale = np.zeros(cap, dtype=bool)
         self.bindoc = np.full(cap, None, dtype=object)
         self.head_n = np.zeros(cap, dtype=np.int32)
-        self.head32 = np.zeros((cap, 32), dtype=np.uint8)
-        self.head_hex = np.full(cap, None, dtype=object)
+        self.head32 = np.zeros((cap, self.HEAD_LANES, 32), dtype=np.uint8)
         self.head_obj = np.full(cap, None, dtype=object)
         self.ck_n = np.zeros(cap, dtype=np.int32)
         self.ck_actor = np.full((cap, L), -1, dtype=np.int32)
@@ -2019,7 +2022,6 @@ class _DocCols:
         self.stale[rows] = False
         self.bindoc[rows] = None
         self.head_n[rows] = 0
-        self.head_hex[rows] = None
         self.head_obj[rows] = None
         self.ck_n[rows] = 0
         self.ck_actor[rows] = -1
@@ -2175,19 +2177,10 @@ class _FlatEngine(HashGraph):
         every existing writer does."""
         cols = self.fleet.doc_cols
         r = self.slot
-        n = cols.head_n[r]
-        if n == -1:
-            return cols.head_obj[r]
         memo = cols.head_obj[r]
         if memo is None:
-            if n == 0:
-                memo = []
-            else:
-                hx = cols.head_hex[r]
-                if hx is None:
-                    hx = cols.head32[r].tobytes().hex()
-                    cols.head_hex[r] = hx
-                memo = [hx]
+            lanes = cols.head32[r]
+            memo = [lanes[l].tobytes().hex() for l in range(cols.head_n[r])]
             cols.head_obj[r] = memo
         return memo
 
@@ -2197,23 +2190,18 @@ class _FlatEngine(HashGraph):
         r = self.slot
         if type(v) is not list:
             v = list(v)
-        if len(v) == 1 and len(v[0]) == 64:
-            try:
-                cols.head32[r] = np.frombuffer(bytes.fromhex(v[0]),
-                                               dtype=np.uint8)
-            except ValueError:
-                cols.head_n[r] = -1       # not a hex hash: attr-mode
-                cols.head_obj[r] = v
-                return
-            cols.head_n[r] = 1
-            cols.head_hex[r] = v[0]
-            cols.head_obj[r] = v
-        elif not v:
-            cols.head_n[r] = 0
-            cols.head_obj[r] = v
-        else:
-            cols.head_n[r] = -1           # multi-head: attr-mode
-            cols.head_obj[r] = v
+        cols.head_obj[r] = v
+        if len(v) > cols.HEAD_LANES or any(len(h) != 64 for h in v):
+            cols.head_n[r] = -1           # attr-mode: past the lanes
+            return
+        try:
+            raw = bytes.fromhex(''.join(v))
+        except ValueError:
+            cols.head_n[r] = -1           # not hex hashes: attr-mode
+            return
+        cols.head32[r, :len(v)] = np.frombuffer(
+            raw, dtype=np.uint8).reshape(len(v), 32)
+        cols.head_n[r] = len(v)
 
     @property
     def clock(self):
@@ -3906,21 +3894,21 @@ def _dump_quarantine_record(handles, errors):
 
 
 class _LazyHandle(dict):
-    """A backend handle whose 'heads' hexes LAZILY from the head32 row
+    """A backend handle whose 'heads' hexes LAZILY from the head lanes
     captured at commit time (dict ``__missing__``): the turbo fast path
     stopped materializing hex head strings per doc (the residual-floor
     fix), so a handle nobody asks for heads never pays the decode. The
-    row is captured by VALUE at commit, so a stale handle still answers
-    with its own generation's frontier exactly like the eager dict did.
-    Every dict operation real callers use (['state'], ['heads'],
-    .get('frozen'), item assignment, isinstance(..., dict)) behaves
-    identically."""
+    rows ([heads, 32], sorted) are captured by VALUE at commit, so a
+    stale handle still answers with its own generation's frontier
+    exactly like the eager dict did. Every dict operation real callers
+    use (['state'], ['heads'], .get('frozen'), item assignment,
+    isinstance(..., dict)) behaves identically."""
 
     __slots__ = ('_head32',)
 
     def __missing__(self, key):
         if key == 'heads':
-            value = [self._head32.tobytes().hex()]
+            value = [row.tobytes().hex() for row in self._head32]
             self['heads'] = value
             return value
         raise KeyError(key)
@@ -3990,11 +3978,13 @@ def _apply_changes_turbo(handles, per_doc_changes, parsed=None):
     call's flat batch; the parse is a pure function of the bytes, so the
     result is identical to parsing inline.
 
-    Control flow: one native parse for every change; chain validation
-    (deps == current head, contiguous seqs) vectorized over the whole batch;
-    docs that fit the linear-chain shape commit through the deferred hash
-    graph with no per-change dict work, the rest go through the general
-    causal gate. The call is atomic: any gate error rolls back every doc.
+    Control flow: one native parse for every change; one native causal
+    gate over the whole batch (every dep a start head or an earlier
+    change of the same doc's run, contiguous seqs), which also returns
+    every doc's new head frontier; docs it accepts, chains and causal
+    runs alike, commit through the deferred hash graph with no
+    per-change dict work, the rest go through the general causal gate.
+    The call is atomic: any gate error rolls back every doc.
 
     Phase attribution: when spans are enabled the call tiles into
     contiguous `turbo_setup` / `turbo_parse` / `turbo_gate` /
@@ -4075,69 +4065,86 @@ def _apply_changes_turbo_inner(handles, per_doc_changes, ps, parsed=None):
     batch_meta = _TurboMetaBatch(nmeta, nat_actors, flat_buffers)
     ps.mark('turbo_gate')
 
-    # ---- Batched linear-chain validation: ONE native call ----
-    # A doc takes the fast path iff every change deps on exactly the
-    # previous change (or the doc's current head for the first) and seqs
-    # are contiguous per actor. Everything else gets the general gate.
-    # The chain-link memcmps, deps-count checks, heads compare against
-    # the columnar head32 rows, and per-(doc, actor) seq-run grouping
-    # all run in codec.cpp's am_turbo_gate with the GIL released —
-    # replacing the per-doc hex/dict probes AND the numpy argsort pass.
-    doc_of = change_doc
-    seqs = nmeta['seq']
-    hash32 = nmeta['hash32']
-    cols = fleet.doc_cols
-    erows = np.fromiter((e.slot for e in engines), dtype=np.int64,
-                        count=len(engines))
-    if len(np.unique(erows)) != len(erows):
-        # the same doc twice in one batch: the scatter commit would
-        # collapse its two runs; the exact path applies them in order
-        return None
-    starts_all = np.cumsum(doc_counts) - doc_counts
-    doc_off = np.concatenate([starts_all, [n_changes]])
-    head_n_d = cols.head_n[erows]
-    gate = native.turbo_gate(doc_off, nmeta['actor'], seqs, hash32,
-                             nmeta['deps_off'], nmeta['deps_blob'],
-                             cols.head32[erows], head_n_d)
-    if gate is None:
-        return None
-    doc_ok, hostcheck, g_doc, g_actor, g_first, g_last = gate
-    # Docs whose head frontier is not columnar-representable (multi-head)
-    # get the host hex compare for JUST their first change — rare.
-    for d in np.flatnonzero(hostcheck).tolist():
-        if doc_ok[d] and doc_counts[d]:
-            i = int(starts_all[d])
-            heads = engines[d].heads
-            if int(nmeta['deps_off'][i + 1] - nmeta['deps_off'][i]) != \
-                    len(heads) or batch_meta.deps_hex(i) != heads:
-                doc_ok[d] = False
-    # Seq bases: each (doc, actor) run's first seq must extend the doc's
-    # clock. Lane-mode rows check vectorized against the clock columns;
-    # dict-mode rows (actor populations past the lane width) probe their
-    # dicts per group.
-    if len(g_doc):
-        g_rows = erows[g_doc]
-        ck_n_g = cols.ck_n[g_rows]
-        reg = fleet._ck_reg
-        reg_ids = np.fromiter((reg.get(a, -1) for a in nat_actors),
-                              dtype=np.int64, count=len(nat_actors)) \
-            if nat_actors else np.zeros(1, dtype=np.int64)
-        g_reg = reg_ids[g_actor]
-        base = np.zeros(len(g_doc), dtype=np.int64)
-        known = g_reg >= 0
-        if known.any():
-            for l in range(cols.CLOCK_LANES):
-                m = known & (cols.ck_actor[g_rows, l] == g_reg)
-                if m.any():
-                    base[m] = cols.ck_seq[g_rows[m], l]
-        dmode = np.flatnonzero(ck_n_g == -1)
-        for gi in dmode.tolist():
-            base[gi] = engines[int(g_doc[gi])].clock.get(
-                nat_actors[int(g_actor[gi])], 0)
-        bad = g_first != base + 1
-        if bad.any():
-            doc_ok[g_doc[bad]] = False
-    fast_mask = doc_ok
+    # ---- Batched causal-run validation: ONE native call ----
+    # A doc takes the fast path iff every change's deps are heads of the
+    # doc's frontier at the batch's start or earlier changes of its own
+    # run (so buffer order is causal order), and seqs are contiguous per
+    # actor: a chain, or concurrent branches and their merges. Everything
+    # else (deps out of order or unknown, an end frontier past the head
+    # lanes) gets the general gate. The dep memcmps against the columnar
+    # head lanes and the run, the new frontier, and per-(doc, actor)
+    # seq-run grouping all run in codec.cpp's am_turbo_gate with the GIL
+    # released.
+    with _span('turbo_causal') as causal_span:
+        doc_of = change_doc
+        seqs = nmeta['seq']
+        hash32 = nmeta['hash32']
+        cols = fleet.doc_cols
+        erows = np.fromiter((e.slot for e in engines), dtype=np.int64,
+                            count=len(engines))
+        if len(np.unique(erows)) != len(erows):
+            # the same doc twice in one batch: the scatter commit would
+            # collapse its two runs; the exact path applies them in order
+            return None
+        starts_all = np.cumsum(doc_counts) - doc_counts
+        doc_off = np.concatenate([starts_all, [n_changes]])
+        gate = native.turbo_gate(doc_off, nmeta['actor'], seqs, hash32,
+                                 nmeta['deps_off'], nmeta['deps_blob'],
+                                 cols.head32[erows], cols.head_n[erows])
+        if gate is None:
+            return None
+        (gate_kind, hostcheck, new32, new_n, g_doc, g_actor, g_first,
+         g_last) = gate
+        doc_ok = gate_kind > 0
+        # Docs whose start frontier is wider than the head lanes get the
+        # host hex compare for JUST their first change (the gate holds
+        # them to the chain shape).
+        for d in np.flatnonzero(hostcheck == 1).tolist():
+            if doc_ok[d] and doc_counts[d]:
+                i = int(starts_all[d])
+                heads = engines[d].heads
+                if int(nmeta['deps_off'][i + 1] -
+                       nmeta['deps_off'][i]) != len(heads) or \
+                        batch_meta.deps_hex(i) != heads:
+                    doc_ok[d] = False
+        # Seq bases: each (doc, actor) run's first seq must extend the
+        # doc's clock. Lane-mode rows check vectorized against the clock
+        # columns; dict-mode rows (actor populations past the lane width)
+        # probe their dicts per group.
+        if len(g_doc):
+            g_rows = erows[g_doc]
+            ck_n_g = cols.ck_n[g_rows]
+            reg = fleet._ck_reg
+            reg_ids = np.fromiter(
+                (reg.get(a, -1) for a in nat_actors), dtype=np.int64,
+                count=len(nat_actors)) \
+                if nat_actors else np.zeros(1, dtype=np.int64)
+            g_reg = reg_ids[g_actor]
+            base = np.zeros(len(g_doc), dtype=np.int64)
+            known = g_reg >= 0
+            if known.any():
+                for l in range(cols.CLOCK_LANES):
+                    m = known & (cols.ck_actor[g_rows, l] == g_reg)
+                    if m.any():
+                        base[m] = cols.ck_seq[g_rows[m], l]
+            dmode = np.flatnonzero(ck_n_g == -1)
+            for gi in dmode.tolist():
+                base[gi] = engines[int(g_doc[gi])].clock.get(
+                    nat_actors[int(g_actor[gi])], 0)
+            bad = g_first != base + 1
+            if bad.any():
+                doc_ok[g_doc[bad]] = False
+        fast_mask = doc_ok
+        causal_docs = int(((gate_kind == 2) & fast_mask).sum())
+        if ps.on:
+            causal_span.set(
+                chain=int(((gate_kind == 1) & fast_mask &
+                           (doc_counts > 0)).sum()),
+                causal=causal_docs,
+                host=int((~fast_mask & (doc_counts > 0)).sum()),
+                merges=int((np.diff(nmeta['deps_off']) > 1)[
+                    fast_mask[doc_of]].sum()),
+                wide=int((hostcheck > 0).sum()))
 
     flags_all = rows['flags']
     seq_sel = (flags_all >= 3) & (flags_all <= 6)
@@ -4146,9 +4153,11 @@ def _apply_changes_turbo_inner(handles, per_doc_changes, ps, parsed=None):
     nested_sel = (flags_all <= 2) & (rows['obj'] != 0)
     if seq_sel.any() or make_sel.any() or nested_sel.any() or \
             seq_make_sel.any():
-        # RGA application is order-sensitive: if any doc needs the general
-        # causal gate (whose applied order can differ from buffer order),
-        # route the whole call to the exact path
+        # RGA application is order-sensitive: chains and causal runs stage
+        # their rows in buffer order, which the gate proved causal; if any
+        # doc needs the general causal gate (whose applied order can
+        # differ from buffer order), route the whole call to the exact
+        # path
         if (~fast_mask[doc_of]).any():
             return None
         # Every op's containing object must resolve to a registered object
@@ -4249,10 +4258,11 @@ def _apply_changes_turbo_inner(handles, per_doc_changes, ps, parsed=None):
     # From here on the batch is committed to turbo (counted as such)
     fleet.metrics.turbo_calls += 1
 
-    # Phase 1 — fallible: general causal gate for docs off the chain shape.
-    # _drain_queue mutates clock/heads, so engines carry backups and any
-    # failure restores all of them: the whole turbo call is atomic (the
-    # exact path gets per-doc atomicity from fleet.pending instead).
+    # Phase 1 — fallible: general causal gate for docs the native gate
+    # sent to the host. _drain_queue mutates clock/heads, so engines
+    # carry backups and any failure restores all of them: the whole turbo
+    # call is atomic (the exact path gets per-doc atomicity from
+    # fleet.pending instead).
     ready = fast_mask[doc_of]    # fancy-indexed: a fresh, writable array
     staged = []                  # general-path: (engine, applied, queue)
     backups = []                 # (engine, clock, heads, queue)
@@ -4261,30 +4271,33 @@ def _apply_changes_turbo_inner(handles, per_doc_changes, ps, parsed=None):
         for engine, clock, heads, queue in backups:
             engine.clock, engine.heads, engine.queue = clock, heads, queue
 
-    for d in np.flatnonzero(~fast_mask & (doc_counts > 0)).tolist():
-        engine = engines[d]
-        start, stop = per_doc_idx[d]
-        backups.append((engine, dict(engine.clock), list(engine.heads),
-                        list(engine.queue)))
-        try:
-            applied, queue = engine._drain_queue(
-                [batch_meta.meta(i) for i in range(start, stop)],
-                lambda change: None)
-        except Exception as exc:
-            restore_all()
-            # Gate errors are doc-scoped by construction (the drain loop
-            # runs one doc's changes): type them so a quarantining caller
-            # can reject slot d and retry the batch without it
-            if isinstance(exc, AutomergeError):
-                if exc.doc_index is None:
-                    exc.doc_index = d
+    drain_docs = np.flatnonzero(~fast_mask & (doc_counts > 0)).tolist()
+    with _span('turbo_drain', docs=len(drain_docs)):
+        for d in drain_docs:
+            engine = engines[d]
+            start, stop = per_doc_idx[d]
+            backups.append((engine, dict(engine.clock), list(engine.heads),
+                            list(engine.queue)))
+            try:
+                applied, queue = engine._drain_queue(
+                    [batch_meta.meta(i) for i in range(start, stop)],
+                    lambda change: None)
+            except Exception as exc:
+                restore_all()
+                # Gate errors are doc-scoped by construction (the drain
+                # loop runs one doc's changes): type them so a
+                # quarantining caller can reject slot d and retry the
+                # batch without it
+                if isinstance(exc, AutomergeError):
+                    if exc.doc_index is None:
+                        exc.doc_index = d
+                    raise
+                if isinstance(exc, ValueError):
+                    raise InvalidChange(str(exc), doc_index=d) from exc
                 raise
-            if isinstance(exc, ValueError):
-                raise InvalidChange(str(exc), doc_index=d) from exc
-            raise
-        staged.append((engine, applied, queue))
-        for change in applied:
-            ready[change['_change_index']] = True
+            staged.append((engine, applied, queue))
+            for change in applied:
+                ready[change['_change_index']] = True
 
     keep = ready[rows['doc']]
     # Validation from the native rows: duplicate opIds *within* the
@@ -4351,18 +4364,24 @@ def _apply_changes_turbo_inner(handles, per_doc_changes, ps, parsed=None):
     fast_ne = np.flatnonzero(fast_mask & nonempty)
     # ---- Columnar commit: the whole fast-doc batch lands as vectorized
     # scatters into the _DocCols struct-of-arrays — no per-doc Python.
-    # Head frontier: binary rows straight from the parser's hash lanes;
-    # hex strings are NOT materialized here (the residual-floor fix) —
-    # the heads property's per-row memo hexes on first genuine access,
-    # and the returned handles capture their head32 row for the same
-    # lazy treatment (_LazyHandle).
+    # Head frontier: the gate's end-frontier lanes (sorted raw hashes
+    # from the parser's hash lanes and the start lanes); hex strings are
+    # NOT materialized here (the residual-floor fix) — the heads
+    # property's per-row memo hexes on first genuine access, and the
+    # returned handles capture their lanes for the same lazy treatment
+    # (_LazyHandle).
     frows = erows[fast_ne]
-    last_idx = (starts_all + doc_counts - 1)[fast_ne]
-    head_rows = hash32[last_idx]
-    cols.head32[frows] = head_rows
-    cols.head_n[frows] = 1
-    cols.head_hex[frows] = None
-    cols.head_obj[frows] = None
+    fleet.metrics.turbo_causal_docs += causal_docs
+    fleet.metrics.turbo_drain_docs += len(staged)
+    with _span('turbo_heads') as heads_span:
+        head_rows = new32[fast_ne]
+        head_n = new_n[fast_ne]
+        cols.head32[frows] = head_rows
+        cols.head_n[frows] = head_n
+        cols.head_obj[frows] = None
+        multi = int((head_n > 1).sum())
+        fleet.metrics.turbo_multihead_docs += multi
+        heads_span.set(multi=multi)
     cols.maxop[frows] = np.maximum(cols.maxop[frows], doc_max[fast_ne])
     cols.stale[frows] = True
     cols.bindoc[frows] = None
@@ -4495,7 +4514,7 @@ def _apply_changes_turbo_inner(handles, per_doc_changes, ps, parsed=None):
                                 'heads': engines[d].heads})
         else:
             lazy = _LazyHandle(state=handle['state'])
-            lazy._head32 = head_rows[k]
+            lazy._head32 = head_rows[k, :head_n[k]]
             out_handles.append(lazy)
     result = out_handles, [None] * len(handles)
     if not keep.any():

@@ -42,7 +42,7 @@ from ..observability.spans import span as _span
 # Bumped in lockstep with codec.cpp's am_abi_version whenever the C
 # surface changes shape. A mismatch means the cached .so predates this
 # wrapper (or vice versa) and MUST NOT be used.
-_ABI_VERSION = 3
+_ABI_VERSION = 4
 
 
 class NativeAbiMismatch(RuntimeError):
@@ -741,19 +741,27 @@ def _fetch_ingest_meta(lib, n_changes):
 
 def turbo_gate(doc_off, actor, seq, hash32, deps_off, deps_blob,
                head32, head_n):
-    """Batched linear-chain causal gate (codec.cpp am_turbo_gate): the
-    whole batch's deps-present / heads-match / seq-contiguity checks in
-    one native call over the extractor's hash lanes, GIL released.
+    """Batched causal-run gate (codec.cpp am_turbo_gate): the whole
+    batch's deps-present / seq-contiguity checks and every doc's new
+    head frontier in one native call over the extractor's hash lanes,
+    GIL released.
 
     Inputs are the am_ingest_changes meta arrays plus the fleet's
-    columnar per-doc head state (head32 rows gathered for this batch's
-    docs; head_n outside {0, 1} routes that doc's first-change deps
-    check back to the host). Returns None when the codec is
-    unavailable, else ``(doc_ok, doc_hostcheck, g_doc, g_actor,
-    g_first, g_last)`` — per-doc verdict bools plus the per-(doc,
-    actor) seq-run group records whose ``g_first`` the caller checks
-    against its clock columns (and whose ``g_last`` it scatters back
-    as the clock advance)."""
+    columnar head lanes gathered for this batch's docs: ``head32``
+    [docs, lanes, 32] and ``head_n`` (heads in use; -1 when the
+    frontier is wider than the lanes, which holds that doc to the chain
+    shape and routes its first change's deps check back to the host).
+    A doc's run passes when every dep is a start head or an earlier
+    change of the same run, so buffer order is causal. Returns None
+    when the codec is unavailable, else ``(doc_ok, doc_hostcheck,
+    new_head32, new_n, g_doc, g_actor, g_first, g_last)``: per doc 1 (a
+    chain), 2 (a causal run) or 0 (the host's gate), the host-check
+    flags (1: first deps against the host's heads; 2: the end frontier
+    is wider than the lanes, so the doc went to the host), the end
+    frontier sorted by bytes ([docs, lanes, 32], ``new_n`` in use), and
+    the per-(doc, actor) seq-run group records whose ``g_first`` the
+    caller checks against its clock columns (and whose ``g_last`` it
+    scatters back as the clock advance)."""
     lib = _load()
     if lib is None:
         return None
@@ -764,8 +772,8 @@ def turbo_gate(doc_off, actor, seq, hash32, deps_off, deps_blob,
     if not hasattr(lib, '_turbo_gate_ready'):
         lib.am_turbo_gate.argtypes = [
             i64p, i32p, i64p, u8p, i64p, u8p, u8p, i32p,
-            i64, i64, i64,
-            u8p, u8p, i32p, i32p, i64p, i64p]
+            i64, i64, i64, i64,
+            u8p, u8p, u8p, i32p, i32p, i32p, i64p, i64p]
         lib.am_turbo_gate.restype = i64
         lib._turbo_gate_ready = True
     n_docs = len(doc_off) - 1
@@ -782,11 +790,18 @@ def turbo_gate(doc_off, actor, seq, hash32, deps_off, deps_blob,
         deps_arr = np.zeros(1, dtype=np.uint8)
     head32 = np.ascontiguousarray(head32, dtype=np.uint8)
     head_n = np.ascontiguousarray(head_n, dtype=np.int32)
+    if head32.shape[0] != n_docs or head32.shape[2:] != (32,) or \
+            head_n.shape != (n_docs,):
+        raise ValueError('turbo_gate: head32 must be [docs, lanes, 32] '
+                         'and head_n [docs]')
+    n_lanes = head32.shape[1]
     # the actor column's ids are dense interned indexes; the scratch
     # tables size to the max id + 1
     n_actors = int(actor.max()) + 1 if n_changes else 1
     doc_ok = np.zeros(max(n_docs, 1), dtype=np.uint8)
     hostcheck = np.zeros(max(n_docs, 1), dtype=np.uint8)
+    new32 = np.zeros((max(n_docs, 1), n_lanes, 32), dtype=np.uint8)
+    new_n = np.zeros(max(n_docs, 1), dtype=np.int32)
     cap = max(n_changes, 1)
     g_doc = np.zeros(cap, dtype=np.int32)
     g_actor = np.zeros(cap, dtype=np.int32)
@@ -797,15 +812,17 @@ def turbo_gate(doc_off, actor, seq, hash32, deps_off, deps_blob,
         seq.ctypes.data_as(i64p), hash32.ctypes.data_as(u8p),
         deps_off.ctypes.data_as(i64p), deps_arr.ctypes.data_as(u8p),
         head32.ctypes.data_as(u8p), head_n.ctypes.data_as(i32p),
-        n_docs, n_changes, n_actors,
+        n_lanes, n_docs, n_changes, n_actors,
         doc_ok.ctypes.data_as(u8p), hostcheck.ctypes.data_as(u8p),
+        new32.ctypes.data_as(u8p), new_n.ctypes.data_as(i32p),
         g_doc.ctypes.data_as(i32p), g_actor.ctypes.data_as(i32p),
         g_first.ctypes.data_as(i64p), g_last.ctypes.data_as(i64p))
     if n_groups < 0:
         return None
     k = int(n_groups)
-    return (doc_ok[:n_docs].astype(bool), hostcheck[:n_docs].astype(bool),
-            g_doc[:k], g_actor[:k], g_first[:k], g_last[:k])
+    return (doc_ok[:n_docs], hostcheck[:n_docs], new32[:n_docs],
+            new_n[:n_docs], g_doc[:k], g_actor[:k], g_first[:k],
+            g_last[:k])
 
 
 def parse_documents(buffers):

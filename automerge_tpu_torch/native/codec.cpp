@@ -1746,7 +1746,7 @@ int64_t am_ingest_changes_list(PyObject *buffers, int with_meta,
 // Monotone ABI stamp, bumped on any C-surface change. The Python wrapper
 // refuses to run against a binary whose stamp mismatches (a stale .so
 // would otherwise silently run the old single-threaded codec).
-int64_t am_abi_version() { return 3; }
+int64_t am_abi_version() { return 4; }
 
 int64_t am_pool_configure(int n) { return NativePool::inst().configure(n); }
 
@@ -1892,70 +1892,103 @@ int64_t am_ingest_meta_fetch(int32_t *actor, int64_t *seq, int64_t *start_op,
 
 // ---- batched turbo gate ---------------------------------------------------
 //
-// The linear-chain causal gate over a whole parsed batch in ONE call,
-// replacing the Python side's per-doc hex/dict probes and the numpy
-// chain-validation pass (argsort + per-row 32-byte compares). Operates
-// directly on the extractor's hash lanes (hash32 / deps_blob are the
-// am_ingest_meta_fetch outputs) plus the fleet's columnar per-doc head
-// state. Called through ctypes CDLL, so the GIL is released for the
-// whole scan.
+// The causal-run gate over a whole parsed batch in ONE call, replacing
+// the Python side's per-doc hex/dict probes. Operates directly on the
+// extractor's hash lanes (hash32 / deps_blob are the am_ingest_meta_fetch
+// outputs) plus the fleet's columnar per-doc head lanes (head32:
+// n_lanes 32-byte hashes a doc, head_n of them in use, -1 when the
+// frontier is wider than the lanes and lives on the host). Called
+// through ctypes CDLL, so the GIL is released for the whole scan.
 //
-// Per change i of doc d (changes are doc-contiguous, doc_off gives the
-// per-doc ranges):
-//   - non-first changes must dep on EXACTLY the previous change's hash
-//     (deps_count == 1 + 32-byte memcmp against hash32[i-1]);
-//   - the doc's first change must dep on the doc's current head
-//     frontier: head_n[d] == 0 -> deps_count == 0; head_n[d] == 1 ->
-//     deps_count == 1 + memcmp against head32[d]. Docs whose frontier
-//     is not columnar-representable (head_n outside {0, 1}) are flagged
-//     in doc_hostcheck and the caller re-checks JUST their first-change
-//     deps on the host (the rare multi-head case);
-//   - per-(doc, actor) seq runs must be contiguous. The first seq of
-//     each run is emitted as a group record (g_doc/g_actor/g_first/
-//     g_last, capacity n_changes) so the caller can verify the bases
-//     against its clock columns vectorized — and scatter g_last back as
-//     the clock advance without re-deriving groups.
+// Per doc d (changes are doc-contiguous, doc_off gives the ranges), the
+// run is accepted when every dep of every change is one of the doc's
+// start heads or an EARLIER change of the same run (buffer order is
+// then causal order), and the per-(doc, actor) seqs are contiguous.
+// doc_ok[d] says how it was accepted:
+//   1  a chain: the first change deps on exactly the start frontier and
+//      every later one on exactly the change before it;
+//   2  a causal run: anything else the rule above accepts (concurrent
+//      branches from the start heads, merges of branches);
+//   0  sent to the host's general gate (a dep that is neither, so an
+//      out-of-order or unknown dep, or an end frontier past the lanes).
+// Docs whose start frontier is wider than the lanes (head_n == -1) are
+// held to the chain shape and flagged doc_hostcheck 1: the caller
+// compares JUST their first change's deps with the host's head list.
+// doc_hostcheck 2 marks a run sent to the host because its end frontier
+// would not fit the lanes.
 //
-// Any violation clears doc_ok[d] (doc granularity is all the turbo path
-// needs: one bad change sends the whole doc to the general gate).
-// Returns the group count, or -1 on out-of-range actor ids.
+// The end frontier of every accepted doc lands in out_head32/out_n: the
+// start heads no change of the run depends on, then the run's changes no
+// later change depends on, sorted by their bytes (the hex order of the
+// host's head lists). A chain's is its last change.
+//
+// The first seq of each (doc, actor) run is emitted as a group record
+// (g_doc/g_actor/g_first/g_last, capacity n_changes) so the caller can
+// verify the bases against its clock columns vectorized, and scatter
+// g_last back as the clock advance without re-deriving groups.
+// Returns the group count, or -1 on out-of-range inputs.
 int64_t am_turbo_gate(const int64_t *doc_off, const int32_t *actor,
                       const int64_t *seq, const uint8_t *hash32,
                       const int64_t *deps_off, const uint8_t *deps_blob,
                       const uint8_t *head32, const int32_t *head_n,
-                      int64_t n_docs, int64_t n_changes, int64_t n_actors,
-                      uint8_t *doc_ok, uint8_t *doc_hostcheck,
-                      int32_t *g_doc, int32_t *g_actor, int64_t *g_first,
-                      int64_t *g_last) {
-  if (n_docs < 0 || n_changes < 0 || n_actors < 0) return -1;
+                      int64_t n_lanes, int64_t n_docs, int64_t n_changes,
+                      int64_t n_actors, uint8_t *doc_ok,
+                      uint8_t *doc_hostcheck, uint8_t *out_head32,
+                      int32_t *out_n, int32_t *g_doc, int32_t *g_actor,
+                      int64_t *g_first, int64_t *g_last) {
+  if (n_docs < 0 || n_changes < 0 || n_actors < 0 || n_lanes < 1 ||
+      n_lanes > 64)
+    return -1;
   // per-actor scratch, epoch-tagged per doc: O(1) reset per document
   std::vector<int32_t> a_epoch(size_t(n_actors), -1);
   std::vector<int64_t> a_last(size_t(n_actors), 0);
   std::vector<int64_t> a_group(size_t(n_actors), 0);
+  // has-a-dependent flags: one per change of the batch, one per lane
+  std::vector<uint8_t> used(size_t(n_changes), 0);
+  std::vector<uint8_t> lane_used(size_t(n_lanes), 0);
+  std::vector<const uint8_t *> front;
   int64_t n_groups = 0;
   for (int64_t d = 0; d < n_docs; d++) {
     int64_t lo = doc_off[d], hi = doc_off[d + 1];
-    uint8_t ok = 1;
+    uint8_t ok = 1, chain = 1;
     doc_hostcheck[d] = 0;
     if (lo > hi || lo < 0 || hi > n_changes) return -1;
+    int32_t hn = head_n[d];
+    if (hn > n_lanes) return -1;
+    const uint8_t *lanes = head32 + d * n_lanes * 32;
+    if (hn > 0) std::fill(lane_used.begin(), lane_used.begin() + hn, 0);
     for (int64_t i = lo; i < hi && ok; i++) {
       int64_t dc = deps_off[i + 1] - deps_off[i];
-      if (i == lo) {
-        int32_t hn = head_n[d];
-        if (hn == 0) {
-          if (dc != 0) ok = 0;
-        } else if (hn == 1) {
-          if (dc != 1 ||
-              memcmp(deps_blob + deps_off[i] * 32, head32 + d * 32, 32) != 0)
-            ok = 0;
-        } else {
-          doc_hostcheck[d] = 1;  // caller compares against the attr heads
+      const uint8_t *deps = deps_blob + deps_off[i] * 32;
+      if (hn < 0) {
+        // wider than the lanes: the chain shape only, first deps on host
+        if (i == lo) {
+          doc_hostcheck[d] = 1;
+        } else if (dc != 1 || memcmp(deps, hash32 + (i - 1) * 32, 32) != 0) {
+          ok = 0;
         }
       } else {
-        if (dc != 1 ||
-            memcmp(deps_blob + deps_off[i] * 32, hash32 + (i - 1) * 32,
-                   32) != 0)
-          ok = 0;
+        if (i == lo ? dc != hn
+                    : dc != 1 || memcmp(deps, hash32 + (i - 1) * 32, 32) != 0)
+          chain = 0;
+        for (int64_t j = 0; j < dc && ok; j++) {
+          const uint8_t *dep = deps + j * 32;
+          bool found = false;
+          // newest first: a chain's one dep is the change before
+          for (int64_t m = i - 1; !found && m >= lo; m--) {
+            if (memcmp(dep, hash32 + m * 32, 32) == 0) {
+              used[size_t(m)] = 1;
+              found = true;
+            }
+          }
+          for (int32_t l = 0; !found && l < hn; l++) {
+            if (memcmp(dep, lanes + l * 32, 32) == 0) {
+              lane_used[size_t(l)] = 1;
+              found = true;
+            }
+          }
+          if (!found) ok = 0;
+        }
       }
       int32_t a = actor[i];
       if (a < 0 || a >= n_actors) return -1;
@@ -1973,7 +2006,35 @@ int64_t am_turbo_gate(const int64_t *doc_off, const int32_t *actor,
       }
       a_last[size_t(a)] = seq[i];
     }
-    doc_ok[d] = ok;
+    // the end frontier
+    uint8_t *out = out_head32 + d * n_lanes * 32;
+    out_n[d] = hn;
+    if (ok && hi > lo && hn < 0) {
+      memcpy(out, hash32 + (hi - 1) * 32, 32);
+      out_n[d] = 1;
+    } else if (ok && hi > lo) {
+      front.clear();
+      for (int32_t l = 0; l < hn; l++)
+        if (!lane_used[size_t(l)]) front.push_back(lanes + l * 32);
+      for (int64_t i = lo; i < hi; i++)
+        if (!used[size_t(i)]) front.push_back(hash32 + i * 32);
+      if (int64_t(front.size()) > n_lanes) {
+        ok = 0;
+        doc_hostcheck[d] = 2;
+      } else {
+        std::sort(front.begin(), front.end(),
+                  [](const uint8_t *x, const uint8_t *y) {
+                    return memcmp(x, y, 32) < 0;
+                  });
+        for (size_t k = 0; k < front.size(); k++)
+          memcpy(out + k * 32, front[k], 32);
+        out_n[d] = int32_t(front.size());
+      }
+    } else if (hn > 0) {
+      memcpy(out, lanes, size_t(hn) * 32);
+    }
+    for (int64_t i = lo; i < hi; i++) used[size_t(i)] = 0;
+    doc_ok[d] = ok ? (hn < 0 || chain ? 1 : 2) : 0;
   }
   return n_groups;
 }

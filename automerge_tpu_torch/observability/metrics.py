@@ -100,6 +100,12 @@ class Metrics:
                                  # (staged/slow docs only; the columnar
                                  # fast path contributes ZERO — pinned
                                  # by the commit-phase regression guard)
+        'turbo_causal_docs',     # docs the turbo gate accepted as causal
+                                 # runs (concurrent branches, merges)
+        'turbo_drain_docs',      # docs the turbo gate sent to the host's
+                                 # general gate (_drain_queue)
+        'turbo_multihead_docs',  # docs a turbo commit left with more
+                                 # than one head (in the head lanes)
     )
 
     def __init__(self):

@@ -422,9 +422,10 @@ class SubscriptionHub:
         if fleet is not None and isinstance(slot, int):
             cols = fleet.doc_cols
             n = int(cols.head_n[slot])
-            if n >= 0:
+            if 0 <= n <= 1:
                 return ('cols', cols, slot, n, fleet)
-            return ('host', sorted(impl.heads))   # multi-head: rare
+            # multi-head (in the head lanes or past them): the host list
+            return ('host', sorted(impl.heads))
         heads = getattr(state, 'heads', None)
         if heads is None:
             return None
@@ -538,7 +539,7 @@ class SubscriptionHub:
             # the steady-state path: every fleet doc's frontier in two
             # vectorized gathers off the shared _DocCols columns
             slots = col_slots[gather]
-            key_rows[gather] = shared_cols.head32[slots]
+            key_rows[gather] = shared_cols.head32[slots, 0]
             key_n[gather] = shared_cols.head_n[slots]
         for k in plan['dynamic']:
             source = self._sources.get(keys[k])
@@ -549,7 +550,7 @@ class SubscriptionHub:
                 return None, False
             if frontier[0] == 'cols':
                 cols, slot, doc_n = frontier[1], frontier[2], frontier[3]
-                key_rows[k] = cols.head32[slot]
+                key_rows[k] = cols.head32[slot, 0]
                 key_n[k] = doc_n
             else:
                 heads = frontier[1]

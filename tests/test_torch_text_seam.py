@@ -77,13 +77,20 @@ def _metrics(fleet):
             m.remaps, m.mirror_rebuilds)
 
 
-def _assert_same(jf, jh, tf, th, sample=None):
+def _assert_same(jf, jh, tf, th, sample=None, causal=0):
+    """`causal`: batches of one doc whose concurrent changes the port's
+    turbo gate accepts as a causal run, where the JAX package's
+    linear-chain gate sends the call to the exact path."""
     assert tb.materialize_docs(th) == jb.materialize_docs(jh)
     pick = range(len(jh)) if sample is None else sample
     for a, b in ((jh[i], th[i]) for i in pick):
         assert tb.get_patch(b) == jb.get_patch(a)
         assert bytes(tb.save(b)) == bytes(jb.save(a))
-    assert _metrics(tf) == _metrics(jf)
+    want = list(_metrics(jf))
+    want[1] -= causal       # fallbacks
+    want[3] += causal       # turbo_calls
+    assert _metrics(tf) == tuple(want)
+    assert tf.metrics.turbo_causal_docs == causal
     assert tf.seq_rows == jf.seq_rows
     assert tf.seq_place == jf.seq_place and tf.seq_len == jf.seq_len
     assert [tf.seq_row_inexact(r) for r in range(len(tf.seq_rows))] == \
@@ -108,13 +115,13 @@ def _assert_same(jf, jh, tf, th, sample=None):
                 np.testing.assert_array_equal(y, np.asarray(x))
 
 
-def _both(scenario, exact, sample=None, **kw):
+def _both(scenario, exact, sample=None, causal=0, **kw):
     """Run `scenario(be, fleet)` (-> handles) on both packages and compare
-    (patches and saves of the `sample` handles, all by default); returns
-    the port's fleet and handles."""
+    (patches and saves of the `sample` handles, all by default; `causal`
+    as in `_assert_same`); returns the port's fleet and handles."""
     jf, tf = _fleet(jb, exact, **kw), _fleet(tb, exact, **kw)
     jh, th = scenario(jb, jf), scenario(tb, tf)
-    _assert_same(jf, jh, tf, th, sample)
+    _assert_same(jf, jh, tf, th, sample, causal)
     assert tf.seq_pools.device.type == 'cpu'
     return tf, th
 
@@ -691,14 +698,14 @@ def _patch_scenario(changes, turbo):
     return scenario
 
 
-def _device_patch(changes, turbo):
+def _device_patch(changes, turbo, causal=0):
     """Exact fleet: the patch comes from the device rows, equal to the
     host backend's, with no mirror rebuild."""
     hb = host_backend.init()
     for c in changes:
         hb, _ = host_backend.apply_changes(hb, [c])
     tf, (gb,) = _both(_patch_scenario(changes, turbo), True,
-                      doc_capacity=2, key_capacity=32)
+                      causal=causal, doc_capacity=2, key_capacity=32)
     assert tb.get_patch(gb) == host_backend.get_patch(hb)
     assert tf.metrics.mirror_rebuilds == 0
     return tf, gb
@@ -746,7 +753,9 @@ def test_list_conflict_and_resurrection_patch_from_device():
 
 
 def test_list_conflict_and_resurrection_patch_from_device_turbo():
-    _device_patch(_list_conflict_changes(), True)
+    # c2 and c3 are concurrent: the port keeps the batch on its turbo
+    # path as a causal run
+    _device_patch(_list_conflict_changes(), True, causal=1)
 
 
 def _rows_in_lists_changes():
