@@ -298,6 +298,89 @@ def _pow2(n):
     return cap
 
 
+class _SeqRuns:
+    """A batch of sequence ops laid out by device row, the input of
+    DocFleet._dispatch_seq: row `rows[i]` takes the `lens[i]` ops from
+    `starts[i]` on, in apply order, and no row has two runs. One entry an
+    op in `kind`, `ref`, `packed`, `value`, `flag` (bool) and in each of
+    the SEQ_PRED_LANES columns of `preds` (None for a lane no op fills).
+    Input whose runs repeat a row (two objects of one doc interleaved, an
+    op list in another order) takes a stable sort of its runs into that
+    shape; `sorted` says it did."""
+
+    __slots__ = ('rows', 'lens', 'starts', 'kind', 'ref', 'packed', 'value',
+                 'preds', 'flag', 'sorted')
+
+    def __init__(self, rows, lens, kind, ref, packed, value, preds, flag):
+        self.rows, self.lens = rows, lens
+        self.starts = np.cumsum(lens) - lens
+        self.kind, self.ref, self.packed, self.value = kind, ref, packed, value
+        self.preds, self.flag = tuple(preds), flag
+        self.sorted = len(rows) > 1 and int(np.bincount(rows).max()) > 1
+        if self.sorted:
+            self._sort()
+
+    @classmethod
+    def from_tuples(cls, seq_ops):
+        """(row, kind, ref, packed, value, pred0..D-1, flag) op tuples."""
+        from .sequence import SEQ_PRED_LANES as D
+        arr = np.asarray(seq_ops, dtype=np.int64)
+        row = arr[:, 0]
+        starts = np.flatnonzero(np.r_[True, row[1:] != row[:-1]])
+        return cls(row[starts], np.diff(np.r_[starts, len(row)]),
+                   arr[:, 1], arr[:, 2], arr[:, 3], arr[:, 4],
+                   [arr[:, 5 + d] for d in range(D)], arr[:, 5 + D] != 0)
+
+    def __len__(self):
+        return len(self.kind)
+
+    def _sort(self):
+        # a stable sort of the runs by row keeps each row's ops in apply
+        # order, as a stable sort of the ops by row would
+        order = np.argsort(self.rows, kind='stable')
+        rows, lens = self.rows[order], self.lens[order]
+        src = np.repeat(self.starts[order] - (np.cumsum(lens) - lens),
+                        lens) + np.arange(len(self))
+        first = np.flatnonzero(np.r_[True, rows[1:] != rows[:-1]])
+        self.rows, self.lens = rows[first], np.add.reduceat(lens, first)
+        self.starts = np.cumsum(self.lens) - self.lens
+        self.kind, self.ref, self.packed, self.value, self.flag = (
+            c[src] for c in (self.kind, self.ref, self.packed, self.value,
+                             self.flag))
+        self.preds = tuple(None if p is None else p[src] for p in self.preds)
+
+
+def _pack_seq_class(ops, r_cap, idx_r, sel):
+    """The [r_cap, width] SeqOpBatch of one size class from a _SeqRuns:
+    the runs that `sel` picks (all when None) at their rows' pool indices
+    `idx_r`. Each op's place, pool index * width + its place in its run,
+    is computed once; every column is written into its zeroed array by one
+    1-D scatter, cast to the batch's dtype as it goes."""
+    from .sequence import SeqOpBatch, SEQ_PRED_LANES as D
+    lens, starts, idx = (ops.lens, ops.starts, idx_r) if sel is None else \
+        (ops.lens[sel], ops.starts[sel], idx_r[sel])
+    width = max(int(lens.max()), 1)
+    first = np.cumsum(lens) - lens     # each run's first op in this batch
+    at = np.arange(int(lens.sum()))
+    dest = np.repeat(idx * width - first, lens) + at
+    src = None if sel is None else np.repeat(starts - first, lens) + at
+
+    def scatter(col, out):
+        flat = out.reshape(-1)
+        flat[dest] = col if src is None else col[src]
+        return out
+
+    preds = np.zeros((r_cap, width, D), dtype=np.int32)
+    lanes = preds.reshape(r_cap * width, D)
+    for d, col in enumerate(ops.preds):
+        if col is not None:
+            scatter(col, lanes[:, d])
+    return SeqOpBatch(
+        *(scatter(col, np.zeros((r_cap, width), dtype=np.int32))
+          for col in (ops.kind, ops.ref, ops.packed, ops.value)),
+        preds, scatter(ops.flag, np.zeros((r_cap, width), dtype=bool)))
+
+
 class DocFleet:
     """The shared device state for a fleet of flat documents.
 
@@ -715,19 +798,17 @@ class DocFleet:
         return _pow2(max(len(self.actors), 4))
 
     def _seq_need(self, row, need_len):
-        """(size class, performs-a-fresh-pool-alloc) for placing `row` at
-        need_len elements — the ONE sizing policy driving both the
-        reserve() pre-pass and _place_seq_row, so they cannot drift."""
-        need_cls = self.seq_pools.cls_for(
-            max(self.seq_len[row], need_len, 1))
-        place = self.seq_place[row]
-        return need_cls, place is None or need_cls > place[0]
+        """The size class for placing `row` at need_len elements — the ONE
+        sizing policy driving both the reserve() pre-pass and
+        _place_seq_row, so they cannot drift (_place_seq_runs' vectorised
+        check applies the same rule through SeqPools.cls_for_many)."""
+        return self.seq_pools.cls_for(max(self.seq_len[row], need_len, 1))
 
     def _place_seq_row(self, row, need_len):
         """Ensure row has a device placement with capacity >= need_len,
         migrating up a size class when it outgrows its current one.
         Returns (cls, idx)."""
-        need_cls, _ = self._seq_need(row, need_len)
+        need_cls = self._seq_need(row, need_len)
         self.seq_len[row] = max(self.seq_len[row], need_len, 1)
         pools = self.seq_pools
         place = self.seq_place[row]
@@ -907,7 +988,8 @@ class DocFleet:
         capacity (migrating rows that outgrew their class) and batch-apply
         all pending sequence ops — ONE dispatch per active size class, each
         one launch of the sequence scan on the fleet's device.
-        seq_ops rows are (row, kind, ref, packed, value, pred0..D-1, flag)."""
+        seq_ops: (row, kind, ref, packed, value, pred0..D-1, flag) op
+        tuples in apply order, or a _SeqRuns."""
         if len(self.seq_rows) == 0 or len(seq_ops) == 0:
             return
         ps = _span_seq()
@@ -918,81 +1000,80 @@ class DocFleet:
 
     def _dispatch_seq_phases(self, seq_ops, ps):
         """_dispatch_seq's body, tiled by contiguous `seq_place` (once),
-        then `seq_pack`, `seq_copy` and `seq_launch` (each once per
-        active size class) phases under its `dispatch_seq` span."""
-        from .sequence import SeqOpBatch, apply_seq_batch_donated, \
-            INSERT, \
-            SEQ_PRED_LANES
+        then `seq_pack` (`sorted=`: the input's runs needed a sort),
+        `seq_copy` and `seq_launch` (each once per active size class)
+        phases under its `dispatch_seq` span."""
+        from .sequence import apply_seq_batch_donated
         ps.mark('seq_place')
         migrations = self.metrics.seq_migrations
         # Widen every pool's lane axis FIRST: a new actor whose hex sorts
         # after all existing ones produces no remap (identity perm), yet
         # its lane must exist before its ops apply
         self.seq_pools.ensure_lanes(self._seq_lane_width())
-        D = SEQ_PRED_LANES
-        arr = np.asarray(seq_ops, dtype=np.int64)   # [M, 6 + D] op tuples
-        row_a = arr[:, 0]
-        n_rows = len(self.seq_rows)
-        counts = np.bincount(row_a, minlength=n_rows)
-        ins = np.bincount(row_a[arr[:, 1] == INSERT], minlength=n_rows)
-        # Placement pass: host-tracked element counts give each row's
-        # needed capacity class without any device reads. Reserve each
-        # pool's capacity ONCE for all rows landing in it this dispatch
-        # (per-alloc pow2 growth would copy the pool once per step).
-        pools = self.seq_pools
-        lanes = self._seq_lane_width()
-        uniq_rows = [int(r) for r in np.unique(row_a)]
-        new_by_cls = {}
-        for row in uniq_rows:
-            need_cls, fresh = self._seq_need(
-                row, self.seq_len[row] + int(ins[row]))
-            if fresh:
-                new_by_cls[need_cls] = new_by_cls.get(need_cls, 0) + 1
-        for cls, count in new_by_cls.items():
-            pools.reserve(cls, count, lanes)
-        cls_of = {}
-        for row in uniq_rows:
-            cls_of[row], _ = self._place_seq_row(
-                row, self.seq_len[row] + int(ins[row]))
+        ops = seq_ops if isinstance(seq_ops, _SeqRuns) else \
+            _SeqRuns.from_tuples(seq_ops)
+        if ops.sorted:
+            self.metrics.seq_pack_sorted += 1
+        else:
+            self.metrics.seq_pack_grouped += 1
+        cls_r, idx_r = self._place_seq_runs(ops)
         ps.add(migrated=self.metrics.seq_migrations - migrations)
-        # One batch per active class, rows addressed by pool index
-        by_cls = {}
-        for row, cls in cls_of.items():
-            by_cls.setdefault(cls, []).append(row)
-        order = np.argsort(row_a, kind='stable')
-        row_sorted = row_a[order]
-        pos_in_row = np.arange(len(row_sorted)) - \
-            np.searchsorted(row_sorted, row_sorted, side='left')
-        for cls, rows in by_cls.items():
-            ps.mark('seq_pack', rows=len(rows))
+        # One batch per active class, the classes in the order of their
+        # lowest row
+        classes = np.unique(cls_r)
+        if len(classes) > 1:
+            classes = classes[np.argsort(
+                [ops.rows[cls_r == c].min() for c in classes])]
+        for cls in classes.tolist():
+            sel = None if len(classes) == 1 else cls_r == cls
+            ps.mark('seq_pack', rows=len(cls_r) if sel is None else
+                    int(sel.sum()), sorted=int(ops.sorted))
             st = self.seq_pools.state(cls)
-            r_cap = st.elem_id.shape[0]
-            sel = np.isin(row_sorted, rows)
-            sub = order[sel]
-            idx_of = np.zeros(n_rows, dtype=np.int64)
-            for row in rows:
-                idx_of[row] = self.seq_place[row][1]
-            rows_idx = idx_of[row_sorted[sel]]
-            pos = pos_in_row[sel]
-            width = max(int(counts[rows].max()), 1)
-            cols = {name: np.zeros((r_cap, width), dtype=np.int32)
-                    for name in ('kind', 'ref', 'packed', 'value')}
-            preds = np.zeros((r_cap, width, D), dtype=np.int32)
-            flag = np.zeros((r_cap, width), dtype=bool)
-            for j, name in enumerate(('kind', 'ref', 'packed', 'value')):
-                cols[name][rows_idx, pos] = arr[sub, j + 1]
-            for d in range(D):
-                preds[rows_idx, pos, d] = arr[sub, 5 + d]
-            flag[rows_idx, pos] = arr[sub, 5 + D] != 0
-            batch = SeqOpBatch(cols['kind'], cols['ref'], cols['packed'],
-                               cols['value'], preds, flag)
+            batch = _pack_seq_class(ops, st.elem_id.shape[0], idx_r, sel)
             ps.mark('seq_copy', bytes=sum(c.nbytes for c in batch.columns())
                     if ps.on else None)
             on_device = batch.to(self.device)
             ps.mark('seq_launch')
             apply_seq_batch_donated(st, on_device)
             self.metrics.dispatches += 1
-        self.metrics.device_ops += len(seq_ops)
+        self.metrics.device_ops += len(ops)
+
+    def _place_seq_runs(self, ops):
+        """Give every row of `ops` (a _SeqRuns) a placement with room for
+        its inserts; returns each run's size class and pool index. Host-
+        tracked element counts give each row's needed class without any
+        device reads, checked for all rows at once: only fresh rows and
+        rows that outgrew their class take _place_seq_row, in ascending
+        row order, so pools are reserved and allocated as one per-row pass
+        over the sorted rows would."""
+        from .sequence import INSERT
+        rows = ops.rows.tolist()
+        n = len(rows)
+        ins = np.add.reduceat(ops.kind == INSERT, ops.starts, dtype=np.int64)
+        old = np.fromiter((self.seq_len[r] for r in rows), np.int64, n)
+        new = np.maximum(old + ins, 1)
+        places = [self.seq_place[r] for r in rows]
+        cur = np.fromiter((-1 if p is None else p[0] for p in places),
+                          np.int64, n)
+        moving = np.flatnonzero(self.seq_pools.cls_for_many(new) > cur)
+        if len(moving):
+            moving = moving[np.argsort(ops.rows[moving])]
+            # Reserve each pool's capacity ONCE for all rows landing in it
+            # this dispatch (per-alloc pow2 growth would copy the pool
+            # once per step)
+            lanes = self._seq_lane_width()
+            new_by_cls = {}
+            for k in moving.tolist():
+                need_cls = self._seq_need(rows[k], int(new[k]))
+                new_by_cls[need_cls] = new_by_cls.get(need_cls, 0) + 1
+            for cls, count in new_by_cls.items():
+                self.seq_pools.reserve(cls, count, lanes)
+            for k in moving.tolist():
+                places[k] = self._place_seq_row(rows[k], int(new[k]))
+        for r, length in zip(rows, new.tolist()):
+            self.seq_len[r] = length
+        return (np.fromiter((p[0] for p in places), np.int64, n),
+                np.fromiter((p[1] for p in places), np.int64, n))
 
     def render_seq_all(self):
         """Render every live sequence row: {row: str/list}, with None for
@@ -4634,115 +4715,147 @@ def _apply_changes_turbo_inner(handles, per_doc_changes, ps, parsed=None):
             np.searchsorted(uniq_g, gids)]
 
     def dispatch_seq_rows():
-        """Kept sequence rows -> one SeqState dispatch (fleet numbering)."""
+        """Kept sequence rows -> one SeqState dispatch (fleet numbering),
+        laid out by their (doc, object) runs: the parser emits rows in
+        change order and changes in doc order, so a doc's ops on one
+        object are one run unless objects interleave (_SeqRuns sorts
+        those)."""
         if not keep_seq.any():
             return
-        from .sequence import INC, INSERT, SET, DEL, PAD, SEQ_PRED_LANES
-        sflags = rows['flags'][keep_seq]
-        svtype = rows['vtype'][keep_seq]
+        from .sequence import INC, INSERT, SET, DEL, SEQ_PRED_LANES
+        every = bool(keep_seq.all())
+
+        def kept(col):
+            # a batch column's kept sequence rows: the column itself (read,
+            # never written) when every row is one
+            return col if every else col[keep_seq]
+
+        sflags = kept(rows['flags'])
+        svtype = kept(rows['vtype'])
+        wire_value = kept(rows['value'])
+        svalue = wire_value.astype(np.int64)
         is_mk = sflags >= 11            # make element rows (11-14)
-        s_insert = rows['value'][keep_seq] != 0   # wire insert bit (makes)
-        svalue = rows['value'][keep_seq].astype(np.int64)
-        if is_mk.any():
+        any_mk = bool(is_mk.any())
+        if any_mk:
             # make rows carry their boxed link value, not the insert bit
-            svalue[is_mk] = kept_vals_all[keep_seq][is_mk]
-        sdoc = change_doc[rows['doc'][keep_seq]]
-        sobj = rows['obj'][keep_seq].astype(np.int64)
-
-        def remap_ids(p):
-            # Unknown-actor refs/preds map to -1: never matches an element,
-            # so the op drops and the row flags inexact (mirror serves it)
-            a = actor_map[p & (_MA - 1)].astype(np.int64)
-            return np.where(p != 0,
-                            np.where(a >= 0, (p >> 8 << 8) | a, -1),
-                            0).astype(np.int64)
-
-        spacked = remap_ids(rows['packed'][keep_seq].astype(np.int64))
-        sref = remap_ids(rows['ref'][keep_seq].astype(np.int64))
-        pred_counts = np.diff(rows['pred_off'])
-        n_seq = int(keep_seq.sum())
-        D = SEQ_PRED_LANES
-        counts_seq = pred_counts[keep_seq]
-        off_seq = rows['pred_off'][:-1][keep_seq]
-        pred_lanes = np.zeros((n_seq, D), dtype=np.int64)
-        pred_col = rows['pred']
-        for d in range(D):
-            has = counts_seq > d
-            if has.any():
-                # gather THEN remap: only the kept seq rows' lanes, not the
-                # whole batch's pred column
-                pred_lanes[has, d] = remap_ids(
-                    pred_col[off_seq[has] + d].astype(np.int64))
-        pred_overflow = counts_seq > D
-        # resolve device rows per unique (doc, objectId) — packed into one
-        # int64 so the unique is a 1D sort, not np.unique(axis=0)'s
-        # void-view compare (doc < 2^31, packed objectId < 2^31)
-        combo = (sdoc << 32) | sobj
-        uniq, inv = np.unique(combo, return_inverse=True)
-        urow = np.empty(len(uniq), dtype=np.int64)
+            svalue[is_mk] = kept(kept_vals_all)[is_mk]
+        # (doc, objectId) runs with no sort: a run breaks where the change
+        # or the object does; runs of one object over a doc's consecutive
+        # changes then merge
+        schange = kept(rows['doc'])
+        sobj = kept(rows['obj'])
+        n_seq = len(sflags)
+        starts = np.flatnonzero(np.r_[True, (schange[1:] != schange[:-1]) |
+                                      (sobj[1:] != sobj[:-1])])
+        run_doc = change_doc[schange[starts]]
+        run_obj = sobj[starts]
+        fresh = np.r_[True, (run_doc[1:] != run_doc[:-1]) |
+                      (run_obj[1:] != run_obj[:-1])]
+        if not fresh.all():
+            starts, run_doc, run_obj = \
+                starts[fresh], run_doc[fresh], run_obj[fresh]
+        lens = np.diff(np.r_[starts, n_seq])
+        # each run's device row and type
+        run_row = np.empty(len(starts), dtype=np.int64)
+        run_txt = np.empty(len(starts), dtype=bool)
         oid_memo = {}
-        for i, cv in enumerate(uniq.tolist()):
-            d, obj_nat = cv >> 32, cv & 0xffffffff
+        slots = slot_of_doc.tolist()
+        for i, (d, obj_nat) in enumerate(zip(run_doc.tolist(),
+                                             run_obj.tolist())):
             oid = oid_memo.get(obj_nat)
             if oid is None:
                 oid = f'{obj_nat >> 8}@{nat_actors[obj_nat & (_MA - 1)]}'
                 oid_memo[obj_nat] = oid
-            urow[i] = fleet.slot_seq[int(slot_of_doc[d])][oid]
-        srow = urow[inv]
-        kind_lut = np.zeros(15, dtype=np.int64)
+            row = fleet.slot_seq[slots[d]][oid]
+            run_row[i] = row
+            run_txt[i] = fleet.seq_rows[row]['type'] == 'text'
+        # one type for the whole batch (a bool), else one an op
+        one_type = bool(run_txt.all() or not run_txt.any())
+        txt = bool(run_txt[0]) if one_type else np.repeat(run_txt, lens)
+
+        def remap_ids(p):
+            # Unknown-actor refs/preds map to -1 (their actor_map entry,
+            # all ones, ORs to -1): never matches an element, so the op
+            # drops and the row flags inexact (mirror serves it)
+            return np.where(p != 0,
+                            (p & ~(_MA - 1)) | actor_map[p & (_MA - 1)], 0)
+
+        kind_lut = np.zeros(15, dtype=np.int32)
         kind_lut[3], kind_lut[4] = INSERT, SET
         kind_lut[5], kind_lut[6] = DEL, INC
         skind = kind_lut[sflags]
-        if is_mk.any():
-            skind[is_mk] = np.where(s_insert[is_mk], INSERT, SET)
-        is_text = np.array([info is not None and info['type'] == 'text'
-                            for info in fleet.seq_rows], dtype=bool)
-        txt = is_text[srow]
+        if any_mk:
+            # the wire value of a make element row is its insert bit
+            skind[is_mk] = np.where(wire_value[is_mk] != 0, INSERT, SET)
+        D = SEQ_PRED_LANES
+        pred_off = rows['pred_off']
+        counts_seq = kept(np.diff(pred_off))
+        off_seq = kept(pred_off[:-1])
+        pred_col = rows['pred']
+        pred_lanes = []
+        for d in range(D):
+            has = counts_seq > d
+            lane = None
+            if has.all():
+                lane = remap_ids(pred_col[off_seq + d])
+            elif has.any():
+                # gather THEN remap: only the kept seq rows' lanes, not the
+                # whole batch's pred column
+                lane = np.zeros(n_seq, dtype=pred_col.dtype)
+                lane[has] = remap_ids(pred_col[off_seq[has] + d])
+            pred_lanes.append(lane)
         # host-side inexact flags: pred lists past the lane width, object
         # elements inside Text rows (span rendering is mirror territory —
         # same rule as _pack_seq_op), and inc deltas past the bit-packed
         # counter lane's +/-2^29 envelope; counters in sequences are
         # otherwise exact (INC kind + per-lane counter registers)
-        val_op = (sflags == 3) | (sflags == 4)
-        hflag = pred_overflow | (is_mk & txt) | \
-            ((sflags == 6) & (np.abs(svalue) >= (1 << 29)))
+        hflag = counts_seq > D
+        if any_mk:
+            hflag |= is_mk & txt
+        is_inc = sflags == 6
+        if is_inc.any():
+            hflag |= is_inc & (np.abs(svalue) >= (1 << 29))
         # Re-intern every payload the device lane can't carry inline
         # through _intern_seq_value — THE shared sequence-value rule:
         # text rows inline single code points, lists inline plain ints,
         # everything else (arena-boxed strings/bools/floats, datatyped
         # ints) boxes into the value table
-        svlen = vlen_all[keep_seq]
-        seq_ri = np.flatnonzero(keep_seq)
+        val_op = (sflags == 3) | (sflags == 4)
+        svlen = kept(vlen_all)
+        inline_vt = svtype == (6 if txt else 4) if one_type else \
+            np.where(txt, svtype == 6, svtype == 4)
+        rebox = np.flatnonzero(val_op & ~hflag & ~((svlen == 0) & inline_vt))
+        seq_ri = np.flatnonzero(keep_seq) if len(rebox) and not every \
+            else None
         tag_names = {3: 'uint', 4: 'int', 8: 'counter', 9: 'timestamp'}
-        inline_ok = (svlen == 0) & np.where(txt, svtype == 6, svtype == 4)
-        rebox = np.flatnonzero(val_op & ~hflag & ~inline_ok)
         seq_memo = {}
         for i in rebox.tolist():
             ln, vt = int(svlen[i]), int(svtype[i])
+            t = txt if one_type else bool(txt[i])
             if ln > 0 or vt in (0, 1, 2):
                 # pre-validated: decode_sel covers every arena row here
-                gid = int(decoded_gid[int(seq_ri[i])])
+                gid = int(decoded_gid[i if seq_ri is None
+                                      else int(seq_ri[i])])
                 if gid < 0:
                     raise AssertionError(
                         'undecoded arena payload in turbo seq batch')
                 decoded = decoded_vals[gid]
-                mk = (gid, bool(txt[i]))
+                mk = (gid, t)
             else:
                 decoded = {'value': int(svalue[i]),
                            'datatype': tag_names.get(vt)}
-                mk = (decoded['value'], decoded['datatype'], bool(txt[i]))
+                mk = (decoded['value'], decoded['datatype'], t)
             vid = seq_memo.get(mk)
             if vid is None:
                 vid = fleet._intern_seq_value(
-                    'text' if txt[i] else 'list',
+                    'text' if t else 'list',
                     {'value': decoded['value'],
                      'datatype': decoded.get('datatype')})
                 seq_memo[mk] = vid
             svalue[i] = vid
-        fleet._dispatch_seq(np.stack(
-            [srow, skind, sref, spacked, svalue,
-             *(pred_lanes[:, d] for d in range(D)),
-             hflag.astype(np.int64)], axis=1))
+        fleet._dispatch_seq(_SeqRuns(
+            run_row, lens, skind, remap_ids(kept(rows['ref'])),
+            remap_ids(kept(rows['packed'])), svalue, pred_lanes, hflag))
 
     n_kept_root = int(keep_root.sum())
     doc_arr = change_doc[rows['doc'][keep_root]].astype(np.int32)

@@ -465,6 +465,12 @@ class SeqPools:
             c += 1
         return c
 
+    def cls_for_many(self, capacities):
+        """cls_for of every entry of a non-empty int array, in one search
+        over the class capacities."""
+        top = self.cls_for(int(capacities.max()))
+        return np.searchsorted(self.base << np.arange(top + 1), capacities)
+
     def capacity(self, cls):
         return self.base << cls
 

@@ -92,6 +92,10 @@ class Metrics:
         'remaps',                # actor renumber dispatches
         'grows',                 # capacity regrowths (doc/key axes)
         'seq_migrations',        # sequence rows moved up a size class
+        'seq_pack_grouped',      # sequence dispatches packed from their
+                                 # input's row runs, with no sort
+        'seq_pack_sorted',       # sequence dispatches whose runs repeated
+                                 # a row and took a stable sort first
         'mirror_rebuilds',       # lazy mirror replays after turbo
         'graph_builds',          # deferred hash-graph materializations
         'docs_bulk_loaded',      # documents installed by the native loader

@@ -129,6 +129,12 @@ def test_seq_dispatch_phases_and_migrations():
     assert phases[0]['attrs']['migrated'] == moved
     copies = [p for p in phases if p['name'] == 'seq_copy']
     assert all(p['attrs']['bytes'] > 0 for p in copies)
+    # the batch's rows come one run a doc: packed with no sort
+    packs = [p for p in phases if p['name'] == 'seq_pack']
+    assert [p['attrs']['sorted'] for p in packs] == [0] * n_cls
+    assert sum(p['attrs']['rows'] for p in packs) == 2
+    d = fleet.metrics.delta(m0)
+    assert (d['seq_pack_grouped'], d['seq_pack_sorted']) == (1, 0)
 
 
 @needs_codec
