@@ -6,7 +6,7 @@ hand-written CUDA kernels.
 The port carries the LWW grid, the exact-device register engine
 (`DocFleet(exact_device=True)`, over `registers`), the Text/list
 sequence engine (`sequence`, in both device modes), the turbo apply seam
-(`backend.apply_changes_docs`, and its pipelined form), the batched sync
+(`backend.apply_changes_docs`), the batched sync
 plane (`sync_driver`, over `bloom` and `hashindex`, with the mixed
 live/parked rounds), the bulk loader (`load_docs`: saved documents
 straight to device state), durability (`durability.DurableFleet`:

@@ -57,12 +57,11 @@ between existing ones, the fleet renumbers by remapping the low bits of the
 winners tensor in one dispatch.
 """
 
+import collections
 import contextlib
 import copy
 import gc
 import hashlib
-import queue
-import threading
 import time
 import weakref
 
@@ -70,6 +69,10 @@ import numpy as np
 import torch
 
 from .. import native
+from ..native import (ACTOR_MASK, FLAG_ELEM_MAKE_TABLE, FLAG_ELEM_MAKE_TEXT,
+                      FLAG_INC, FLAG_MAKE_TABLE, FLAG_MAKE_TEXT, FLAG_SET,
+                      FLAG_SEQ_DEL, FLAG_SEQ_INC, FLAG_SEQ_INSERT,
+                      FLAG_SEQ_SET)
 from ..backend.hash_graph import HashGraph, decode_change_buffers
 from ..errors import (AutomergeError, DanglingPred, DocError, DuplicateOpId,
                       InvalidChange, MalformedChange, as_wire_error)
@@ -324,9 +327,9 @@ class _SeqRuns:
     def from_tuples(cls, seq_ops):
         """(row, kind, ref, packed, value, pred0..D-1, flag) op tuples."""
         from .sequence import SEQ_PRED_LANES as D
-        arr = np.asarray(seq_ops, dtype=np.int64)
+        arr = np.asarray(seq_ops, dtype=np.int64).reshape(-1, 6 + D)
         row = arr[:, 0]
-        starts = np.flatnonzero(np.r_[True, row[1:] != row[:-1]])
+        starts = np.flatnonzero(np.diff(row, prepend=row[:1] - 1))
         return cls(row[starts], np.diff(np.r_[starts, len(row)]),
                    arr[:, 1], arr[:, 2], arr[:, 3], arr[:, 4],
                    [arr[:, 5 + d] for d in range(D)], arr[:, 5 + D] != 0)
@@ -983,22 +986,21 @@ class DocFleet:
                 *lanes, flag)
 
     @_spanned('dispatch_seq')
-    def _dispatch_seq(self, seq_ops):
+    def _dispatch_seq(self, ops):
         """Place every touched row in a size-class pool with enough
         capacity (migrating rows that outgrew their class) and batch-apply
         all pending sequence ops — ONE dispatch per active size class, each
-        one launch of the sequence scan on the fleet's device.
-        seq_ops: (row, kind, ref, packed, value, pred0..D-1, flag) op
-        tuples in apply order, or a _SeqRuns."""
-        if len(self.seq_rows) == 0 or len(seq_ops) == 0:
+        one launch of the sequence scan on the fleet's device. `ops` is a
+        _SeqRuns (op tuples convert with _SeqRuns.from_tuples)."""
+        if len(self.seq_rows) == 0 or len(ops) == 0:
             return
         ps = _span_seq()
         try:
-            self._dispatch_seq_phases(seq_ops, ps)
+            self._dispatch_seq_phases(ops, ps)
         finally:
             ps.done()
 
-    def _dispatch_seq_phases(self, seq_ops, ps):
+    def _dispatch_seq_phases(self, ops, ps):
         """_dispatch_seq's body, tiled by contiguous `seq_place` (once),
         then `seq_pack` (`sorted=`: the input's runs needed a sort),
         `seq_copy` and `seq_launch` (each once per active size class)
@@ -1010,8 +1012,6 @@ class DocFleet:
         # after all existing ones produces no remap (identity perm), yet
         # its lane must exist before its ops apply
         self.seq_pools.ensure_lanes(self._seq_lane_width())
-        ops = seq_ops if isinstance(seq_ops, _SeqRuns) else \
-            _SeqRuns.from_tuples(seq_ops)
         if ops.sorted:
             self.metrics.seq_pack_sorted += 1
         else:
@@ -1657,8 +1657,8 @@ class DocFleet:
             return
         self._ensure_reg_capacity(n_docs=n_docs, n_keys=len(self.keys))
         n_cap = self.reg_state.reg.shape[0]
-        idx_sel = ((rows['flags'] == 1) & (rows['value'] != TOMBSTONE)) | \
-            (rows['flags'] == 2)
+        idx_sel = ((rows['flags'] == FLAG_SET) &
+                   (rows['value'] != TOMBSTONE)) | (rows['flags'] == FLAG_INC)
         self._index_ops(rows['doc'][idx_sel], rows['key'][idx_sel],
                         rows['packed'][idx_sel])
         batch = rows_to_register_batch(
@@ -1700,20 +1700,20 @@ class DocFleet:
                 self._alloc_seq_row(
                     d, op_id, 'text' if action == 'makeText' else 'list')
                 val_idx, flags = \
-                    self._intern_value_boxed(_SeqLink(op_id)), 1
+                    self._intern_value_boxed(_SeqLink(op_id)), FLAG_SET
             elif action in _MAP_MAKE:
                 val_idx, flags = self._intern_value_boxed(
-                    _MapLink(op_id, OBJECT_TYPE[action])), 1
+                    _MapLink(op_id, OBJECT_TYPE[action])), FLAG_SET
             elif action == 'del':
-                val_idx, flags = TOMBSTONE, 1
+                val_idx, flags = TOMBSTONE, FLAG_SET
             elif action == 'inc':
-                val_idx, flags = op.get('value', 0), 2
+                val_idx, flags = op.get('value', 0), FLAG_INC
             else:
                 # _intern_typed is THE datatype-boxing rule: uint/counter/
                 # timestamp/float64 sets box with their datatype so
                 # device-served patches stay exact
                 val_idx, flags = self._intern_typed(
-                    op.get('value'), op.get('datatype')), 1
+                    op.get('value'), op.get('datatype')), FLAG_SET
             out_doc.append(d)
             out_key.append(self.keys.intern(
                 op['key'] if obj == '_root' else (obj, op['key'])))
@@ -1731,8 +1731,8 @@ class DocFleet:
             packed_a = np.array(out_packed, dtype=np.int32)
             flags_a = np.array(out_flags, dtype=np.uint8)
             val_a = np.array(out_val, dtype=np.int32)
-            idx_sel = ((flags_a == 1) & (val_a != TOMBSTONE)) | \
-                (flags_a == 2)
+            idx_sel = ((flags_a == FLAG_SET) & (val_a != TOMBSTONE)) | \
+                (flags_a == FLAG_INC)
             self._index_ops(doc_a[idx_sel], key_a[idx_sel],
                             packed_a[idx_sel])
             batch = rows_to_register_batch(
@@ -1745,7 +1745,7 @@ class DocFleet:
                                          **self._split(n_cap))
             self.metrics.dispatches += 1
             self.metrics.device_ops += len(out_doc)
-        self._dispatch_seq(seq_ops)
+        self._dispatch_seq(_SeqRuns.from_tuples(seq_ops))
 
     def inexact_slots(self):
         """Slots whose histories fell outside the register engine's exact
@@ -1887,7 +1887,7 @@ class DocFleet:
                                   [k[0] for k in kill_rows],
                                   [k[1] for k in kill_rows],
                                   [k[2] for k in kill_rows])
-        self._dispatch_seq(seq_ops)
+        self._dispatch_seq(_SeqRuns.from_tuples(seq_ops))
 
     # -- reads ----------------------------------------------------------
 
@@ -3465,11 +3465,6 @@ def _validate_doc_chunks(chunks):
     return out
 
 
-def _validate_doc_chunk(chunk):
-    """Single-chunk form of _validate_doc_chunks."""
-    return _validate_doc_chunks([chunk])[0]
-
-
 def rebuild_docs(handles, fleet=None, mirror=False):
     """Recover documents into a fresh fleet from their host-side change
     logs — the donation-failure contract (fleet/apply.py): a failed
@@ -3564,19 +3559,25 @@ register_health_source('rejected_changes',
                        lambda: quarantine_stats['rejected_changes'])
 
 
-def _journal_of(handles):
-    """The attached ChangeJournal of the handles' fleet, or None. Turbo
-    batches require a single shared fleet, so the first fleet doc's
-    journal is THE journal."""
+def _first_fleet(handles):
+    """The fleet of the first fleet-resident doc among `handles`, or
+    None. A turbo batch requires one shared fleet, so this is THE fleet
+    (and its journal THE journal)."""
     for handle in handles:
         state = handle.get('state') if isinstance(handle, dict) else None
         if isinstance(state, FleetDoc) and state.is_fleet:
-            return state.fleet.journal
+            return state.fleet
     return None
 
 
+def _journal_of(handles):
+    """The attached ChangeJournal of the handles' fleet, or None."""
+    fleet = _first_fleet(handles)
+    return None if fleet is None else fleet.journal
+
+
 def apply_changes_docs(handles, per_doc_changes, mirror=True,
-                       on_error='raise', deadline=None, _parsed=None):
+                       on_error='raise', deadline=None):
     """Apply per-document change lists across the fleet. Returns
     (see _apply_changes_docs_impl for the full contract). When
     observability is enabled the whole batch records an `apply_batch`
@@ -3585,107 +3586,20 @@ def apply_changes_docs(handles, per_doc_changes, mirror=True,
     mutation: an expired deadline raises typed DeadlineExceeded with the
     batch entirely unapplied — the all-or-nothing half of the service's
     deadline contract (work that expires DURING the batch still commits;
-    late useful work beats a torn doc). `_parsed` is the pipelined
-    driver's pre-parsed native ingest result (private — see
-    apply_changes_docs_pipelined)."""
+    late useful work beats a torn doc)."""
     if deadline is not None:
         deadline.check(what='apply_changes_docs')
     start = time.perf_counter()
     with _span('apply_batch', docs=len(handles), mirror=mirror,
                on_error=on_error):
         out = _apply_changes_docs_impl(handles, per_doc_changes, mirror,
-                                       on_error, _parsed)
+                                       on_error)
     _hist.record_value('apply_batch_s', time.perf_counter() - start,
                        scale=1e9, unit='s')
     return out
 
 
-def apply_changes_docs_pipelined(handles, per_doc_changes, sub_batches=4,
-                                 mirror=False):
-    """Pipelined turbo apply: split every document's change run into
-    `sub_batches` consecutive sub-runs and overlap the NATIVE PARSE of
-    sub-run k+1 with the host gate/commit and (async) device dispatch of
-    sub-run k. The parse runs on a background Python thread, but the
-    native codec releases the GIL across the whole batch and fans the
-    chunks over its thread pool, so the overlap is real CPU concurrency,
-    not just dispatch asynchrony — the span rig shows `parse_chunk` /
-    `native_parse` spans tiling under the previous sub-batch's
-    `turbo_commit`/`turbo_dispatch` phases (bench.py's seam section
-    measures the overlap from the exported trace).
-
-    Committed state is byte-identical to `sub_batches` sequential
-    apply_changes_docs calls over the same splits (the prefetched parse
-    is a pure function of the bytes). Only the turbo path pipelines; a
-    sub-batch that falls back to the exact path simply ignores its
-    prefetched parse. mirror=True (exact path) has no native parse to
-    overlap, so it routes to the plain call."""
-    if mirror or sub_batches <= 1:
-        return apply_changes_docs(handles, per_doc_changes, mirror=mirror)
-    work = [c if isinstance(c, (list, tuple)) else list(c)
-            for c in per_doc_changes]
-    subs = []
-    for s in range(int(sub_batches)):
-        sub = [None] * len(work)
-        any_changes = False
-        for d, changes in enumerate(work):
-            step = -(-len(changes) // int(sub_batches))   # ceil
-            run = changes[s * step:(s + 1) * step] if step else []
-            sub[d] = run
-            any_changes = any_changes or bool(run)
-        if any_changes:
-            subs.append(sub)
-    if not subs:
-        return apply_changes_docs(handles, per_doc_changes, mirror=False)
-
-    # Producer thread streams parses AHEAD of the consumer (bounded at 2
-    # in flight so a long run never accumulates every parsed sub-batch in
-    # memory): while the main thread gates/commits/dispatches sub-batch
-    # k, the producer is already parsing k+1 — and, once that lands, k+2.
-    # The native parse releases the GIL, so this is core-level overlap.
-    results = queue.Queue(maxsize=2)
-    stop = []
-
-    def producer():
-        for sub in subs:
-            if stop:
-                break
-            try:
-                flat = [b if type(b) is bytes else bytes(b)
-                        for changes in sub for b in changes]
-                parsed = (len(flat), native.ingest_changes(
-                    flat, None, with_meta=True, with_seq=True))
-            except BaseException as exc:
-                # the consumer's blocking get() must never wait on a dead
-                # producer: ship the failure and let the main thread raise
-                results.put(exc)
-                return
-            results.put(parsed)
-
-    worker = threading.Thread(target=producer, daemon=True)
-    worker.start()
-    patches = [None] * len(handles)
-    try:
-        for sub in subs:
-            parsed = results.get()
-            if isinstance(parsed, BaseException):
-                raise parsed
-            handles, patches = apply_changes_docs(handles, sub, mirror=False,
-                                                  _parsed=parsed)
-    finally:
-        # On an exception mid-pipeline the producer may be blocked on a
-        # full queue: signal it and drain so join() cannot hang.
-        stop.append(True)
-        try:
-            while True:
-                results.get_nowait()
-        except queue.Empty:
-            pass
-        worker.join()
-    return handles, patches
-
-
-def _apply_changes_docs_impl(handles, per_doc_changes, mirror, on_error,
-                             _parsed=None):
+def _apply_changes_docs_impl(handles, per_doc_changes, mirror, on_error):
     """Apply per-document change lists across the fleet. Returns
     (new_handles, patches) — or (new_handles, patches, errors) with
     on_error='quarantine', where a bad input rejects ONLY its own doc
@@ -3737,7 +3651,7 @@ def _apply_changes_docs_impl(handles, per_doc_changes, mirror, on_error,
                 per_doc_changes = [c if isinstance(c, (list, tuple))
                                    else list(c) for c in per_doc_changes]
         with _gc_paused():
-            turbo = _apply_changes_turbo(handles, per_doc_changes, _parsed)
+            turbo = _apply_changes_turbo(handles, per_doc_changes)
             if turbo is not None and journal is not None:
                 # inside the GC pause: the ~4 small objects per framed
                 # record would otherwise re-trigger the gen-0 scans the
@@ -3745,30 +3659,45 @@ def _apply_changes_docs_impl(handles, per_doc_changes, mirror, on_error,
                 journal.record_seam(turbo[0], per_doc_changes)
         if turbo is not None:
             return turbo
-        for handle in handles:
-            state = handle.get('state')
-            if isinstance(state, FleetDoc) and state.is_fleet:
-                state.fleet.metrics.fallbacks += 1
-                break
+    return _apply_exact(handles, per_doc_changes, fell_back=not mirror)
+
+
+def _apply_exact(handles, per_doc_changes, fell_back, reject=None):
+    """The exact path's tail, shared by the plain and the quarantining
+    apply: each doc's changes through apply_changes (per-doc causal
+    gating and mirrors on host; the device work enqueues), then ONE flush
+    lands every doc's ops in one batched ingest and merge dispatch.
+    Per-doc applies journal through FleetDoc.apply_changes, and the
+    journal's group() folds their commits into ONE write+fsync for the
+    whole batch. `fell_back` counts a batch the turbo path refused in
+    its fleet's `fallbacks`. With `reject` (the quarantining caller's),
+    a doc whose apply raises is handed to reject(d, typed error, 'apply')
+    and keeps its handle, so isolation costs no extra dispatch;
+    without it the error propagates."""
+    if fell_back:
+        fleet = _first_fleet(handles)
+        if fleet is not None:
+            fleet.metrics.fallbacks += 1
     out_handles, patches = [], []
-    # per-doc applies journal through FleetDoc.apply_changes; group()
-    # folds their commits into ONE write+fsync for the whole batch
     journal = _journal_of(handles)
     with journal.group() if journal is not None else \
             contextlib.nullcontext():
-        for handle, changes in zip(handles, per_doc_changes):
+        for d, (handle, changes) in enumerate(zip(handles,
+                                                  per_doc_changes)):
+            new_handle, patch = handle, None
             if changes:
-                new_handle, patch = apply_changes(handle, changes)
-            else:
-                new_handle, patch = handle, None
+                try:
+                    new_handle, patch = apply_changes(handle, changes)
+                except Exception as exc:
+                    if reject is None:
+                        raise
+                    # normalize so the DocError is ALWAYS typed — host
+                    # gate ValueErrors arrive bare on this path
+                    reject(d, as_wire_error(exc, InvalidChange, 'apply',
+                                            doc_index=d), 'apply')
             out_handles.append(new_handle)
             patches.append(patch)
-    fleet = None
-    for handle in out_handles:
-        state = handle['state']
-        if isinstance(state, FleetDoc) and state.is_fleet:
-            fleet = state.fleet
-            break
+    fleet = _first_fleet(out_handles)
     if fleet is not None:
         fleet.flush()
     return out_handles, patches
@@ -3917,44 +3846,13 @@ def _apply_changes_docs_quarantine(handles, per_doc_changes, mirror):
                     journal.record_seam(out_handles, work, errors)
             _dump_quarantine_record(out_handles, errors)
             return out_handles, patches, errors
-        for handle in handles:
-            state = handle.get('state')
-            if isinstance(state, FleetDoc) and state.is_fleet:
-                state.fleet.metrics.fallbacks += 1
-                break
-    # Exact / fallback path: the per-doc loop below is the SAME loop the
-    # non-quarantining exact path runs — device work still lands in ONE
-    # flush dispatch at the end (per-doc apply enqueues host-side), so
-    # isolation here is free, not a batching forfeit (pinned by
+    # Exact / fallback path: the SAME per-doc loop the non-quarantining
+    # exact path runs (a rejected doc's work is already empty) — device
+    # work still lands in ONE flush dispatch at the end, so isolation
+    # here is free, not a batching forfeit (pinned by
     # test_exact_path_quarantine_isolates_per_doc's dispatch check).
-    out_handles, patches = [], []
-    # per-doc applies journal through FleetDoc.apply_changes; group()
-    # folds their commits into ONE write+fsync for the whole batch
-    journal = _journal_of(handles)
-    with journal.group() if journal is not None else \
-            contextlib.nullcontext():
-        for d, handle in enumerate(handles):
-            if work[d] and errors[d] is None:
-                try:
-                    new_handle, patch = apply_changes(handle, work[d])
-                except Exception as exc:
-                    # normalize so errors[d].error is ALWAYS typed — host
-                    # gate ValueErrors arrive bare on this path
-                    reject(d, as_wire_error(exc, InvalidChange, 'apply',
-                                            doc_index=d), 'apply')
-                    new_handle, patch = handle, None
-            else:
-                new_handle, patch = handle, None
-            out_handles.append(new_handle)
-            patches.append(patch)
-    fleet = None
-    for handle in out_handles:
-        state = handle['state']
-        if isinstance(state, FleetDoc) and state.is_fleet:
-            fleet = state.fleet
-            break
-    if fleet is not None:
-        fleet.flush()
+    out_handles, patches = _apply_exact(handles, work, fell_back=not mirror,
+                                        reject=reject)
     _dump_quarantine_record(out_handles, errors)
     return out_handles, patches, errors
 
@@ -4045,19 +3943,11 @@ class _TurboMetaBatch:
         return self.hash_hex(i), meta['deps'], meta['actor'], meta
 
 
-def _apply_changes_turbo(handles, per_doc_changes, parsed=None):
+def _apply_changes_turbo(handles, per_doc_changes):
     """Header-decode + native-ingest batched apply. Returns None when the
     workload can't take the turbo path (no native codec, non-fleet docs,
     multi-chunk buffers, or ops outside the flat subset), in which case the
     caller falls back to the exact path.
-
-    `parsed` is an optional pre-parsed native ingest result
-    ``(n_buffers, native.ingest_changes(...) output)`` produced by a
-    pipelined caller on a background thread (the native parse releases
-    the GIL, so it genuinely overlaps the previous sub-batch's commit +
-    device dispatch). It is used only when its buffer count matches this
-    call's flat batch; the parse is a pure function of the bytes, so the
-    result is identical to parsing inline.
 
     Control flow: one native parse for every change; one native causal
     gate over the whole batch (every dep a start head or an earlier
@@ -4076,18 +3966,216 @@ def _apply_changes_turbo(handles, per_doc_changes, parsed=None):
     ps = _span_seq()
     ps.mark('turbo_setup', docs=len(handles))
     try:
-        return _apply_changes_turbo_inner(handles, per_doc_changes, ps,
-                                          parsed)
+        return _apply_changes_turbo_inner(handles, per_doc_changes, ps)
     finally:
         ps.done()
 
 
-def _apply_changes_turbo_inner(handles, per_doc_changes, ps, parsed=None):
-    from .. import native
-    from .tensor_doc import OpBatch, MAX_ACTORS as _MA
-
-    if not native.available() or not handles:
+def _apply_changes_turbo_inner(handles, per_doc_changes, ps):
+    """The turbo apply as a sequence of stages: until the drain any of
+    them may send the batch to the exact path (None); from there on a
+    failure restores every drained doc and raises."""
+    engines = _turbo_engines(handles) if native.available() else None
+    if engines is None:
         return None
+    fleet = engines[0].fleet
+    buffers, counts = _flatten_changes(per_doc_changes, len(handles))
+    if not buffers:
+        return handles, [None] * len(handles)
+    if (fleet.ctr_base or fleet.grid_overflow) and any(
+            (e.slot in fleet.ctr_base or e.slot in fleet.grid_overflow) and
+            counts[d] for d, e in enumerate(engines)):
+        # Rebased/overflowed slots pack against per-slot counter bases the
+        # native turbo parser does not apply: batches that actually touch
+        # such a slot take the exact path; everything else keeps turbo
+        return None
+    # doc_ids=None: the zero-copy list entry (C walks the bytes objects
+    # in place — no blob join, no length array; buffer i IS doc i here)
+    ps.mark('turbo_parse', changes=len(buffers))
+    out = native.ingest_changes(buffers, None, with_meta=True, with_seq=True)
+    if out is None:
+        return None     # ops outside the fleet subset, or corrupt chunk
+    ps.mark('turbo_gate')
+    tp = _TurboParse(out, buffers, counts)
+    gate = _turbo_gate(fleet, engines, tp, ps)
+    if gate is None or not _turbo_objects_resolve(engines, tp, gate.fast) \
+            or not tp.decode_payloads():
+        return None
+
+    # From here on the batch is committed to turbo (counted as such)
+    fleet.metrics.turbo_calls += 1
+    backups = _EngineBackups()
+    ready, staged = _turbo_drain(engines, tp, gate.fast, backups)
+    keep = ready[tp.rows['doc']]
+    _check_turbo_op_ids(tp, keep, backups)
+    _validate_turbo_preds(fleet, tp, keep, gate.erows, backups)
+    # Count only causally-applied changes: queued ones are re-counted when
+    # the exact path drains and flushes them later. Byte counts come from
+    # the parser's buf_len meta column — no Python len() pass.
+    buf_len = tp.nmeta['buf_len']
+    fleet.metrics.changes_ingested += int(ready.sum())
+    fleet.metrics.bytes_ingested += int(buf_len.sum()) if ready.all() \
+        else int(buf_len[ready].sum())
+
+    # Phase 2 — infallible: record logs, queues, staleness
+    ps.mark('turbo_commit', ready=int(ready.sum()) if ps.on else None)
+    result = _turbo_commit(fleet, handles, engines, tp, gate, staged)
+    if not keep.any():
+        return result            # everything queued: no device work
+
+    # Land any lazily-enqueued earlier changes first: the register engine
+    # is order-sensitive (pred kills), and even the LWW grid's counter
+    # reset bases on the pre-batch winner
+    ps.mark('turbo_stage', kept=int(keep.sum()) if ps.on else None)
+    fleet.flush()
+    _register_turbo_actors(fleet, tp, ready)
+    vals, flags = _intern_turbo_values(fleet, engines, tp, keep)
+    root = _turbo_root_rows(fleet, tp, keep & tp.on_map, vals, flags,
+                            gate.erows)
+    if fleet.exact_device:
+        _stage_register_rows(fleet, tp, root, ps)
+    else:
+        _stage_grid_rows(fleet, tp, root, ps)
+    _stage_seq_runs(fleet, tp, keep & tp.on_seq, vals, gate.erows)
+    fleet.metrics.device_ops += int(keep.sum())
+    return result
+
+
+# make codes whose object is a sequence (Text or list)
+_SEQ_OBJECT_MAKES = tuple(code for code, typ in native.MAKE_TYPES.items()
+                          if typ in ('text', 'list'))
+
+
+class _TurboParse:
+    """One turbo call's parse (native.ingest_changes with meta and
+    sequence rows): op rows, key and actor tables, change metadata
+    (`meta`, with the buffers), each change's doc and each doc's run, and
+    what every stage reads of them: the flag selectors, `oid(p)`, and —
+    once the stage has registered the actors — `actor_map` and `remap`.
+    It lives for the call only: the lazy log keeps `meta`, never rows."""
+
+    __slots__ = ('rows', 'nat_keys', 'nat_actors', 'nmeta', 'meta',
+                 'counts', 'starts', 'change_doc', 'seq_sel', 'make_sel',
+                 'elem_make_sel', 'nested_sel', 'on_seq', 'on_map',
+                 'values', 'value_gid', 'actor_map', '_oids')
+
+    def __init__(self, out, buffers, counts):
+        self.rows, self.nat_keys, self.nat_actors, self.nmeta = out
+        self.meta = _TurboMetaBatch(self.nmeta, self.nat_actors, buffers)
+        self.counts = counts
+        self.starts = np.cumsum(counts) - counts
+        self.change_doc = np.repeat(np.arange(len(counts), dtype=np.int64),
+                                    counts)
+        flags = self.rows['flags']
+        self.seq_sel = (flags >= FLAG_SEQ_INSERT) & (flags <= FLAG_SEQ_INC)
+        self.make_sel = (flags >= FLAG_MAKE_TEXT) & (flags <= FLAG_MAKE_TABLE)
+        self.elem_make_sel = flags >= FLAG_ELEM_MAKE_TEXT
+        self.nested_sel = (flags <= FLAG_INC) & (self.rows['obj'] != 0)
+        self.on_seq = self.seq_sel | self.elem_make_sel
+        self.on_map = ~self.on_seq
+        self.values, self.value_gid = [], None
+        self.actor_map = None
+        self._oids = {}
+
+    def oid(self, p):
+        """The objectId (`counter@actor`) of packed id `p`."""
+        oid = self._oids.get(p)
+        if oid is None:
+            oid = self._oids[p] = native.format_op_id(p, self.nat_actors)
+        return oid
+
+    def objects_of(self, sel):
+        """(doc, objectId) of each distinct (doc, containing object) of
+        the rows `sel` picks."""
+        idx = np.flatnonzero(sel)
+        combo = np.unique((self.change_doc[self.rows['doc'][idx]] << 32) |
+                          self.rows['obj'][idx].astype(np.int64))
+        for cv in combo.tolist():
+            yield cv >> 32, self.oid(cv & 0xffffffff)
+
+    def remap(self, p):
+        """Packed ids `p` in fleet numbering; 0 stays 0. An id whose actor
+        the fleet never registered maps to -1 (its actor_map entry, all
+        ones, ORs to -1): a ref or pred that never matches."""
+        return np.where(p != 0, (p & ~ACTOR_MASK) |
+                        self.actor_map[p & ACTOR_MASK], 0)
+
+    def decode_payloads(self):
+        """Decode every arena-boxed payload BEFORE the commit point: one
+        decode_value rejects (bad leb, UTF-8 or float width) sends the
+        batch to the exact path (False). `values` gets one dict per
+        DISTINCT payload, `value_gid` each row's index into it (-1: not
+        decoded), so interning works per distinct value, never per row."""
+        rows = self.rows
+        flags, vlen, vtype = rows['flags'], rows['vlen'], rows['vtype']
+        self.value_gid = np.full(len(flags), -1, dtype=np.int32)
+        decode_sel = np.isin(flags, (FLAG_SET, FLAG_SEQ_INSERT,
+                                     FLAG_SEQ_SET)) & \
+            (rows['value'] != -1) & ((vlen > 0) | np.isin(vtype, (0, 1, 2)))
+        if not decode_sel.any():
+            return True
+        from ..columnar import decode_value
+        voff = np.cumsum(vlen, dtype=np.int64) - vlen
+        vblob = rows['vblob']
+        vb = vblob if isinstance(vblob, np.ndarray) else \
+            np.frombuffer(vblob, dtype=np.uint8)
+        sel_idx = np.flatnonzero(decode_sel)
+        try:
+            # Group rows by (len, vtype), then dedupe payload bytes within
+            # each group so every distinct value decodes exactly once.
+            combos = (vlen[sel_idx].astype(np.int64) << 8) | vtype[sel_idx]
+            corder = np.argsort(combos, kind='stable')
+            csorted = combos[corder]
+            starts = np.flatnonzero(np.r_[True, csorted[1:] != csorted[:-1]])
+            stops = np.r_[starts[1:], len(csorted)]
+            for gi in range(len(starts)):
+                combo = int(csorted[starts[gi]])
+                grp = sel_idx[corder[starts[gi]:stops[gi]]]
+                ln, vt = combo >> 8, combo & 0xff
+                if ln == 0:
+                    self.value_gid[grp] = len(self.values)
+                    self.values.append(decode_value(vt, b''))
+                    continue
+                mat = vb[voff[grp][:, None] + np.arange(ln)[None, :]]
+                # one sort of packed rows (void view) instead of
+                # np.unique(axis=0)'s per-byte-column lexsort
+                packed_rows = np.ascontiguousarray(mat).view(
+                    np.dtype((np.void, ln))).ravel()
+                uq, inv = np.unique(packed_rows, return_inverse=True)
+                self.value_gid[grp] = len(self.values) + inv
+                self.values += [decode_value((ln << 4) | vt, u.tobytes())
+                                for u in uq]
+        except Exception:
+            return False
+        return True
+
+
+# What the turbo gate decided: `fast[d]`, doc d passed the native gate;
+# each doc's slot (`erows`) and end frontier (`new32`, `new_n`); the
+# per-(doc, actor) seq groups the clock commit scatters (`g_rows`, `g_reg`:
+# their slots and clock-registry ids, None when there are none).
+_GateVerdict = collections.namedtuple(
+    '_GateVerdict', 'erows fast causal_docs new32 new_n g_doc g_actor '
+    'g_last g_rows g_reg')
+
+
+class _EngineBackups(list):
+    """(engine, clock, heads, queue) of each doc the turbo drain ran: a
+    failure before the commit restores all of them (the call is atomic)."""
+
+    def save(self, engine):
+        self.append((engine, dict(engine.clock), list(engine.heads),
+                     list(engine.queue)))
+
+    def restore(self):
+        for engine, clock, heads, queue in self:
+            engine.clock, engine.heads, engine.queue = clock, heads, queue
+
+
+def _turbo_engines(handles):
+    """The fleet engines of `handles` when the turbo path can take them
+    all — every doc a live fleet doc with no held-back changes, all on
+    one fleet — else None (also for no handles)."""
     engines = []
     for handle in handles:
         state = handle.get('state')
@@ -4099,67 +4187,39 @@ def _apply_changes_turbo_inner(handles, per_doc_changes, ps, parsed=None):
             # re-ingests them on flush, so route this call there
             return None
         engines.append(state._impl)
-    fleet = engines[0].fleet
-    if any(e.fleet is not fleet for e in engines):
+    if not engines or any(e.fleet is not engines[0].fleet for e in engines):
         return None
-    flat_buffers = []
-    per_doc_idx = [None] * len(handles)   # (start, stop) contiguous runs
-    # zeros, not empty: a per_doc_changes shorter than handles must leave
-    # the trailing docs' counts at 0 (the exact path's zip-truncate
-    # semantics), not uninitialized garbage feeding np.repeat
-    doc_counts = np.zeros(len(handles), dtype=np.int64)
+    return engines
+
+
+def _flatten_changes(per_doc_changes, n_docs):
+    """The batch as one flat list of bytes, doc-major, and each doc's
+    change count (0 past the end of per_doc_changes, as the exact path's
+    zip truncates)."""
+    flat = []
+    counts = np.zeros(n_docs, dtype=np.int64)
     for d, changes in enumerate(per_doc_changes):
-        k = len(flat_buffers)
+        k = len(flat)
         if not isinstance(changes, (list, tuple)):
             changes = list(changes)   # one-shot iterables: materialize once
-        flat_buffers += changes
-        per_doc_idx[d] = (k, len(flat_buffers))
-        doc_counts[d] = len(flat_buffers) - k
-    if set(map(type, flat_buffers)) - {bytes}:
+        flat += changes
+        counts[d] = len(flat) - k
+    if set(map(type, flat)) - {bytes}:
         # one normalization pass; set(map(type, ...)) runs the scan at C
         # speed instead of a 200k-element genexpr
-        flat_buffers = [bytes(b) for b in flat_buffers]
-    change_doc = np.repeat(np.arange(len(handles), dtype=np.int64),
-                           doc_counts)
-    n_changes = len(flat_buffers)
-    if not n_changes:
-        return handles, [None] * len(handles)
-    if (fleet.ctr_base or fleet.grid_overflow) and any(
-            (e.slot in fleet.ctr_base or e.slot in fleet.grid_overflow) and
-            per_doc_idx[d][0] != per_doc_idx[d][1]
-            for d, e in enumerate(engines)):
-        # Rebased/overflowed slots pack against per-slot counter bases the
-        # native turbo parser does not apply: batches that actually touch
-        # such a slot take the exact path; everything else keeps turbo
-        return None
-    # doc_ids=None: the zero-copy list entry (C walks the bytes objects
-    # in place — no blob join, no length array; buffer i IS doc i here)
-    ps.mark('turbo_parse', changes=n_changes)
-    if parsed is not None and parsed[0] == n_changes:
-        out = parsed[1]   # prefetched on a background thread (pipelined)
-    else:
-        out = native.ingest_changes(flat_buffers, None,
-                                    with_meta=True, with_seq=True)
-    if out is None:
-        return None     # ops outside the fleet subset, or corrupt chunk
-    rows, nat_keys, nat_actors, nmeta = out
-    batch_meta = _TurboMetaBatch(nmeta, nat_actors, flat_buffers)
-    ps.mark('turbo_gate')
+        flat = [bytes(b) for b in flat]
+    return flat, counts
 
-    # ---- Batched causal-run validation: ONE native call ----
-    # A doc takes the fast path iff every change's deps are heads of the
-    # doc's frontier at the batch's start or earlier changes of its own
-    # run (so buffer order is causal order), and seqs are contiguous per
-    # actor: a chain, or concurrent branches and their merges. Everything
-    # else (deps out of order or unknown, an end frontier past the head
-    # lanes) gets the general gate. The dep memcmps against the columnar
-    # head lanes and the run, the new frontier, and per-(doc, actor)
-    # seq-run grouping all run in codec.cpp's am_turbo_gate with the GIL
-    # released.
+
+def _turbo_gate(fleet, engines, tp, ps):
+    """Batched causal-run validation, ONE native call (codec.cpp's
+    am_turbo_gate, GIL released): a doc is fast iff every change's deps
+    are start heads or earlier changes of its own run (buffer order is
+    causal order) and seqs are contiguous per actor — a chain, or
+    concurrent branches and their merges; the rest get the general gate.
+    Returns a _GateVerdict, or None for the exact path."""
+    nmeta, counts = tp.nmeta, tp.counts
     with _span('turbo_causal') as causal_span:
-        doc_of = change_doc
-        seqs = nmeta['seq']
-        hash32 = nmeta['hash32']
         cols = fleet.doc_cols
         erows = np.fromiter((e.slot for e in engines), dtype=np.int64,
                             count=len(engines))
@@ -4167,40 +4227,35 @@ def _apply_changes_turbo_inner(handles, per_doc_changes, ps, parsed=None):
             # the same doc twice in one batch: the scatter commit would
             # collapse its two runs; the exact path applies them in order
             return None
-        starts_all = np.cumsum(doc_counts) - doc_counts
-        doc_off = np.concatenate([starts_all, [n_changes]])
-        gate = native.turbo_gate(doc_off, nmeta['actor'], seqs, hash32,
-                                 nmeta['deps_off'], nmeta['deps_blob'],
-                                 cols.head32[erows], cols.head_n[erows])
+        doc_off = np.concatenate([tp.starts, [len(tp.change_doc)]])
+        gate = native.turbo_gate(doc_off, nmeta['actor'], nmeta['seq'],
+                                 nmeta['hash32'], nmeta['deps_off'],
+                                 nmeta['deps_blob'], cols.head32[erows],
+                                 cols.head_n[erows])
         if gate is None:
             return None
         (gate_kind, hostcheck, new32, new_n, g_doc, g_actor, g_first,
          g_last) = gate
-        doc_ok = gate_kind > 0
+        fast = gate_kind > 0
         # Docs whose start frontier is wider than the head lanes get the
         # host hex compare for JUST their first change (the gate holds
         # them to the chain shape).
         for d in np.flatnonzero(hostcheck == 1).tolist():
-            if doc_ok[d] and doc_counts[d]:
-                i = int(starts_all[d])
+            if fast[d] and counts[d]:
+                i = int(tp.starts[d])
                 heads = engines[d].heads
                 if int(nmeta['deps_off'][i + 1] -
                        nmeta['deps_off'][i]) != len(heads) or \
-                        batch_meta.deps_hex(i) != heads:
-                    doc_ok[d] = False
+                        tp.meta.deps_hex(i) != heads:
+                    fast[d] = False
         # Seq bases: each (doc, actor) run's first seq must extend the
         # doc's clock. Lane-mode rows check vectorized against the clock
         # columns; dict-mode rows (actor populations past the lane width)
         # probe their dicts per group.
+        g_rows = g_reg = None
         if len(g_doc):
             g_rows = erows[g_doc]
-            ck_n_g = cols.ck_n[g_rows]
-            reg = fleet._ck_reg
-            reg_ids = np.fromiter(
-                (reg.get(a, -1) for a in nat_actors), dtype=np.int64,
-                count=len(nat_actors)) \
-                if nat_actors else np.zeros(1, dtype=np.int64)
-            g_reg = reg_ids[g_actor]
+            g_reg = _clock_reg_ids(fleet, tp.nat_actors)[g_actor]
             base = np.zeros(len(g_doc), dtype=np.int64)
             known = g_reg >= 0
             if known.any():
@@ -4208,163 +4263,83 @@ def _apply_changes_turbo_inner(handles, per_doc_changes, ps, parsed=None):
                     m = known & (cols.ck_actor[g_rows, l] == g_reg)
                     if m.any():
                         base[m] = cols.ck_seq[g_rows[m], l]
-            dmode = np.flatnonzero(ck_n_g == -1)
-            for gi in dmode.tolist():
+            for gi in np.flatnonzero(cols.ck_n[g_rows] == -1).tolist():
                 base[gi] = engines[int(g_doc[gi])].clock.get(
-                    nat_actors[int(g_actor[gi])], 0)
+                    tp.nat_actors[int(g_actor[gi])], 0)
             bad = g_first != base + 1
             if bad.any():
-                doc_ok[g_doc[bad]] = False
-        fast_mask = doc_ok
-        causal_docs = int(((gate_kind == 2) & fast_mask).sum())
+                fast[g_doc[bad]] = False
+        causal_docs = int(((gate_kind == 2) & fast).sum())
         if ps.on:
             causal_span.set(
-                chain=int(((gate_kind == 1) & fast_mask &
-                           (doc_counts > 0)).sum()),
+                chain=int(((gate_kind == 1) & fast & (counts > 0)).sum()),
                 causal=causal_docs,
-                host=int((~fast_mask & (doc_counts > 0)).sum()),
+                host=int((~fast & (counts > 0)).sum()),
                 merges=int((np.diff(nmeta['deps_off']) > 1)[
-                    fast_mask[doc_of]].sum()),
+                    fast[tp.change_doc]].sum()),
                 wide=int((hostcheck > 0).sum()))
+    return _GateVerdict(erows, fast, causal_docs, new32, new_n, g_doc,
+                        g_actor, g_last, g_rows, g_reg)
 
-    flags_all = rows['flags']
-    seq_sel = (flags_all >= 3) & (flags_all <= 6)
-    make_sel = (flags_all >= 7) & (flags_all <= 10)
-    seq_make_sel = flags_all >= 11      # makes inside sequences (11-14)
-    nested_sel = (flags_all <= 2) & (rows['obj'] != 0)
-    if seq_sel.any() or make_sel.any() or nested_sel.any() or \
-            seq_make_sel.any():
-        # RGA application is order-sensitive: chains and causal runs stage
-        # their rows in buffer order, which the gate proved causal; if any
-        # doc needs the general causal gate (whose applied order can
-        # differ from buffer order), route the whole call to the exact
-        # path
-        if (~fast_mask[doc_of]).any():
-            return None
-        # Every op's containing object must resolve to a registered object
-        # or a make earlier in this batch; dangling objects get exact-path
-        # error handling. Seq ops must target seq objects, keyed ops map
-        # objects — a type mismatch is an exact-path error too.
-        made_seq = [set() for _ in engines]
-        made_map = [set() for _ in engines]
-        _oid_memo = {}
 
-        def _oid_of(p):
-            oid = _oid_memo.get(p)
-            if oid is None:
-                oid = f'{p >> 8}@{nat_actors[p & (_MA - 1)]}'
-                _oid_memo[p] = oid
-            return oid
+def _clock_reg_ids(fleet, nat_actors):
+    """Each parser actor's clock-registry id, -1 where it has none."""
+    return np.fromiter((fleet._ck_reg.get(a, -1) for a in nat_actors),
+                       dtype=np.int64, count=len(nat_actors)) \
+        if nat_actors else np.zeros(1, dtype=np.int64)
 
-        mk_rows = np.flatnonzero(make_sel | seq_make_sel)
-        mk_docs = change_doc[rows['doc'][mk_rows]].tolist()
-        mk_packed = rows['packed'][mk_rows].tolist()
-        mk_is_seq = np.isin(rows['flags'][mk_rows],
-                            (7, 8, 11, 12)).tolist()
-        for d, p, isq in zip(mk_docs, mk_packed, mk_is_seq):
-            (made_seq if isq else made_map)[d].add(_oid_of(p))
-        sq_rows = np.flatnonzero(seq_sel | seq_make_sel)
-        sq_combo = np.unique(
-            (change_doc[rows['doc'][sq_rows]] << 32) |
-            rows['obj'][sq_rows].astype(np.int64))
-        for cv in sq_combo.tolist():
-            d, obj_nat = cv >> 32, cv & 0xffffffff
-            oid = _oid_of(obj_nat)
-            if oid not in made_seq[d] and \
-                    oid not in engines[d].seq_objects:
-                return None
-        nm_rows = np.flatnonzero(nested_sel | (
-            make_sel & (rows['obj'] != 0)))
-        nm_combo = np.unique(
-            (change_doc[rows['doc'][nm_rows]] << 32) |
-            rows['obj'][nm_rows].astype(np.int64))
-        for cv in nm_combo.tolist():
-            d, obj_nat = cv >> 32, cv & 0xffffffff
-            oid = _oid_of(obj_nat)
-            if oid not in made_map[d] and \
-                    oid not in engines[d].map_objects:
-                return None
-    # Decode every arena-boxed payload BEFORE the commit point: a payload
-    # decode_value rejects (out-of-range leb, invalid UTF-8, bad float
-    # width) must fall back to the exact path, not corrupt state after
-    # heads/clock/logs have already advanced
-    vlen_all = rows['vlen']
-    voff_all = np.cumsum(vlen_all, dtype=np.int64) - vlen_all
-    vblob = rows['vblob']
-    vtype_all = rows['vtype']
-    decode_sel = np.isin(flags_all, (1, 3, 4)) & (rows['value'] != -1) & \
-        ((vlen_all > 0) | np.isin(vtype_all, (0, 1, 2)))
-    # Distinct-value table for this batch: decoded_vals holds one dict per
-    # DISTINCT wire payload, decoded_gid maps op rows into it (-1 = row
-    # not decoded). Fleets repeat values heavily, so downstream interning
-    # works per distinct value (vectorized scatter back to rows), never
-    # per row — the old per-row dict cache cost more than the native parse
-    # on the mixed seam.
-    decoded_vals = []
-    decoded_gid = np.full(len(flags_all), -1, dtype=np.int32)
-    if decode_sel.any():
-        from ..columnar import decode_value
-        sel_idx = np.flatnonzero(decode_sel)
-        vb = vblob if isinstance(vblob, np.ndarray) else \
-            np.frombuffer(vblob, dtype=np.uint8)
-        try:
-            # Group rows by (len, vtype), then dedupe payload bytes within
-            # each group so every distinct value decodes exactly once.
-            combos = (vlen_all[sel_idx].astype(np.int64) << 8) | \
-                vtype_all[sel_idx]
-            corder = np.argsort(combos, kind='stable')
-            csorted = combos[corder]
-            starts = np.flatnonzero(np.r_[True, csorted[1:] != csorted[:-1]])
-            stops = np.r_[starts[1:], len(csorted)]
-            for gi in range(len(starts)):
-                combo = int(csorted[starts[gi]])
-                grp = sel_idx[corder[starts[gi]:stops[gi]]]
-                ln, vt = combo >> 8, combo & 0xff
-                if ln == 0:
-                    decoded_gid[grp] = len(decoded_vals)
-                    decoded_vals.append(decode_value(vt, b''))
-                    continue
-                mat = vb[voff_all[grp][:, None] + np.arange(ln)[None, :]]
-                # one sort of packed rows (void view) instead of
-                # np.unique(axis=0)'s per-byte-column lexsort
-                packed_rows = np.ascontiguousarray(mat).view(
-                    np.dtype((np.void, ln))).ravel()
-                uq, inv = np.unique(packed_rows, return_inverse=True)
-                decoded_gid[grp] = len(decoded_vals) + inv
-                decoded_vals += [decode_value((ln << 4) | vt, u.tobytes())
-                                 for u in uq]
-        except Exception:
-            return None
 
-    # From here on the batch is committed to turbo (counted as such)
-    fleet.metrics.turbo_calls += 1
+def _turbo_objects_resolve(engines, tp, fast):
+    """Whether the batch's objects let it stay on the turbo path. RGA
+    application is order-sensitive, so with any object op every doc must
+    be fast (buffer order proven causal). Every op's object must be a
+    registered one or a make earlier in this batch, of its kind (seq ops
+    on seq objects, keyed ops on maps): else the exact path errs."""
+    rows = tp.rows
+    if not (tp.seq_sel.any() or tp.make_sel.any() or tp.nested_sel.any() or
+            tp.elem_make_sel.any()):
+        return True
+    if (~fast[tp.change_doc]).any():
+        return False
+    made_seq = [set() for _ in engines]
+    made_map = [set() for _ in engines]
+    mk_rows = np.flatnonzero(tp.make_sel | tp.elem_make_sel)
+    mk_docs = tp.change_doc[rows['doc'][mk_rows]].tolist()
+    mk_packed = rows['packed'][mk_rows].tolist()
+    mk_is_seq = np.isin(rows['flags'][mk_rows], _SEQ_OBJECT_MAKES).tolist()
+    for d, p, isq in zip(mk_docs, mk_packed, mk_is_seq):
+        (made_seq if isq else made_map)[d].add(tp.oid(p))
+    for d, oid in tp.objects_of(tp.on_seq):
+        if oid not in made_seq[d] and oid not in engines[d].seq_objects:
+            return False
+    for d, oid in tp.objects_of(tp.nested_sel |
+                                (tp.make_sel & (rows['obj'] != 0))):
+        if oid not in made_map[d] and oid not in engines[d].map_objects:
+            return False
+    return True
 
-    # Phase 1 — fallible: general causal gate for docs the native gate
-    # sent to the host. _drain_queue mutates clock/heads, so engines
-    # carry backups and any failure restores all of them: the whole turbo
-    # call is atomic (the exact path gets per-doc atomicity from
-    # fleet.pending instead).
-    ready = fast_mask[doc_of]    # fancy-indexed: a fresh, writable array
-    staged = []                  # general-path: (engine, applied, queue)
-    backups = []                 # (engine, clock, heads, queue)
 
-    def restore_all():
-        for engine, clock, heads, queue in backups:
-            engine.clock, engine.heads, engine.queue = clock, heads, queue
-
-    drain_docs = np.flatnonzero(~fast_mask & (doc_counts > 0)).tolist()
+def _turbo_drain(engines, tp, fast, backups):
+    """Phase 1 — fallible: the general causal gate for the docs the
+    native gate sent to the host. _drain_queue mutates clock/heads, so
+    each drained engine is saved in `backups` first and any failure
+    restores all of them. Returns (ready: per change, applied by this
+    call; staged: (engine, applied, queue) per drained doc)."""
+    ready = fast[tp.change_doc]    # fancy-indexed: a fresh, writable array
+    staged = []
+    drain_docs = np.flatnonzero(~fast & (tp.counts > 0)).tolist()
     with _span('turbo_drain', docs=len(drain_docs)):
         for d in drain_docs:
             engine = engines[d]
-            start, stop = per_doc_idx[d]
-            backups.append((engine, dict(engine.clock), list(engine.heads),
-                            list(engine.queue)))
+            start = int(tp.starts[d])
+            backups.save(engine)
             try:
                 applied, queue = engine._drain_queue(
-                    [batch_meta.meta(i) for i in range(start, stop)],
+                    [tp.meta.meta(i)
+                     for i in range(start, start + int(tp.counts[d]))],
                     lambda change: None)
             except Exception as exc:
-                restore_all()
+                backups.restore()
                 # Gate errors are doc-scoped by construction (the drain
                 # loop runs one doc's changes): type them so a
                 # quarantining caller can reject slot d and retry the
@@ -4379,84 +4354,144 @@ def _apply_changes_turbo_inner(handles, per_doc_changes, ps, parsed=None):
             staged.append((engine, applied, queue))
             for change in applied:
                 ready[change['_change_index']] = True
+    return ready, staged
 
-    keep = ready[rows['doc']]
-    # Validation from the native rows: duplicate opIds *within* the
-    # applied batch are detectable per doc without decoding op objects.
-    kept_change = rows['doc'][keep]      # native 'doc' is the change index
-    kept_packed_nat = rows['packed'][keep]
-    if len(kept_packed_nat):
-        kept_doc = change_doc[kept_change]
-        pairs = kept_doc * (1 << 32) + kept_packed_nat
-        # run-boundary dup check (the trick staging uses): one sort and
-        # an adjacent-equality scan — np.unique(return_counts=True) paid
-        # for the unique array and a reduceat nobody read
-        pairs_sorted = np.sort(pairs)
-        dup = pairs_sorted[1:] == pairs_sorted[:-1]
-        if dup.any():
-            restore_all()
-            bad_doc = int(pairs_sorted[1:][dup][0] >> 32)
-            raise DuplicateOpId('duplicate operation ID in turbo batch',
-                                doc_index=bad_doc)
 
-    # Dangling-pred validation (map-key rows): every pred must name an op
-    # ROW on its key — in the slot's applied-op index (_op_index) or
-    # earlier in this batch — exactly the exact path's rule
-    # (op_set.py `no matching operation for pred`; the reference rejects
-    # invalid op references during the merge, new.js:1219-1220). Sequence
-    # refs/preds keep their existing envelope (unknown targets drop and
-    # flag inexact; the mirror serves). Bulk-loaded docs' indexes are
-    # incomplete, so their rows skip the check rather than false-reject —
-    # for them a dangling pred still surfaces at the next mirror rebuild.
-    _validate_turbo_preds(fleet, engines, rows, keep, seq_sel, seq_make_sel,
-                          change_doc, nat_keys, nat_actors, _MA,
-                          restore_all)
+def _check_turbo_op_ids(tp, keep, backups):
+    """Duplicate opIds *within* the applied batch, per doc, from the
+    native rows without decoding op objects: one sort and an adjacent-
+    equality scan. Raises DuplicateOpId after restoring `backups`."""
+    kept_packed = tp.rows['packed'][keep]
+    if not len(kept_packed):
+        return
+    pairs_sorted = np.sort(tp.change_doc[tp.rows['doc'][keep]] * (1 << 32)
+                           + kept_packed)
+    dup = pairs_sorted[1:] == pairs_sorted[:-1]
+    if dup.any():
+        backups.restore()
+        bad_doc = int(pairs_sorted[1:][dup][0] >> 32)
+        raise DuplicateOpId('duplicate operation ID in turbo batch',
+                            doc_index=bad_doc)
 
-    # Count only causally-applied changes: queued ones are re-counted when
-    # the exact path drains and flushes them later. Byte counts come from
-    # the parser's buf_len meta column — no Python len() pass.
-    buf_len = nmeta['buf_len']
-    fleet.metrics.changes_ingested += int(ready.sum())
-    if ready.all():
-        fleet.metrics.bytes_ingested += int(buf_len.sum())
-    else:
-        fleet.metrics.bytes_ingested += int(buf_len[ready].sum())
 
-    # Phase 2 — infallible: record logs, queues, staleness
-    ps.mark('turbo_commit', ready=int(ready.sum()) if ps.on else None)
-    start_op = nmeta['startOp']
-    nops = nmeta['nops']
-    last_op = start_op + nops - 1
-    # Per-doc max of last_op in one reduceat over the batch (a linear
-    # chain does not guarantee the LAST change has the max op id, so the
-    # old code took a numpy .max() per doc — ~27ms at 10k docs)
-    nonempty = doc_counts > 0
+def _validate_turbo_preds(fleet, tp, keep, slots, backups):
+    """Reject kept map-key rows whose preds name no existing op row — the
+    exact path's rule (op_set.py `no matching operation for pred`;
+    new.js:1219-1220). A pred exists iff it is (a) an earlier kept
+    non-del map-key row of the same (doc, object, key) in THIS batch, or
+    (b) in the slot's applied-op index (_op_index). Raises DanglingPred,
+    after restoring `backups`. Only preds missing from the batch take
+    the per-pred index walk. Sequence refs/preds keep their envelope
+    (drop and flag inexact), and bulk-loaded docs, whose indexes are
+    incomplete, skip the check (the next mirror rebuild surfaces it)."""
+    rows = tp.rows
+    pc = np.diff(rows['pred_off'])
+    root_rows = keep & tp.on_map
+    check_rows = root_rows & (pc > 0)
+    if not check_rows.any():
+        return
+    row_doc = tp.change_doc[rows['doc']]
+    if fleet._op_index_incomplete:
+        inc = np.fromiter(
+            (s in fleet._op_index_incomplete for s in slots),
+            dtype=bool, count=len(slots))
+        check_rows &= ~inc[row_doc]
+        if not check_rows.any():
+            return
+    # Batch-internal pred targets: kept, non-seq, non-del rows (dels have
+    # no rows in the reference representation; incs and makes do). Dense
+    # collision-free ids for (doc, obj, key) triples — restricted to the
+    # relevant rows (targets + rows under check), and built with two
+    # 1D-packed uniques instead of np.unique(axis=0)'s void compare.
+    tgt = root_rows & ~((rows['flags'] == FLAG_SET) &
+                        (rows['value'] == TOMBSTONE))
+    rel = np.flatnonzero(tgt | check_rows)
+    objkey_rel = (rows['obj'][rel].astype(np.int64) << 32) | \
+        rows['key'][rel].astype(np.int64)
+    _u1, ok_inv = np.unique(objkey_rel, return_inverse=True)
+    combo2_rel = (row_doc[rel].astype(np.int64) << 32) | \
+        ok_inv.astype(np.int64)
+    _u2, rel_inv = np.unique(combo2_rel, return_inverse=True)
+    inv = np.zeros(len(row_doc), dtype=np.int64)
+    inv[rel] = rel_inv
+    tgt_combo = np.sort(inv[tgt] * (1 << 32) + rows['packed'][tgt])
+    # Pred entries of the rows under check
+    entry_sel = np.repeat(check_rows, pc)
+    pred_nat = rows['pred'][entry_sel].astype(np.int64)
+    owner = np.repeat(np.arange(len(pc)), pc)[entry_sel]
+    pred_combo = inv[owner] * (1 << 32) + pred_nat
+    in_batch = np.zeros(len(pred_nat), dtype=bool)
+    if len(tgt_combo):
+        pos = np.clip(np.searchsorted(tgt_combo, pred_combo), 0,
+                      len(tgt_combo) - 1)
+        in_batch = (tgt_combo[pos] == pred_combo) & \
+            (pred_nat < rows['packed'][owner])
+    missing = (pred_nat > 0) & ~in_batch
+    if not missing.any():
+        return
+    # Lazily-pending earlier changes haven't fed the index yet: land
+    # them before consulting it (they were already accepted — flushing
+    # here mutates only fleet device state, never the engines' causal
+    # state that the backups guard)
+    if fleet.pending:
+        fleet.flush()
+    # Standing-index check for the remainder, in fleet numbering (reads
+    # only — unknown actors/keys simply have no standing ops)
+    amap = np.array([fleet.actors.index.get(a, -1) for a in tp.nat_actors],
+                    dtype=np.int64) if tp.nat_actors else \
+        np.zeros(1, np.int64)
+    key_cache = {}
+    for i in np.flatnonzero(missing).tolist():
+        p = int(pred_nat[i])
+        d = int(row_doc[owner[i]])
+        pa = int(amap[p & ACTOR_MASK])
+        fk = None
+        if pa >= 0:
+            o = int(rows['obj'][owner[i]])
+            kn = int(rows['key'][owner[i]])
+            fk = key_cache.get((o, kn), -2)
+            if fk == -2:
+                ks = tp.nat_keys[kn]
+                fk = fleet.keys.index.get(ks if o == 0 else (tp.oid(o), ks))
+                key_cache[(o, kn)] = fk
+        if fk is None or not bool(fleet._index_lookup(
+                int(slots[d]), np.array([(fk << 32) | (p & ~ACTOR_MASK) | pa],
+                                        dtype=np.int64))[0]):
+            backups.restore()
+            raise DanglingPred(f'no matching operation for pred: '
+                               f'{tp.oid(p)}', doc_index=d)
+
+
+def _turbo_commit(fleet, handles, engines, tp, gate, staged):
+    """Phase 2 — infallible: fast docs land as vectorized scatters into
+    the _DocCols columns (heads, maxop, staleness, one lazy log record,
+    the frontier index's staging, the clock lanes); drained docs take the
+    exact per-doc tail. Returns the call's (handles, patches)."""
+    cols = fleet.doc_cols
+    counts, starts_all = tp.counts, tp.starts
+    last_op = tp.nmeta['startOp'] + tp.nmeta['nops'] - 1
+    # per-doc max of last_op (a chain's LAST change need not hold it)
+    nonempty = counts > 0
     if _hist.on() and nonempty.any():
-        # per-doc change bytes, one vectorized pass (reduceat over the
-        # contiguous per-doc runs). Recorded HERE — past every validation
-        # raise — so a quarantining caller's retry loop records each
-        # batch's survivors exactly once, on the attempt that commits.
+        # per-doc change bytes, recorded past every validation raise: a
+        # quarantining caller's retry loop records each batch's survivors
+        # exactly once, on the attempt that commits
         _hist.histogram('doc_change_bytes', unit='B').record_many(
-            np.add.reduceat(buf_len, starts_all[nonempty]))
+            np.add.reduceat(tp.nmeta['buf_len'], starts_all[nonempty]))
     doc_max = np.zeros(len(handles), dtype=np.int64)
     if nonempty.any():
         doc_max[nonempty] = np.maximum.reduceat(
             last_op, starts_all[nonempty])
-    fast_ne = np.flatnonzero(fast_mask & nonempty)
-    # ---- Columnar commit: the whole fast-doc batch lands as vectorized
-    # scatters into the _DocCols struct-of-arrays — no per-doc Python.
-    # Head frontier: the gate's end-frontier lanes (sorted raw hashes
-    # from the parser's hash lanes and the start lanes); hex strings are
-    # NOT materialized here (the residual-floor fix) — the heads
-    # property's per-row memo hexes on first genuine access, and the
-    # returned handles capture their lanes for the same lazy treatment
-    # (_LazyHandle).
-    frows = erows[fast_ne]
-    fleet.metrics.turbo_causal_docs += causal_docs
+    fast_ne = np.flatnonzero(gate.fast & nonempty)
+    # Head frontier: the gate's end-frontier lanes (raw hashes); hex
+    # strings are made only on first access (the heads property's memo,
+    # and _LazyHandle for the returned handles).
+    frows = gate.erows[fast_ne]
+    fleet.metrics.turbo_causal_docs += gate.causal_docs
     fleet.metrics.turbo_drain_docs += len(staged)
     with _span('turbo_heads') as heads_span:
-        head_rows = new32[fast_ne]
-        head_n = new_n[fast_ne]
+        head_rows = gate.new32[fast_ne]
+        head_n = gate.new_n[fast_ne]
         cols.head32[frows] = head_rows
         cols.head_n[frows] = head_n
         cols.head_obj[frows] = None
@@ -4467,10 +4502,8 @@ def _apply_changes_turbo_inner(handles, per_doc_changes, ps, parsed=None):
     cols.stale[frows] = True
     cols.bindoc[frows] = None
     # Log append, lazily: one _SeamSegs record for the whole batch; each
-    # doc's (start, stop, base) segment folds into its real log only when
-    # something reads history. Parked docs' bases account for the parked
-    # prefix (the delta+main write path) — all from columns, no engine
-    # attribute reads.
+    # doc's (start, stop, base) segment folds into its log only when
+    # something reads history. Bases count a parked doc's parked prefix.
     log_lens = np.fromiter((len(e._log) for e in engines),
                            dtype=np.int64, count=len(engines))
     bases = log_lens[fast_ne] + cols.pend_n[frows]
@@ -4481,90 +4514,25 @@ def _apply_changes_turbo_inner(handles, per_doc_changes, ps, parsed=None):
                            for chunk in cols.pend_doc[frows]], dtype=bool)
         bases += np.where(parked, cols.parked_n[frows], 0)
     starts_f = starts_all[fast_ne]
-    stops_f = starts_f + doc_counts[fast_ne]
-    seg = _SeamSegs(flat_buffers, batch_meta,
+    stops_f = starts_f + counts[fast_ne]
+    seg = _SeamSegs(tp.meta.buffers, tp.meta,
                     dict(zip(frows.tolist(),
                              zip(starts_f.tolist(), stops_f.tolist(),
                                  bases.tolist()))))
-    cols.pend_n[frows] += doc_counts[fast_ne]
+    cols.pend_n[frows] += counts[fast_ne]
     fleet._pend_seams.append(seg)
     if len(fleet._pend_seams) > _SEAM_FOLD_LIMIT:
         fleet._fold_all_pending()
     if fleet._hash_index is not None and len(fast_ne):
-        # frontier-index staging for the whole fast batch: a host-side
-        # numpy append of the parser's hash lanes (no dispatch here —
-        # the next sync probe flushes). Staged/slow docs stage per
-        # change via the _defer_record override below.
-        fsel = fast_mask[doc_of]
-        fleet._hash_index.stage_rows(erows[doc_of[fsel]], hash32[fsel])
-    # Clock advance: the gate kernel's per-(doc, actor) groups scatter
-    # their final seqs into the clock lanes. Rows already in dict mode,
-    # or overflowing the lane width this batch, take the counted
-    # fallback loop below (the regression guard pins it at zero for
-    # fast-path workloads).
-    fallback_docs = set()
-    if len(g_doc):
-        gsel = np.flatnonzero(fast_mask[g_doc])
-        if len(gsel):
-            s_rows = g_rows[gsel]
-            s_reg = g_reg[gsel]
-            s_last = g_last[gsel]
-            dict_mode = cols.ck_n[s_rows] == -1
-            lanes = np.full(len(gsel), -1, dtype=np.int64)
-            for l in range(cols.CLOCK_LANES):
-                lanes = np.where((cols.ck_actor[s_rows, l] == s_reg) &
-                                 (s_reg >= 0), l, lanes)
-            new = (lanes < 0) & ~dict_mode
-            if new.any():
-                # intern actors the clock registry hasn't seen
-                for a in np.unique(np.asarray(g_actor)[gsel][new]).tolist():
-                    hexa = nat_actors[a]
-                    if hexa not in fleet._ck_reg:
-                        fleet._ck_reg[hexa] = len(fleet._ck_names)
-                        fleet._ck_names.append(hexa)
-                reg_ids = np.fromiter(
-                    (fleet._ck_reg.get(a, -1) for a in nat_actors),
-                    dtype=np.int64, count=len(nat_actors))
-                s_reg = reg_ids[np.asarray(g_actor)[gsel]]
-                # per-row rank among this batch's new actors (groups of
-                # one doc are contiguous in kernel order)
-                ni = np.flatnonzero(new)
-                rw = s_rows[ni]
-                run_first = np.r_[True, rw[1:] != rw[:-1]]
-                rank = np.arange(len(ni)) - \
-                    np.repeat(np.flatnonzero(run_first),
-                              np.diff(np.r_[np.flatnonzero(run_first),
-                                            len(ni)]))
-                lanes[ni] = cols.ck_n[rw] + rank
-            over = lanes >= cols.CLOCK_LANES
-            good = ~dict_mode & ~over
-            if good.any():
-                gi = np.flatnonzero(good)
-                cols.ck_actor[s_rows[gi], lanes[gi]] = s_reg[gi]
-                cols.ck_seq[s_rows[gi], lanes[gi]] = s_last[gi]
-                newly = good & new
-                if newly.any():
-                    np.add.at(cols.ck_n, s_rows[newly], 1)
-            if (dict_mode | over).any():
-                fallback_docs.update(
-                    np.asarray(g_doc)[gsel[dict_mode | over]].tolist())
-    if fallback_docs:
-        # Dict-mode / lane-overflow docs: per-doc dict merge — correct
-        # for any actor population, counted so the guard can pin the
-        # fast path at zero iterations.
-        fleet.metrics.turbo_commit_fallback_docs += len(fallback_docs)
-        gd = np.asarray(g_doc)
-        ga = np.asarray(g_actor)
-        for d in fallback_docs:
-            engine = engines[d]
-            clock = dict(engine.clock)
-            for gi in np.flatnonzero(gd == d).tolist():
-                clock[nat_actors[int(ga[gi])]] = int(g_last[gi])
-            engine.clock = clock
+        # frontier-index staging: a host-side append of the fast docs'
+        # hash lanes (the next sync probe flushes); drained docs stage
+        # per change through _defer_record below
+        fsel = gate.fast[tp.change_doc]
+        fleet._hash_index.stage_rows(gate.erows[tp.change_doc[fsel]],
+                                     tp.nmeta['hash32'][fsel])
+    _commit_clock_lanes(fleet, engines, tp, gate)
     for engine, applied, queue in staged:
-        # Slow/staged docs: the exact per-doc tail loop (counted — this
-        # is the fallback path the columnar commit replaces for fast
-        # docs).
+        # drained docs: the exact per-doc tail loop (counted)
         fleet.metrics.turbo_commit_fallback_docs += 1
         for change in applied:
             engine.changes.append(change['buffer'])
@@ -4597,20 +4565,78 @@ def _apply_changes_turbo_inner(handles, per_doc_changes, ps, parsed=None):
             lazy = _LazyHandle(state=handle['state'])
             lazy._head32 = head_rows[k, :head_n[k]]
             out_handles.append(lazy)
-    result = out_handles, [None] * len(handles)
-    if not keep.any():
-        return result            # everything queued: no device work
+    return out_handles, [None] * len(handles)
 
-    # Land any lazily-enqueued earlier changes first: the register engine
-    # is order-sensitive (pred kills), and even the LWW grid's counter
-    # reset bases on the pre-batch winner
-    ps.mark('turbo_stage', kept=int(keep.sum()) if ps.on else None)
-    fleet.flush()
 
-    # Device batch: remap the native parser's key/actor numbering into the
-    # fleet tables (interning only keys that actually land on the device)
-    applied_actor_ids = np.unique(nmeta['actor'][ready])
-    perm = fleet.actors.insert_many([nat_actors[int(a)]
+def _commit_clock_lanes(fleet, engines, tp, gate):
+    """Clock advance: the gate's per-(doc, actor) groups of fast docs
+    scatter their final seqs into the clock lanes. Dict-mode rows and
+    lane overflows take the counted per-doc dict merge (pinned at zero
+    for fast-path workloads)."""
+    if not len(gate.g_doc):
+        return
+    cols = fleet.doc_cols
+    nat_actors = tp.nat_actors
+    gsel = np.flatnonzero(gate.fast[gate.g_doc])
+    if not len(gsel):
+        return
+    g_doc, g_actor = np.asarray(gate.g_doc), np.asarray(gate.g_actor)
+    s_rows = gate.g_rows[gsel]
+    s_reg = gate.g_reg[gsel]
+    s_last = gate.g_last[gsel]
+    dict_mode = cols.ck_n[s_rows] == -1
+    lanes = np.full(len(gsel), -1, dtype=np.int64)
+    for l in range(cols.CLOCK_LANES):
+        lanes = np.where((cols.ck_actor[s_rows, l] == s_reg) &
+                         (s_reg >= 0), l, lanes)
+    new = (lanes < 0) & ~dict_mode
+    if new.any():
+        # intern actors the clock registry hasn't seen
+        for a in np.unique(g_actor[gsel][new]).tolist():
+            hexa = nat_actors[a]
+            if hexa not in fleet._ck_reg:
+                fleet._ck_reg[hexa] = len(fleet._ck_names)
+                fleet._ck_names.append(hexa)
+        s_reg = _clock_reg_ids(fleet, nat_actors)[g_actor[gsel]]
+        # per-row rank among this batch's new actors (groups of
+        # one doc are contiguous in kernel order)
+        ni = np.flatnonzero(new)
+        rw = s_rows[ni]
+        run_first = np.r_[True, rw[1:] != rw[:-1]]
+        rank = np.arange(len(ni)) - \
+            np.repeat(np.flatnonzero(run_first),
+                      np.diff(np.r_[np.flatnonzero(run_first), len(ni)]))
+        lanes[ni] = cols.ck_n[rw] + rank
+    over = lanes >= cols.CLOCK_LANES
+    good = ~dict_mode & ~over
+    if good.any():
+        gi = np.flatnonzero(good)
+        cols.ck_actor[s_rows[gi], lanes[gi]] = s_reg[gi]
+        cols.ck_seq[s_rows[gi], lanes[gi]] = s_last[gi]
+        newly = good & new
+        if newly.any():
+            np.add.at(cols.ck_n, s_rows[newly], 1)
+    fallback_docs = set(g_doc[gsel[dict_mode | over]].tolist())
+    if fallback_docs:
+        # Dict-mode / lane-overflow docs: per-doc dict merge — correct
+        # for any actor population, counted so the guard can pin the
+        # fast path at zero iterations.
+        fleet.metrics.turbo_commit_fallback_docs += len(fallback_docs)
+        for d in fallback_docs:
+            engine = engines[d]
+            clock = dict(engine.clock)
+            for gi in np.flatnonzero(g_doc == d).tolist():
+                clock[nat_actors[int(g_actor[gi])]] = int(gate.g_last[gi])
+            engine.clock = clock
+
+
+def _register_turbo_actors(fleet, tp, ready):
+    """Register the applied changes' actors (renumbering device state when
+    one sorts first) and set `tp.actor_map`, -1 for actors the fleet
+    never registered: those surface only through pred/ref columns, where
+    each route flags the doc or row inexact instead of using actor 0."""
+    applied_actor_ids = np.unique(tp.nmeta['actor'][ready])
+    perm = fleet.actors.insert_many([tp.nat_actors[int(a)]
                                      for a in applied_actor_ids])
     if perm is not None:
         if fleet.exact_device:
@@ -4618,519 +4644,340 @@ def _apply_changes_turbo_inner(handles, per_doc_changes, ps, parsed=None):
         else:
             fleet._remap_actors(perm)
         fleet._remap_seq_actors(perm)
-    # -1 marks actors the fleet has never registered: ops' own actors are
-    # always registered (applied_actor_ids above), so -1 can only surface
-    # through pred/ref columns, where it flags the doc/row inexact instead
-    # of silently renumbering to actor 0
-    actor_map = np.array([fleet.actors.index.get(a, -1) for a in nat_actors],
-                         dtype=np.int32) if nat_actors else np.zeros(1, np.int32)
-    slot_of_doc = np.array([e.slot for e in engines], dtype=np.int64)
+    tp.actor_map = np.array(
+        [fleet.actors.index.get(a, -1) for a in tp.nat_actors],
+        dtype=np.int32) if tp.nat_actors else np.zeros(1, np.int32)
 
-    keep_root = keep & ~seq_sel & ~seq_make_sel
-    keep_seq = keep & (seq_sel | seq_make_sel)
 
-    # Make ops: register the object with its engine (plus its device row
-    # for sequences) and substitute the grid value with a link table ref.
-    # Fleets repeat the same objectIds across docs, so the oid string and
-    # the boxed link value (value-table interned by equality — slots
-    # share it) memoize per packed id; only the per-slot seq-row
-    # allocation and engine registration stay per doc.
-    kept_vals_all = rows['value'].astype(np.int32, copy=True)
-    kept_flags_all = rows['flags'].copy()
-    _typ_lut = {7: 'text', 8: 'list', 9: 'map', 10: 'table',
-                11: 'text', 12: 'list', 13: 'map', 14: 'table'}
-    _mk_memo = {}    # (packed, make kind) -> (oid, typ, boxed link value)
-    for ri in np.flatnonzero((make_sel | seq_make_sel) & keep).tolist():
+def _intern_turbo_values(fleet, engines, tp, keep):
+    """The rows' device values and flags: make ops register their object
+    (and a sequence's device row) and carry a boxed link value, memoized
+    per packed id; map-key makes become FLAG_SET cells. Then, in exact
+    mode, datatyped inline sets; then every arena-boxed cell payload,
+    once per DISTINCT value. Returns (values, flags), one a parser row."""
+    rows = tp.rows
+    vals = rows['value'].astype(np.int32, copy=True)
+    flags = rows['flags'].copy()
+    make_memo = {}    # (packed, make code) -> (type, boxed link value)
+    for ri in np.flatnonzero((tp.make_sel | tp.elem_make_sel) &
+                             keep).tolist():
         p = int(rows['packed'][ri])
         mk = int(rows['flags'][ri])
         # keyed on (p, mk): the same packed opId can be a different make
         # KIND on different docs in one batch (independent docs share
         # actor numbering), so type must not leak across docs
-        memo = _mk_memo.get((p, mk))
+        memo = make_memo.get((p, mk))
         if memo is None:
-            oid = f'{p >> 8}@{nat_actors[p & (_MA - 1)]}'
-            typ = _typ_lut[mk]
-            if typ in ('text', 'list'):
-                boxed = fleet._intern_value_boxed(_SeqLink(oid))
-            else:
-                boxed = fleet._intern_value_boxed(_MapLink(oid, typ))
-            memo = (oid, typ, boxed)
-            _mk_memo[(p, mk)] = memo
-        oid, typ, boxed = memo
-        d = change_doc[int(rows['doc'][ri])]
+            typ = native.MAKE_TYPES[mk]
+            link = _SeqLink(tp.oid(p)) if typ in ('text', 'list') else \
+                _MapLink(tp.oid(p), typ)
+            memo = make_memo[(p, mk)] = (typ,
+                                         fleet._intern_value_boxed(link))
+        typ, boxed = memo
+        oid = tp.oid(p)
+        engine = engines[tp.change_doc[int(rows['doc'][ri])]]
         if typ in ('text', 'list'):
-            engines[d].seq_objects[oid] = typ
-            slot = engines[d].slot
-            if oid not in fleet.slot_seq.get(slot, {}):
-                fleet._alloc_seq_row(slot, oid, typ)
+            engine.seq_objects[oid] = typ
+            if oid not in fleet.slot_seq.get(engine.slot, {}):
+                fleet._alloc_seq_row(engine.slot, oid, typ)
         else:
-            engines[d].map_objects[oid] = typ
-        # kept_vals_all carries the boxed link for BOTH make kinds; makes
-        # inside sequences (mk >= 11) keep their wire insert bit in
-        # rows['value'] and route to the seq dispatch, while map-key makes
-        # become grid/register cell rows (flag 1)
-        kept_vals_all[ri] = boxed
-        if mk <= 10:
-            kept_flags_all[ri] = 1
+            engine.map_objects[oid] = typ
+        # element makes keep their insert bit in rows['value'] for the
+        # seq dispatch; map-key makes become grid/register cell rows
+        vals[ri] = boxed
+        if mk <= FLAG_MAKE_TABLE:
+            flags[ri] = FLAG_SET
+    vlen, vtype = rows['vlen'], rows['vtype']
     if fleet.exact_device:
         # uint/counter/timestamp sets box with their wire datatype so
         # device-served patches keep exact datatypes and counter folds
         # (same rule as ingest.changes_to_op_rows; dels carry value -1 and
         # no typed vtype, so they never box)
         from .registers import typed_wire_tags
-        _tags = typed_wire_tags()
-        typed_sel = keep & (rows['flags'] == 1) & (rows['value'] != -1) & \
-            (vlen_all == 0) & np.isin(rows['vtype'], list(_tags))
+        tags = typed_wire_tags()
+        typed_sel = keep & (rows['flags'] == FLAG_SET) & \
+            (rows['value'] != -1) & (vlen == 0) & np.isin(vtype, list(tags))
         typed_memo = {}
         for ri in np.flatnonzero(typed_sel).tolist():
-            tk = (int(rows['value'][ri]), int(rows['vtype'][ri]))
+            tk = (int(rows['value'][ri]), int(vtype[ri]))
             vid = typed_memo.get(tk)
             if vid is None:
-                vid = fleet._intern_typed(tk[0], _tags[tk[1]])
-                typed_memo[tk] = vid
-            kept_vals_all[ri] = vid
+                vid = typed_memo[tk] = fleet._intern_typed(tk[0],
+                                                           tags[tk[1]])
+            vals[ri] = vid
     # arena-boxed map-cell payloads (strings/bools/None/floats/bytes,
-    # out-of-lane ints): decode and intern by the shared rule (exact mode
-    # keeps TypedValue datatypes; the LWW grid boxes raw). One table walk
-    # per DISTINCT value per batch, scattered back to rows in one indexed
-    # assign via the decoded_gid grouping.
-    boxed_sel = keep & (rows['flags'] == 1) & (rows['value'] != -1) & \
-        ((vlen_all > 0) | np.isin(rows['vtype'], (0, 1, 2)))
-    boxed_idx = np.flatnonzero(boxed_sel)
+    # out-of-lane ints), interned by the shared rule (exact mode keeps
+    # TypedValue datatypes; the LWW grid boxes raw) once per DISTINCT value
+    boxed_idx = np.flatnonzero(
+        keep & (rows['flags'] == FLAG_SET) & (rows['value'] != -1) &
+        ((vlen > 0) | np.isin(vtype, (0, 1, 2))))
     if len(boxed_idx):
-        gids = decoded_gid[boxed_idx]
+        gids = tp.value_gid[boxed_idx]
         if gids.min(initial=0) < 0:
-            # boxed_sel ⊆ decode_sel; a -1 here is a parser-contract break
-            # and must fail loudly, not index decoded_vals[-1]
+            # the boxed rows are decoded ones; a -1 here is a parser-
+            # contract break and must fail loudly, not index values[-1]
             raise AssertionError('undecoded arena payload in turbo batch')
         uniq_g = np.unique(gids)
         if fleet.exact_device:
-            vids = [fleet._intern_typed(decoded_vals[g]['value'],
-                                        decoded_vals[g].get('datatype'))
+            vids = [fleet._intern_typed(tp.values[g]['value'],
+                                        tp.values[g].get('datatype'))
                     for g in uniq_g.tolist()]
         else:
-            vids = [fleet._intern_value(decoded_vals[g]['value'])
+            vids = [fleet._intern_value(tp.values[g]['value'])
                     for g in uniq_g.tolist()]
-        kept_vals_all[boxed_idx] = np.asarray(vids, dtype=np.int32)[
+        vals[boxed_idx] = np.asarray(vids, dtype=np.int32)[
             np.searchsorted(uniq_g, gids)]
+    return vals, flags
 
-    def dispatch_seq_rows():
-        """Kept sequence rows -> one SeqState dispatch (fleet numbering),
-        laid out by their (doc, object) runs: the parser emits rows in
-        change order and changes in doc order, so a doc's ops on one
-        object are one run unless objects interleave (_SeqRuns sorts
-        those)."""
-        if not keep_seq.any():
-            return
-        from .sequence import INC, INSERT, SET, DEL, SEQ_PRED_LANES
-        every = bool(keep_seq.all())
 
-        def kept(col):
-            # a batch column's kept sequence rows: the column itself (read,
-            # never written) when every row is one
-            return col if every else col[keep_seq]
+_RootRows = collections.namedtuple(
+    '_RootRows', 'sel slots doc key packed flags vals')
 
-        sflags = kept(rows['flags'])
-        svtype = kept(rows['vtype'])
-        wire_value = kept(rows['value'])
-        svalue = wire_value.astype(np.int64)
-        is_mk = sflags >= 11            # make element rows (11-14)
-        any_mk = bool(is_mk.any())
-        if any_mk:
-            # make rows carry their boxed link value, not the insert bit
-            svalue[is_mk] = kept(kept_vals_all)[is_mk]
-        # (doc, objectId) runs with no sort: a run breaks where the change
-        # or the object does; runs of one object over a doc's consecutive
-        # changes then merge
-        schange = kept(rows['doc'])
-        sobj = kept(rows['obj'])
-        n_seq = len(sflags)
-        starts = np.flatnonzero(np.r_[True, (schange[1:] != schange[:-1]) |
-                                      (sobj[1:] != sobj[:-1])])
-        run_doc = change_doc[schange[starts]]
-        run_obj = sobj[starts]
-        fresh = np.r_[True, (run_doc[1:] != run_doc[:-1]) |
-                      (run_obj[1:] != run_obj[:-1])]
-        if not fresh.all():
-            starts, run_doc, run_obj = \
-                starts[fresh], run_doc[fresh], run_obj[fresh]
-        lens = np.diff(np.r_[starts, n_seq])
-        # each run's device row and type
-        run_row = np.empty(len(starts), dtype=np.int64)
-        run_txt = np.empty(len(starts), dtype=bool)
-        oid_memo = {}
-        slots = slot_of_doc.tolist()
-        for i, (d, obj_nat) in enumerate(zip(run_doc.tolist(),
-                                             run_obj.tolist())):
-            oid = oid_memo.get(obj_nat)
-            if oid is None:
-                oid = f'{obj_nat >> 8}@{nat_actors[obj_nat & (_MA - 1)]}'
-                oid_memo[obj_nat] = oid
-            row = fleet.slot_seq[slots[d]][oid]
-            run_row[i] = row
-            run_txt[i] = fleet.seq_rows[row]['type'] == 'text'
-        # one type for the whole batch (a bool), else one an op
-        one_type = bool(run_txt.all() or not run_txt.any())
-        txt = bool(run_txt[0]) if one_type else np.repeat(run_txt, lens)
 
-        def remap_ids(p):
-            # Unknown-actor refs/preds map to -1 (their actor_map entry,
-            # all ones, ORs to -1): never matches an element, so the op
-            # drops and the row flags inexact (mirror serves it)
-            return np.where(p != 0,
-                            (p & ~(_MA - 1)) | actor_map[p & (_MA - 1)], 0)
-
-        kind_lut = np.zeros(15, dtype=np.int32)
-        kind_lut[3], kind_lut[4] = INSERT, SET
-        kind_lut[5], kind_lut[6] = DEL, INC
-        skind = kind_lut[sflags]
-        if any_mk:
-            # the wire value of a make element row is its insert bit
-            skind[is_mk] = np.where(wire_value[is_mk] != 0, INSERT, SET)
-        D = SEQ_PRED_LANES
-        pred_off = rows['pred_off']
-        counts_seq = kept(np.diff(pred_off))
-        off_seq = kept(pred_off[:-1])
-        pred_col = rows['pred']
-        pred_lanes = []
-        for d in range(D):
-            has = counts_seq > d
-            lane = None
-            if has.all():
-                lane = remap_ids(pred_col[off_seq + d])
-            elif has.any():
-                # gather THEN remap: only the kept seq rows' lanes, not the
-                # whole batch's pred column
-                lane = np.zeros(n_seq, dtype=pred_col.dtype)
-                lane[has] = remap_ids(pred_col[off_seq[has] + d])
-            pred_lanes.append(lane)
-        # host-side inexact flags: pred lists past the lane width, object
-        # elements inside Text rows (span rendering is mirror territory —
-        # same rule as _pack_seq_op), and inc deltas past the bit-packed
-        # counter lane's +/-2^29 envelope; counters in sequences are
-        # otherwise exact (INC kind + per-lane counter registers)
-        hflag = counts_seq > D
-        if any_mk:
-            hflag |= is_mk & txt
-        is_inc = sflags == 6
-        if is_inc.any():
-            hflag |= is_inc & (np.abs(svalue) >= (1 << 29))
-        # Re-intern every payload the device lane can't carry inline
-        # through _intern_seq_value — THE shared sequence-value rule:
-        # text rows inline single code points, lists inline plain ints,
-        # everything else (arena-boxed strings/bools/floats, datatyped
-        # ints) boxes into the value table
-        val_op = (sflags == 3) | (sflags == 4)
-        svlen = kept(vlen_all)
-        inline_vt = svtype == (6 if txt else 4) if one_type else \
-            np.where(txt, svtype == 6, svtype == 4)
-        rebox = np.flatnonzero(val_op & ~hflag & ~((svlen == 0) & inline_vt))
-        seq_ri = np.flatnonzero(keep_seq) if len(rebox) and not every \
-            else None
-        tag_names = {3: 'uint', 4: 'int', 8: 'counter', 9: 'timestamp'}
-        seq_memo = {}
-        for i in rebox.tolist():
-            ln, vt = int(svlen[i]), int(svtype[i])
-            t = txt if one_type else bool(txt[i])
-            if ln > 0 or vt in (0, 1, 2):
-                # pre-validated: decode_sel covers every arena row here
-                gid = int(decoded_gid[i if seq_ri is None
-                                      else int(seq_ri[i])])
-                if gid < 0:
-                    raise AssertionError(
-                        'undecoded arena payload in turbo seq batch')
-                decoded = decoded_vals[gid]
-                mk = (gid, t)
-            else:
-                decoded = {'value': int(svalue[i]),
-                           'datatype': tag_names.get(vt)}
-                mk = (decoded['value'], decoded['datatype'], t)
-            vid = seq_memo.get(mk)
-            if vid is None:
-                vid = fleet._intern_seq_value(
-                    'text' if t else 'list',
-                    {'value': decoded['value'],
-                     'datatype': decoded.get('datatype')})
-                seq_memo[mk] = vid
-            svalue[i] = vid
-        fleet._dispatch_seq(_SeqRuns(
-            run_row, lens, skind, remap_ids(kept(rows['ref'])),
-            remap_ids(kept(rows['packed'])), svalue, pred_lanes, hflag))
-
-    n_kept_root = int(keep_root.sum())
-    doc_arr = change_doc[rows['doc'][keep_root]].astype(np.int32)
-    slots = slot_of_doc.astype(np.int32)[doc_arr]
-    kept_packed_root = rows['packed'][keep_root]
-    # Key interning: root keys as bare strings; nested map/table cells as
-    # composite (objectId, key) — shared with the register ingest
+def _turbo_root_rows(fleet, tp, sel, vals, flags, slots_of_doc):
+    """The kept map-key rows (`sel`) in fleet numbering as a _RootRows
+    (keys interned as in the register ingest: composite (objectId, key)
+    for nested cells), feeding the dangling-pred oracle their sets,
+    folded makes and incs (never dels)."""
     from .ingest import intern_composite_keys
-    key = intern_composite_keys(rows['obj'][keep_root],
-                                rows['key'][keep_root], nat_keys,
-                                nat_actors, fleet.keys)
-    ctr = kept_packed_root >> 8
-    actor = actor_map[kept_packed_root & (_MA - 1)]
-    packed = (ctr << 8) | actor
-    # Feed the dangling-pred oracle: kept map-key rows that create op
-    # rows (sets incl. makes folded to flags 1 with non-TOMBSTONE
-    # values, and incs — never dels)
-    _f = kept_flags_all[keep_root]
-    _v = kept_vals_all[keep_root]
-    _idx_sel = ((_f == 1) & (_v != TOMBSTONE)) | (_f == 2)
-    fleet._index_ops(slots[_idx_sel], key[_idx_sel], packed[_idx_sel])
-
-    if fleet.exact_device:
-        from .registers import (apply_register_batch_donated,
-                                rows_to_register_batch)
-        if n_kept_root:
-            # Slice the kept rows' pred segments and remap their actor bits
-            pred_counts = np.diff(rows['pred_off'])
-            entry_keep = np.repeat(keep_root, pred_counts)
-            preds_kept = rows['pred'][entry_keep]
-            pred_actor = actor_map[preds_kept & (_MA - 1)]
-            bad_pred = (preds_kept != 0) & (pred_actor < 0)
-            preds_kept = np.where(
-                preds_kept != 0,
-                (preds_kept >> 8 << 8) | pred_actor,
-                0).astype(np.int32)
-            preds_kept[bad_pred] = 0   # unknown-actor preds never reach device
-            off_kept = np.zeros(n_kept_root + 1, dtype=np.int64)
-            np.cumsum(pred_counts[keep_root], out=off_kept[1:])
-            # Rows whose preds named an unregistered actor go inexact (host
-            # replay re-validates them) rather than killing actor 0's slot
-            bad_rows = np.zeros(n_kept_root, dtype=bool)
-            if bad_pred.any():
-                row_of_entry = np.repeat(np.arange(n_kept_root),
-                                         pred_counts[keep_root])
-                bad_rows[row_of_entry[bad_pred]] = True
-            fleet._ensure_reg_capacity(n_docs=fleet.n_slots,
-                                       n_keys=len(fleet.keys))
-            n_cap = fleet.reg_state.reg.shape[0]
-            reg_batch = rows_to_register_batch(
-                slots.astype(np.int64), kept_flags_all[keep_root], key,
-                packed, kept_vals_all[keep_root], off_kept, preds_kept,
-                n_docs=n_cap, d_preds=fleet.d_preds,
-                force_overflow=bad_rows)
-            ps.mark('turbo_dispatch')
-            apply_register_batch_donated(fleet.reg_state,
-                                         reg_batch.to(fleet.device),
-                                         **fleet._split(n_cap))
-            fleet.metrics.dispatches += 1
-        dispatch_seq_rows()
-        fleet.metrics.device_ops += int(keep.sum())
-        return result
-
-    if n_kept_root:
-        n_slots = fleet.n_slots
-        # Fused staging: size the device state FIRST and scatter the op
-        # columns straight into capacity-shaped arrays — the old
-        # stage-then-np.pad sequence copied every column a second time on
-        # every turbo call (part of the round-5 "turbo-commit Python"
-        # budget).
-        fleet._ensure_capacity(n_docs=n_slots, n_keys=len(fleet.keys))
-        n_cap = fleet._grid_cap()
-        # Pred-scoped deletes (ref new.js:1204-1217): del rows (flags 1,
-        # TOMBSTONE value — boxed values are <= -2, so -1 is del-only)
-        # write no winner; their preds become kill lanes for the
-        # kills-aware grid kernel. A pred naming an actor the fleet never
-        # registered can't kill exactly — that slot's reads go
-        # mirror-authoritative instead of mis-killing actor 0.
-        vals_root = kept_vals_all[keep_root]
-        flags_root = kept_flags_all[keep_root]
-        del_sel = (flags_root == 1) & (vals_root == TOMBSTONE)
-        # Lane layout without the old argsort pass: kept root rows are
-        # already doc-contiguous (the parser emits rows in change order,
-        # changes in doc order), so each row's lane is its rank within
-        # its doc run — run boundaries + one repeat, no permutation.
-        n_root = len(slots)
-        run_starts = np.r_[0, np.flatnonzero(doc_arr[1:] != doc_arr[:-1])
-                           + 1] if n_root else np.zeros(0, dtype=np.int64)
-        run_lens = np.diff(np.r_[run_starts, n_root])
-        pos = np.arange(n_root) - np.repeat(run_starts, run_lens)
-        max_ops = max(int(run_lens.max()) if n_root else 0, 1)
-        shape = (n_cap, max_ops)
-        grid_cols = {name: np.zeros(shape, dtype=np.int32)
-                     for name in ('key_id', 'packed', 'value')}
-        is_set = np.zeros(shape, dtype=bool)
-        is_inc = np.zeros(shape, dtype=bool)
-        valid = np.zeros(shape, dtype=bool)
-        grid_cols['key_id'][slots, pos] = key
-        grid_cols['packed'][slots, pos] = packed
-        grid_cols['value'][slots, pos] = vals_root
-        flags_laid = np.where(del_sel, 0, flags_root)
-        is_set[slots, pos] = flags_laid == 1
-        is_inc[slots, pos] = flags_laid == 2
-        valid[slots, pos] = flags_laid != 0
-        batch = OpBatch(grid_cols['key_id'], grid_cols['packed'],
-                        grid_cols['value'], is_set, is_inc, valid)
-
-        kills = None
-        kill_doc = kill_key_f = kill_packed_f = ()
-        pred_counts = np.diff(rows['pred_off'])
-        counts_root = pred_counts[keep_root]
-        off_root = rows['pred_off'][:-1][keep_root]
-        if del_sel.any():
-            from .ingest import build_kill_lanes, layout_doc_rows
-            # full-batch del mask (keep_root-aligned del_sel scattered
-            # back) selects the del rows' pred runs out of the
-            # full-batch pred_off layout
-            del_all = np.zeros(len(pred_counts), dtype=bool)
-            del_all[np.flatnonzero(keep_root)[del_sel]] = True
-            kill_doc, kill_key_f, kill_packed_f = build_kill_lanes(
-                slots[del_sel].astype(np.int64),
-                key[del_sel].astype(np.int64), counts_root[del_sel],
-                rows['pred'][np.repeat(del_all, pred_counts)], actor_map,
-                on_bad_actor=lambda ds: fleet.grid_overflow.update(
-                    int(s) for s in ds))
-            # laid out at capacity so _dispatch_grid skips its pad copy
-            (kk_arr, kp_arr), _ = layout_doc_rows(
-                kill_doc, n_cap, (kill_key_f, kill_packed_f),
-                (np.int32, np.int32))
-            kills = (kk_arr, kp_arr)
-
-        ps.mark('turbo_dispatch')
-        fleet._dispatch_grid(batch, kills)
-        # Counter-attribution check (see _note_grid_batch): advance the
-        # host winner mirror with this batch's set and kill rows and
-        # verify each inc's pred against the post-batch winner
-        set_sel = (flags_root == 1) & ~del_sel
-        inc_sel = flags_root == 2
-        if set_sel.any() or inc_sel.any() or del_sel.any():
-            inc_preds = _max_pred_per_inc(
-                rows['pred'], off_root[inc_sel], counts_root[inc_sel],
-                actor_map)
-            fleet._note_grid_batch(slots[set_sel], key[set_sel],
-                                   packed[set_sel], slots[inc_sel],
-                                   key[inc_sel], inc_preds,
-                                   kill_doc, kill_key_f, kill_packed_f)
-    dispatch_seq_rows()
-    fleet.metrics.device_ops += int(keep.sum())
-    return result
+    doc = tp.change_doc[tp.rows['doc'][sel]].astype(np.int32)
+    slots = slots_of_doc.astype(np.int32)[doc]
+    key = intern_composite_keys(tp.rows['obj'][sel], tp.rows['key'][sel],
+                                tp.nat_keys, tp.nat_actors, fleet.keys)
+    packed = tp.remap(tp.rows['packed'][sel])
+    root = _RootRows(sel, slots, doc, key, packed, flags[sel], vals[sel])
+    idx_sel = ((root.flags == FLAG_SET) & (root.vals != TOMBSTONE)) | \
+        (root.flags == FLAG_INC)
+    fleet._index_ops(slots[idx_sel], key[idx_sel], packed[idx_sel])
+    return root
 
 
-def _validate_turbo_preds(fleet, engines, rows, keep, seq_sel, seq_make_sel,
-                          change_doc, nat_keys, nat_actors, _MA,
-                          restore_all):
-    """Reject kept map-key rows whose preds name no existing op row —
-    the turbo-path equivalent of op_set.py's per-op pred check. A pred
-    exists iff it is (a) an earlier kept non-del map-key row of the same
-    (doc, object, key) in THIS batch (ops arrive causally, so a valid
-    pred's packed id is strictly below its op's), or (b) in the slot's
-    standing applied-op index. Raises ValueError (after restore_all)
-    with the exact path's message on the first dangling pred. The fast
-    path — no preds, or every pred resolved batch-internally — is fully
-    vectorized; only genuinely-missing candidates take the per-pred
-    standing-index walk (they either resolve via the index or raise)."""
-    pc = np.diff(rows['pred_off'])
-    root_rows = keep & ~seq_sel & ~seq_make_sel
-    check_rows = root_rows & (pc > 0)
-    if not check_rows.any():
+def _stage_register_rows(fleet, tp, root, ps):
+    """Exact mode: the kept map-key rows, with their pred lists in fleet
+    numbering, as one register-scan dispatch. A pred naming an actor the
+    fleet never registered is zeroed and its row goes inexact (host
+    replay re-validates it) rather than killing actor 0's slot."""
+    from .registers import apply_register_batch_donated, rows_to_register_batch
+    n_rows = len(root.slots)
+    if not n_rows:
         return
-    row_doc = change_doc[rows['doc']]
-    slot_arr = np.fromiter((e.slot for e in engines), dtype=np.int64,
-                           count=len(engines))
-    if fleet._op_index_incomplete:
-        inc = np.fromiter(
-            (s in fleet._op_index_incomplete for s in slot_arr),
-            dtype=bool, count=len(slot_arr))
-        check_rows &= ~inc[row_doc]
-        if not check_rows.any():
-            return
-    # Batch-internal pred targets: kept, non-seq, non-del rows (dels have
-    # no rows in the reference representation; incs and makes do). Dense
-    # collision-free ids for (doc, obj, key) triples — restricted to the
-    # relevant rows (targets + rows under check), and built with two
-    # 1D-packed uniques instead of np.unique(axis=0)'s void compare.
-    tgt = root_rows & ~((rows['flags'] == 1) & (rows['value'] == TOMBSTONE))
-    rel = np.flatnonzero(tgt | check_rows)
-    objkey_rel = (rows['obj'][rel].astype(np.int64) << 32) | \
-        rows['key'][rel].astype(np.int64)
-    _u1, ok_inv = np.unique(objkey_rel, return_inverse=True)
-    combo2_rel = (row_doc[rel].astype(np.int64) << 32) | \
-        ok_inv.astype(np.int64)
-    _u2, rel_inv = np.unique(combo2_rel, return_inverse=True)
-    inv = np.zeros(len(row_doc), dtype=np.int64)
-    inv[rel] = rel_inv
-    tgt_combo = np.sort(inv[tgt] * (1 << 32) + rows['packed'][tgt])
-    # Pred entries of the rows under check
-    entry_sel = np.repeat(check_rows, pc)
-    pred_nat = rows['pred'][entry_sel].astype(np.int64)
-    owner = np.repeat(np.arange(len(pc)), pc)[entry_sel]
-    pred_combo = inv[owner] * (1 << 32) + pred_nat
-    in_batch = np.zeros(len(pred_nat), dtype=bool)
-    if len(tgt_combo):
-        pos = np.clip(np.searchsorted(tgt_combo, pred_combo), 0,
-                      len(tgt_combo) - 1)
-        in_batch = (tgt_combo[pos] == pred_combo) & \
-            (pred_nat < rows['packed'][owner])
-    missing = (pred_nat > 0) & ~in_batch
-    if not missing.any():
+    pred_off = tp.rows['pred_off']
+    pred_counts = np.diff(pred_off)
+    preds = tp.remap(tp.rows['pred'][np.repeat(root.sel, pred_counts)]
+                     ).astype(np.int32)
+    bad_pred = preds < 0
+    preds[bad_pred] = 0   # unknown-actor preds never reach the device
+    off_kept = np.zeros(n_rows + 1, dtype=np.int64)
+    np.cumsum(pred_counts[root.sel], out=off_kept[1:])
+    bad_rows = np.zeros(n_rows, dtype=bool)
+    if bad_pred.any():
+        row_of_entry = np.repeat(np.arange(n_rows), pred_counts[root.sel])
+        bad_rows[row_of_entry[bad_pred]] = True
+    fleet._ensure_reg_capacity(n_docs=fleet.n_slots, n_keys=len(fleet.keys))
+    n_cap = fleet.reg_state.reg.shape[0]
+    reg_batch = rows_to_register_batch(
+        root.slots.astype(np.int64), root.flags, root.key, root.packed,
+        root.vals, off_kept, preds, n_docs=n_cap, d_preds=fleet.d_preds,
+        force_overflow=bad_rows)
+    ps.mark('turbo_dispatch')
+    apply_register_batch_donated(fleet.reg_state, reg_batch.to(fleet.device),
+                                 **fleet._split(n_cap))
+    fleet.metrics.dispatches += 1
+
+
+def _stage_grid_rows(fleet, tp, root, ps):
+    """LWW mode: the kept map-key rows as one grid dispatch, scattered
+    straight into capacity-shaped columns. Pred-scoped deletes (ref
+    new.js:1204-1217): del rows (FLAG_SET, TOMBSTONE value) write no
+    winner, their preds become kill lanes; a pred of an unregistered
+    actor makes its slot mirror-authoritative instead of killing actor
+    0. Then the host winner mirror advances (_note_grid_batch)."""
+    from .ingest import build_kill_lanes, layout_doc_rows, max_pred_per_inc
+    from .tensor_doc import OpBatch
+    n_root = len(root.slots)
+    if not n_root:
         return
-    # Lazily-pending earlier changes haven't fed the index yet: land
-    # them before consulting it (they were already accepted — flushing
-    # here mutates only fleet device state, never the engines' causal
-    # state that restore_all guards)
-    if fleet.pending:
-        fleet.flush()
-    # Standing-index check for the remainder, in fleet numbering (reads
-    # only — unknown actors/keys simply have no standing ops)
-    amap = np.array([fleet.actors.index.get(a, -1) for a in nat_actors],
-                    dtype=np.int64) if nat_actors else np.zeros(1, np.int64)
+    slots, key, packed, vals = root.slots, root.key, root.packed, root.vals
+    fleet._ensure_capacity(n_docs=fleet.n_slots, n_keys=len(fleet.keys))
+    n_cap = fleet._grid_cap()
+    del_sel = (root.flags == FLAG_SET) & (vals == TOMBSTONE)
+    set_sel = (root.flags == FLAG_SET) & ~del_sel
+    inc_sel = root.flags == FLAG_INC
+    # Lane layout with no argsort: kept root rows are doc-contiguous (rows
+    # in change order, changes in doc order), so a row's lane is its rank
+    # in its doc run
+    run_starts = np.r_[0, np.flatnonzero(root.doc[1:] != root.doc[:-1]) + 1]
+    run_lens = np.diff(np.r_[run_starts, n_root])
+    pos = np.arange(n_root) - np.repeat(run_starts, run_lens)
+    shape = (n_cap, max(int(run_lens.max()), 1))
+    grid_cols = [np.zeros(shape, dtype=dt)
+                 for dt in (np.int32,) * 3 + (bool,) * 3]
+    for out, col in zip(grid_cols, (key, packed, vals, set_sel, inc_sel,
+                                    set_sel | inc_sel)):
+        out[slots, pos] = col
+    batch = OpBatch(*grid_cols)
 
-    def raise_dangling(p, d):
-        restore_all()
-        pred = f'{p >> 8}@{nat_actors[p & (_MA - 1)]}'
-        raise DanglingPred(f'no matching operation for pred: {pred}',
-                           doc_index=d)
+    kills = None
+    kill_doc = kill_key_f = kill_packed_f = ()
+    pred_counts = np.diff(tp.rows['pred_off'])
+    counts_root = pred_counts[root.sel]
+    off_root = tp.rows['pred_off'][:-1][root.sel]
+    if del_sel.any():
+        # the del rows' pred runs, out of the full batch's pred column
+        del_all = np.zeros(len(pred_counts), dtype=bool)
+        del_all[np.flatnonzero(root.sel)[del_sel]] = True
+        kill_doc, kill_key_f, kill_packed_f = build_kill_lanes(
+            slots[del_sel].astype(np.int64),
+            key[del_sel].astype(np.int64), counts_root[del_sel],
+            tp.rows['pred'][np.repeat(del_all, pred_counts)], tp.actor_map,
+            on_bad_actor=lambda ds: fleet.grid_overflow.update(
+                int(s) for s in ds))
+        # laid out at capacity so _dispatch_grid skips its pad copy
+        (kk_arr, kp_arr), _ = layout_doc_rows(
+            kill_doc, n_cap, (kill_key_f, kill_packed_f),
+            (np.int32, np.int32))
+        kills = (kk_arr, kp_arr)
 
-    key_cache = {}
-    for i in np.flatnonzero(missing):
-        p = int(pred_nat[i])
-        d = int(row_doc[owner[i]])
-        pa = int(amap[p & (_MA - 1)])
-        if pa < 0:
-            raise_dangling(p, d)
-        o = int(rows['obj'][owner[i]])
-        kn = int(rows['key'][owner[i]])
-        fk = key_cache.get((o, kn), -2)
-        if fk == -2:
-            ks = nat_keys[kn]
-            if o == 0:
-                fk = fleet.keys.index.get(ks)
-            else:
-                oid = f'{o >> 8}@{nat_actors[o & (_MA - 1)]}'
-                fk = fleet.keys.index.get((oid, ks))
-            key_cache[(o, kn)] = fk
-        if fk is None:
-            raise_dangling(p, d)
-        pf = (p >> 8 << 8) | pa
-        slot = int(slot_arr[d])
-        if not bool(fleet._index_lookup(
-                slot, np.array([(fk << 32) | pf], dtype=np.int64))[0]):
-            raise_dangling(p, d)
+    ps.mark('turbo_dispatch')
+    fleet._dispatch_grid(batch, kills)
+    # Counter-attribution check: advance the host winner mirror with the
+    # set and kill rows, and hold each inc's pred to the post-batch winner
+    if set_sel.any() or inc_sel.any() or del_sel.any():
+        inc_preds = max_pred_per_inc(
+            tp.rows['pred'], off_root[inc_sel], counts_root[inc_sel],
+            tp.actor_map)
+        fleet._note_grid_batch(slots[set_sel], key[set_sel],
+                               packed[set_sel], slots[inc_sel],
+                               key[inc_sel], inc_preds,
+                               kill_doc, kill_key_f, kill_packed_f)
 
 
-def _max_pred_per_inc(pred_col, offs, counts, actor_map):
-    """Per inc row: the Lamport-max remapped pred packed id (the
-    reference's counter attribution target, new.js:942-945), or -1 when
-    absent or any pred names an unregistered actor. The single-pred
-    common case is fully vectorized; only multi-pred rows (conflicted
-    counters) loop."""
-    out = np.full(len(offs), -1, dtype=np.int64)
-    offs = np.asarray(offs)
-    counts = np.asarray(counts)
-    one = counts == 1
-    if one.any() and len(pred_col):
-        raw = pred_col[offs[one]].astype(np.int64)
-        pa = actor_map[raw & (MAX_ACTORS - 1)].astype(np.int64)
-        out[one] = np.where(pa >= 0, (raw >> 8 << 8) | pa, -1)
-    for i in np.flatnonzero(counts > 1):
-        off, cnt = int(offs[i]), int(counts[i])
-        raw = pred_col[off:off + cnt].astype(np.int64)
-        pa = actor_map[raw & (MAX_ACTORS - 1)].astype(np.int64)
-        if (pa < 0).any():
-            continue
-        out[i] = int(((raw >> 8 << 8) | pa).max())
-    return out
+def _kept(col, sel):
+    """A batch column's kept rows: the column itself (read, never
+    written) when `sel` is None, every row being kept."""
+    return col if sel is None else col[sel]
+
+
+def _stage_seq_runs(fleet, tp, keep_seq, vals, slots_of_doc):
+    """Kept sequence rows -> one _SeqRuns dispatch (fleet numbering),
+    laid out by their (doc, object) runs: the parser emits rows in
+    change order and changes in doc order, so a doc's ops on one object
+    are one run unless objects interleave (_SeqRuns sorts those)."""
+    if not keep_seq.any():
+        return
+    from .sequence import INC, INSERT, SET, DEL, SEQ_PRED_LANES
+    rows = tp.rows
+    sel = None if keep_seq.all() else keep_seq
+    sflags = _kept(rows['flags'], sel)
+    svtype = _kept(rows['vtype'], sel)
+    wire_value = _kept(rows['value'], sel)
+    svalue = wire_value.astype(np.int64)
+    is_mk = sflags >= FLAG_ELEM_MAKE_TEXT     # make element rows
+    any_mk = bool(is_mk.any())
+    if any_mk:
+        # make rows carry their boxed link value, not the insert bit
+        svalue[is_mk] = _kept(vals, sel)[is_mk]
+    # (doc, objectId) runs with no sort: a run breaks where the change
+    # or the object does; runs of one object over a doc's consecutive
+    # changes then merge
+    schange = _kept(rows['doc'], sel)
+    sobj = _kept(rows['obj'], sel)
+    n_seq = len(sflags)
+    starts = np.flatnonzero(np.r_[True, (schange[1:] != schange[:-1]) |
+                                  (sobj[1:] != sobj[:-1])])
+    run_doc = tp.change_doc[schange[starts]]
+    run_obj = sobj[starts]
+    fresh = np.r_[True, (run_doc[1:] != run_doc[:-1]) |
+                  (run_obj[1:] != run_obj[:-1])]
+    if not fresh.all():
+        starts, run_doc, run_obj = \
+            starts[fresh], run_doc[fresh], run_obj[fresh]
+    lens = np.diff(np.r_[starts, n_seq])
+    # each run's device row and type
+    run_row = np.empty(len(starts), dtype=np.int64)
+    run_txt = np.empty(len(starts), dtype=bool)
+    slots = slots_of_doc.tolist()
+    for i, (d, obj_nat) in enumerate(zip(run_doc.tolist(),
+                                         run_obj.tolist())):
+        row = fleet.slot_seq[slots[d]][tp.oid(obj_nat)]
+        run_row[i] = row
+        run_txt[i] = fleet.seq_rows[row]['type'] == 'text'
+    # one type for the whole batch (a bool), else one an op
+    one_type = bool(run_txt.all() or not run_txt.any())
+    txt = bool(run_txt[0]) if one_type else np.repeat(run_txt, lens)
+
+    kind_lut = np.zeros(FLAG_ELEM_MAKE_TABLE + 1, dtype=np.int32)
+    kind_lut[FLAG_SEQ_INSERT], kind_lut[FLAG_SEQ_SET] = INSERT, SET
+    kind_lut[FLAG_SEQ_DEL], kind_lut[FLAG_SEQ_INC] = DEL, INC
+    skind = kind_lut[sflags]
+    if any_mk:
+        # the wire value of a make element row is its insert bit
+        skind[is_mk] = np.where(wire_value[is_mk] != 0, INSERT, SET)
+    D = SEQ_PRED_LANES
+    pred_off = rows['pred_off']
+    counts_seq = _kept(np.diff(pred_off), sel)
+    off_seq = _kept(pred_off[:-1], sel)
+    pred_col = rows['pred']
+    pred_lanes = []
+    for d in range(D):
+        has = counts_seq > d
+        lane = None
+        if has.all():
+            lane = tp.remap(pred_col[off_seq + d])
+        elif has.any():
+            # gather THEN remap: only the kept seq rows' lanes, not the
+            # whole batch's pred column
+            lane = np.zeros(n_seq, dtype=pred_col.dtype)
+            lane[has] = tp.remap(pred_col[off_seq[has] + d])
+        pred_lanes.append(lane)
+    # host-side inexact flags (the rule of _pack_seq_op): pred lists past
+    # the lane width, object elements inside Text rows, and inc deltas
+    # past the bit-packed counter lane's +/-2^29 envelope
+    hflag = counts_seq > D
+    if any_mk:
+        hflag |= is_mk & txt
+    is_inc = sflags == FLAG_SEQ_INC
+    if is_inc.any():
+        hflag |= is_inc & (np.abs(svalue) >= (1 << 29))
+    # Re-intern every payload the device lane can't carry inline
+    # through _intern_seq_value — THE shared sequence-value rule:
+    # text rows inline single code points, lists inline plain ints,
+    # everything else (arena-boxed strings/bools/floats, datatyped
+    # ints) boxes into the value table
+    val_op = (sflags == FLAG_SEQ_INSERT) | (sflags == FLAG_SEQ_SET)
+    svlen = _kept(rows['vlen'], sel)
+    inline_vt = svtype == (6 if txt else 4) if one_type else \
+        np.where(txt, svtype == 6, svtype == 4)
+    rebox = np.flatnonzero(val_op & ~hflag & ~((svlen == 0) & inline_vt))
+    seq_ri = np.flatnonzero(keep_seq) if len(rebox) and sel is not None \
+        else None
+    tag_names = {3: 'uint', 4: 'int', 8: 'counter', 9: 'timestamp'}
+    seq_memo = {}
+    for i in rebox.tolist():
+        ln, vt = int(svlen[i]), int(svtype[i])
+        t = txt if one_type else bool(txt[i])
+        if ln > 0 or vt in (0, 1, 2):
+            # pre-validated: decode_payloads covers every arena row here
+            gid = int(tp.value_gid[i if seq_ri is None else int(seq_ri[i])])
+            if gid < 0:
+                raise AssertionError(
+                    'undecoded arena payload in turbo seq batch')
+            decoded = tp.values[gid]
+            mk = (gid, t)
+        else:
+            decoded = {'value': int(svalue[i]),
+                       'datatype': tag_names.get(vt)}
+            mk = (decoded['value'], decoded['datatype'], t)
+        vid = seq_memo.get(mk)
+        if vid is None:
+            vid = seq_memo[mk] = fleet._intern_seq_value(
+                'text' if t else 'list',
+                {'value': decoded['value'],
+                 'datatype': decoded.get('datatype')})
+        svalue[i] = vid
+    fleet._dispatch_seq(_SeqRuns(
+        run_row, lens, skind, tp.remap(_kept(rows['ref'], sel)),
+        tp.remap(_kept(rows['packed'], sel)), svalue, pred_lanes, hflag))
 
 
 def _has_unresolved_link(value):

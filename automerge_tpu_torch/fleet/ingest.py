@@ -21,6 +21,7 @@ from ..columnar import (
     decode_container_header, decode_column_info, decode_value, inflate_change,
     COLUMN_TYPE, CHUNK_TYPE_CHANGE, CHUNK_TYPE_DEFLATE, ACTIONS,
 )
+from ..native import ACTOR_BITS, ACTOR_MASK, FLAG_INC, FLAG_SET
 from .tensor_doc import OpBatch, TOMBSTONE, pack_op_id
 
 _SET = ACTIONS.index('set')
@@ -158,14 +159,39 @@ def build_kill_lanes(del_doc, del_key, del_pred_counts, praw, actor_map,
     kill_key = np.repeat(del_key, del_pred_counts)
     if not len(praw):
         return kill_doc, kill_key, np.zeros(0, dtype=np.int32)
-    pactor = actor_map[praw & 0xff]
+    pactor = actor_map[praw & ACTOR_MASK]
     bad = (praw != 0) & (pactor < 0)
     if bad.any() and on_bad_actor is not None:
         on_bad_actor(np.unique(kill_doc[bad]))
     kill_packed = np.where(
         (praw != 0) & (pactor >= 0),
-        (praw >> 8 << 8) | pactor, 0).astype(np.int32)
+        (praw & ~ACTOR_MASK) | pactor, 0).astype(np.int32)
     return kill_doc, kill_key, kill_packed
+
+
+def max_pred_per_inc(pred_col, offs, counts, actor_map):
+    """Per inc row: the Lamport-max remapped pred packed id (the
+    reference's counter attribution target, new.js:942-945), or -1 when
+    absent or any pred names an unregistered actor. `pred_col` holds the
+    parser's packed preds, `actor_map` its actors' fleet numbers. The
+    single-pred common case is fully vectorized; only multi-pred rows
+    (conflicted counters) loop."""
+    out = np.full(len(offs), -1, dtype=np.int64)
+    offs = np.asarray(offs)
+    counts = np.asarray(counts)
+    one = counts == 1
+    if one.any() and len(pred_col):
+        raw = pred_col[offs[one]].astype(np.int64)
+        pa = actor_map[raw & ACTOR_MASK].astype(np.int64)
+        out[one] = np.where(pa >= 0, (raw & ~ACTOR_MASK) | pa, -1)
+    for i in np.flatnonzero(counts > 1):
+        off, cnt = int(offs[i]), int(counts[i])
+        raw = pred_col[off:off + cnt].astype(np.int64)
+        pa = actor_map[raw & ACTOR_MASK].astype(np.int64)
+        if (pa < 0).any():
+            continue
+        out[i] = int(((raw & ~ACTOR_MASK) | pa).max())
+    return out
 
 
 @_spanned('exact_ingest')
@@ -219,9 +245,9 @@ def changes_to_op_batch_native(per_doc_changes, key_interner, actor_interner,
     n_docs = len(per_doc_changes)
     doc = rows['doc']
     key = key_map[rows['key']] if len(keys) else rows['key']
-    ctr = rows['packed'] >> 8
-    actor = actor_map[rows['packed'] & 0xff] if len(actors) else 0
-    packed = (ctr << 8) | actor
+    ctr = rows['packed'] >> ACTOR_BITS
+    actor = actor_map[rows['packed'] & ACTOR_MASK] if len(actors) else 0
+    packed = (ctr << ACTOR_BITS) | actor
     flags_flat = rows['flags']
     # Dels are identifiable whenever either consumer needs them, but the
     # set-lane exclusion is gated on kills_out ALONE: without kill lanes
@@ -231,7 +257,7 @@ def changes_to_op_batch_native(per_doc_changes, key_interner, actor_interner,
     del_sel = np.zeros(len(doc), dtype=bool)
     kill_doc = kill_key = kill_packed = np.zeros(0, dtype=np.int64)
     if kills_out is not None or index_out is not None:
-        del_sel = (flags_flat == 1) & (rows['value'] == TOMBSTONE)
+        del_sel = (flags_flat == FLAG_SET) & (rows['value'] == TOMBSTONE)
     if kills_out is not None and del_sel.any():
         pred_counts_all = np.diff(rows['pred_off'])
         kill_doc, kill_key, kill_packed = build_kill_lanes(
@@ -244,18 +270,18 @@ def changes_to_op_batch_native(per_doc_changes, key_interner, actor_interner,
     del_for_sets = del_sel if kills_out is not None else \
         np.zeros(len(doc), dtype=bool)
     if index_out is not None:
-        row_sel = ((flags_flat == 1) & ~del_sel) | (flags_flat == 2)
+        row_sel = ((flags_flat == FLAG_SET) & ~del_sel) | \
+            (flags_flat == FLAG_INC)
         index_out.append((doc[row_sel], key[row_sel], packed[row_sel]))
     if hazard_out is not None:
-        from .backend import _max_pred_per_inc
-        set_sel = (flags_flat == 1) & ~del_sel
-        inc_sel = flags_flat == 2
+        set_sel = (flags_flat == FLAG_SET) & ~del_sel
+        inc_sel = flags_flat == FLAG_INC
         pred_counts = np.diff(rows['pred_off'])
         amap_full = np.full(256, -1, dtype=np.int64)
         amap_full[:len(actor_map)] = actor_map
-        preds = _max_pred_per_inc(rows['pred'],
-                                  rows['pred_off'][:-1][inc_sel],
-                                  pred_counts[inc_sel], amap_full)
+        preds = max_pred_per_inc(rows['pred'],
+                                 rows['pred_off'][:-1][inc_sel],
+                                 pred_counts[inc_sel], amap_full)
         hazard_out.append((doc[set_sel], key[set_sel], packed[set_sel],
                            doc[inc_sel], key[inc_sel], preds,
                            kill_doc, kill_key, kill_packed))
@@ -267,8 +293,8 @@ def changes_to_op_batch_native(per_doc_changes, key_interner, actor_interner,
     is_inc = np.zeros(key_id.shape, dtype=bool)
     valid = np.zeros(key_id.shape, dtype=bool)
     flags = flags_flat[order]
-    is_set[doc_sorted, pos] = (flags == 1) & ~del_for_sets[order]
-    is_inc[doc_sorted, pos] = flags == 2
+    is_set[doc_sorted, pos] = (flags == FLAG_SET) & ~del_for_sets[order]
+    is_inc[doc_sorted, pos] = flags == FLAG_INC
     valid[doc_sorted, pos] = True
     return OpBatch(key_id, packed_arr, value, is_set, is_inc, valid)
 
@@ -422,7 +448,7 @@ def intern_composite_keys(obj, key_nat, nat_keys, nat_actors, key_interner):
     for ui, pv in enumerate(uniq):
         o = int(pv >> 32)
         ks = nat_keys[int(pv & 0xffffffff)]
-        oid = f'{o >> 8}@{nat_actors[o & 0xff]}'
+        oid = native.format_op_id(o, nat_actors)
         u_ids[ui] = key_interner.intern((oid, ks))
     out[nest] = u_ids[inv]
     return out
@@ -453,7 +479,7 @@ def changes_to_op_rows(per_doc_changes, key_interner, actor_interner,
         out = native.ingest_changes(buffers, list(range(len(buffers))),
                                     with_meta=True, with_seq=True)
         if out is not None and out[0]['flags'].size and \
-                out[0]['flags'].max() > 2:
+                out[0]['flags'].max() > FLAG_INC:
             out = None    # sequence/make rows: not register material
         if out is not None:
             rows, nat_keys, nat_actors, _meta = out
@@ -468,7 +494,7 @@ def changes_to_op_rows(per_doc_changes, key_interner, actor_interner,
 
             def remap(p):
                 return np.where(
-                    p != 0, (p >> 8 << 8) | actor_map[p & 0xff], 0
+                    p != 0, (p & ~ACTOR_MASK) | actor_map[p & ACTOR_MASK], 0
                 ).astype(np.int32)
 
             values = rows['value'].astype(np.int32, copy=True)
@@ -478,8 +504,8 @@ def changes_to_op_rows(per_doc_changes, key_interner, actor_interner,
                 tags = typed_wire_tags()
                 # values == TOMBSTONE (-1) identifies del rows: the native
                 # parser boxes negative set values via the arena, so -1 on
-                # a flags==1 row can only be a del
-                typed = (rows['flags'] == 1) & (values != TOMBSTONE) & \
+                # a FLAG_SET row can only be a del
+                typed = (rows['flags'] == FLAG_SET) & (values != TOMBSTONE) & \
                     (rows['vlen'] == 0) & np.isin(rows['vtype'], list(tags))
                 for ri in np.flatnonzero(typed):
                     values[ri] = -(value_table.intern(TypedValue(
@@ -491,7 +517,8 @@ def changes_to_op_rows(per_doc_changes, key_interner, actor_interner,
                 vlen = rows['vlen']
                 off = np.cumsum(vlen, dtype=np.int64) - vlen
                 # dels (value TOMBSTONE, vtype 0) are NOT boxed nulls
-                boxed_sel = (rows['flags'] == 1) & (values != TOMBSTONE) & \
+                boxed_sel = (rows['flags'] == FLAG_SET) & \
+                    (values != TOMBSTONE) & \
                     ((vlen > 0) | np.isin(rows['vtype'], (0, 1, 2)))
                 blob = rows['vblob']
                 for ri in np.flatnonzero(boxed_sel):
@@ -560,7 +587,7 @@ def changes_to_op_rows(per_doc_changes, key_interner, actor_interner,
             out_key.append(key_interner.intern(op['key']))
             out_packed.append(pack(op_id))
             out_val.append(val_idx)
-            out_flags.append(2 if action == 'inc' else 1)
+            out_flags.append(FLAG_INC if action == 'inc' else FLAG_SET)
             for p in op.get('pred', []):
                 preds.append(pack(p))
             pred_off.append(len(preds))

@@ -36,6 +36,7 @@ kernel cost ledger under the reference's kind names
 import numpy as np
 import torch
 
+from ..native import FLAG_INC
 from ..observability.perf import instrument_kernel
 from .register_kernel import ACTOR_MASK, DEL, INC, PAD, SET, register_scan
 from .tensor_doc import per_docs_block
@@ -186,9 +187,10 @@ def rows_to_register_batch(doc_ids, flags, key_ids, packed, values,
                            force_overflow=None):
     """Lay flat native-ingest op rows (application order, doc-contiguous)
     into a RegisterOpBatch [n_docs, P] of numpy columns. Inputs are the
-    arrays the native parser emits with with_meta=True — flags (1 =
-    set/del, 2 = inc; dels carry value -1), pred_off/pred per-row pred
-    lists — already remapped to fleet key/actor numbering by the caller.
+    arrays the native parser emits with with_meta=True — flags
+    (native.FLAG_SET = set/del, FLAG_INC = inc; dels carry value -1),
+    pred_off/pred per-row pred lists — already remapped to fleet
+    key/actor numbering by the caller.
     Stable layout preserves each document's op order (the scan applies
     columns in order)."""
     doc_ids = np.asarray(doc_ids, dtype=np.int64)
@@ -209,7 +211,7 @@ def rows_to_register_batch(doc_ids, flags, key_ids, packed, values,
 
     flags = np.asarray(flags)
     values = np.asarray(values)
-    kinds_flat = np.where(flags == 2, INC,
+    kinds_flat = np.where(flags == FLAG_INC, INC,
                           np.where(values == -1, DEL, SET)).astype(np.int32)
     kind[doc_sorted, pos] = kinds_flat[order]
     key_col[doc_sorted, pos] = np.asarray(key_ids)[order]
@@ -217,7 +219,7 @@ def rows_to_register_batch(doc_ids, flags, key_ids, packed, values,
     # -1 is the DEL sentinel only for set/del rows; an inc delta of -1 is a
     # legitimate negative increment and must pass through untouched
     value_col[doc_sorted, pos] = np.where(
-        (values == -1) & (flags != 2), 0, values)[order]
+        (values == -1) & (flags != FLAG_INC), 0, values)[order]
 
     pred_off = np.asarray(pred_off)
     pred = np.asarray(pred)

@@ -15,9 +15,13 @@ output is byte-identical to ``AUTOMERGE_TPU_NATIVE_THREADS=1`` — same
 column bytes, hashes, interned-table order, and typed-error verdicts —
 pinned by tests/test_native_parallel.py. The GIL is released across the
 whole batch (CDLL entry points release it implicitly; the zero-copy list
-entry releases it inside C++ after gathering buffer pointers), which is
-what lets fleet.backend's pipelined turbo path overlap the parse of
-sub-batch k+1 with the device dispatch of sub-batch k.
+entry releases it inside C++ after gathering buffer pointers), so other
+Python threads run while a batch parses.
+
+The parser's row format is named here, beside the binding that returns
+it: the row-flag codes of ``ingest_changes``' ``flags`` column
+(``FLAG_*``), the packed-id layout (``ACTOR_BITS``, ``ACTOR_MASK``) and
+``format_op_id``, the one packed id -> ``counter@actor`` formatter.
 
 A compiled binary carries an ABI stamp (``am_abi_version``); a stale .so
 that cannot be rebuilt fails loudly at import instead of silently running
@@ -320,10 +324,49 @@ def _note_parse_stats(lib):
 
 
 # The native ingest context is single-flight (two-phase parse+fetch over
-# one global C context); concurrent callers — e.g. the pipelined turbo
-# prefetch thread racing the first sub-batch's foreground parse —
-# serialize here instead of corrupting each other's fetches.
+# one global C context); concurrent callers (any two threads that parse
+# at once) serialize here instead of corrupting each other's fetches.
 _ingest_lock = threading.RLock()
+
+
+# ---- the parser's row format ----------------------------------------------
+# The row-flag codes of ingest_changes' `flags` column: what op each row
+# is. codec.cpp writes them (am_ingest_changes' out_flags); every reader
+# names them from here.
+FLAG_SET = 1             # map-key set, or del (a del carries value -1)
+FLAG_INC = 2             # map-key inc
+# with_seq=True only: ops on sequence elements,
+FLAG_SEQ_INSERT = 3
+FLAG_SEQ_SET = 4
+FLAG_SEQ_DEL = 5
+FLAG_SEQ_INC = 6
+# makes at a map key (root or nested; `obj` is the parent),
+FLAG_MAKE_TEXT = 7
+FLAG_MAKE_LIST = 8
+FLAG_MAKE_MAP = 9
+FLAG_MAKE_TABLE = 10
+# and makes as sequence elements (the value lane carries the insert bit).
+FLAG_ELEM_MAKE_TEXT = 11
+FLAG_ELEM_MAKE_LIST = 12
+FLAG_ELEM_MAKE_MAP = 13
+FLAG_ELEM_MAKE_TABLE = 14
+# the object type each make code creates
+MAKE_TYPES = {FLAG_MAKE_TEXT: 'text', FLAG_MAKE_LIST: 'list',
+              FLAG_MAKE_MAP: 'map', FLAG_MAKE_TABLE: 'table',
+              FLAG_ELEM_MAKE_TEXT: 'text', FLAG_ELEM_MAKE_LIST: 'list',
+              FLAG_ELEM_MAKE_MAP: 'map', FLAG_ELEM_MAKE_TABLE: 'table'}
+
+# Packed ids (the packed, obj, ref and pred columns): counter <<
+# ACTOR_BITS | the actor's index in the actor table of the same call
+# (codec.cpp's kActorBits).
+ACTOR_BITS = 8
+ACTOR_MASK = (1 << ACTOR_BITS) - 1
+
+
+def format_op_id(packed, actors):
+    """The `counter@actor` id of a packed id, `actors` the actor table
+    that ingest_changes returned with it."""
+    return f'{packed >> ACTOR_BITS}@{actors[packed & ACTOR_MASK]}'
 
 
 def available():
@@ -501,8 +544,9 @@ def ingest_changes(buffers, doc_ids, with_meta=False, with_seq=False,
     objects), make ops at map keys (root or nested), and keyed set/del/inc
     on nested map/table objects; the rows dict gains obj/ref/vtype columns
     (packed containing objectId — 0 = root, packed referent elemId, wire
-    value-type tag); flags extend to 3=seq insert, 4=seq set, 5=seq del,
-    6=seq inc, 7=makeText, 8=makeList, 9=makeMap, 10=makeTable.
+    value-type tag), and the flags extend past FLAG_SET / FLAG_INC to the
+    sequence ops (FLAG_SEQ_*), makes at map keys (FLAG_MAKE_*) and makes
+    as sequence elements (FLAG_ELEM_MAKE_*), named above.
 
     doc_ids=None means the identity mapping (buffer i -> doc i, the
     turbo shape) and enables the zero-copy list entry: C walks the

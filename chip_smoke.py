@@ -56,11 +56,6 @@ Phases (any failure exits non-zero):
      apply_changes_docs(mirror=False) -> materialize_docs, checked
      against the last writer per key, the host OpSet engine and a save()
      round trip, with one merge dispatch per batch;
-   - pipelined seam: the same batch through
-     apply_changes_docs_pipelined(sub_batches=4), whose grids and save()
-     must equal four sequential apply_changes_docs calls over the same
-     splits (and whose save() equals the one-call seam's), one dispatch
-     per sub-batch; changes/s beside apply_changes_docs's, in turns;
    - exact seam: DocFleet(exact_device=True, device='cuda') at the same
      width (10,000 docs, key capacity 1,001, register state [10000,
      1024, 8]): init_docs, then three batches through
@@ -330,7 +325,7 @@ Phases (any failure exits non-zero):
    it had there, beside its byte bound and its calls, and the counter
    rebase, the sequence pool grow and the sequence row copy at the
    largest shape the main paths gave them; traced breakdowns
-   of the seam, the pipelined seam, the exact seam, the text seam and
+   of the seam, the exact seam, the text seam and
    one steady sync round; the
    grid bytes, and the card's name and power limit.
 
@@ -808,37 +803,20 @@ def seam_workload(seed=0):
     return changes, heads, last
 
 
-SUB_BATCHES = 4
-
-
-def run_seam(per_doc, split=None, mode='plain'):
-    """One seam run on a fresh fleet: `mode` 'plain' is one
-    apply_changes_docs call, 'pipelined' one apply_changes_docs_pipelined
-    call of SUB_BATCHES sub-batches, 'sequential' SUB_BATCHES
-    apply_changes_docs calls over the pipelined call's splits. `split`
-    (a dict) receives the seconds of fleet + init_docs and of the apply
-    up to its sync."""
+def run_seam(per_doc, split=None):
+    """One seam run on a fresh fleet: one apply_changes_docs call.
+    `split` (a dict) receives the seconds of fleet + init_docs and of the
+    apply up to its sync."""
     import torch
     from automerge_tpu_torch.fleet.backend import (
-        DocFleet, apply_changes_docs, apply_changes_docs_pipelined,
-        init_docs)
+        DocFleet, apply_changes_docs, init_docs)
     t0 = time.perf_counter()
     fleet = DocFleet(doc_capacity=N_DOCS, key_capacity=N_KEYS + 1,
                      device=DEVICE)
     handles = init_docs(N_DOCS, fleet)
     t1 = time.perf_counter()
     d0 = fleet.metrics.dispatches
-    if mode == 'plain':
-        handles, _ = apply_changes_docs(handles, per_doc, mirror=False)
-    elif mode == 'pipelined':
-        handles, _ = apply_changes_docs_pipelined(
-            handles, per_doc, sub_batches=SUB_BATCHES)
-    else:
-        steps = [-(-len(c) // SUB_BATCHES) for c in per_doc]
-        for b in range(SUB_BATCHES):
-            handles, _ = apply_changes_docs(
-                handles, [c[b * k:(b + 1) * k] for c, k in zip(per_doc, steps)],
-                mirror=False)
+    handles, _ = apply_changes_docs(handles, per_doc, mirror=False)
     torch.cuda.synchronize()
     if split is not None:
         split['init_s'] = t1 - t0
@@ -892,7 +870,7 @@ def main_path():
         rates.append(N_DOCS * N_CHANGES / (time.perf_counter() - t0))
     log(f'seam changes/s (median of 5 warm reps): '
         f'{statistics.median(rates):.1f}  reps {[round(r) for r in rates]}')
-    return launches, fleet.state.nbytes(), tuple(w.shape), per_doc, handles
+    return launches, fleet.state.nbytes(), tuple(w.shape), per_doc
 
 
 def traced(run):
@@ -959,61 +937,20 @@ def device_line(wall, rows):
     return idle
 
 
-def breakdown(per_doc, mode='plain'):
-    """One traced seam run (`mode` as run_seam's): seconds per seam
-    phase, and the device's busy time against the run's wall time. For
-    the pipelined seam, `turbo_parse@main` is the main thread's wait on
-    the producer and `native_parse` the producer's parse."""
+def breakdown(per_doc):
+    """One traced seam run: seconds per seam phase, and the device's busy
+    time against the run's wall time."""
     split = {}
-    wall, phases, rows = traced(lambda: run_seam(per_doc, split, mode))
-    order = ('turbo_setup', 'turbo_parse', 'turbo_parse@main',
-             'native_parse', 'turbo_gate', 'turbo_commit', 'turbo_stage',
-             'turbo_dispatch', 'dispatch_grid', 'python_gc')
-    log(f'breakdown, {mode} seam (traced run, wall {wall * 1e3:.1f} ms): '
+    wall, phases, rows = traced(lambda: run_seam(per_doc, split))
+    order = ('turbo_setup', 'turbo_parse', 'native_parse', 'turbo_gate',
+             'turbo_commit', 'turbo_stage', 'turbo_dispatch',
+             'dispatch_grid', 'python_gc')
+    log(f'breakdown, seam (traced run, wall {wall * 1e3:.1f} ms): '
         f'init_docs {split["init_s"] * 1e3:.1f} ms, apply '
         f'{split["apply_s"] * 1e3:.1f} ms; ' +
         ', '.join(f'{name} {phases.get(name, 0) * 1e3:.1f} ms'
                   for name in order))
     device_line(wall, rows)
-
-
-def pipelined_path(per_doc, seam_handles):
-    """The pipelined seam at the seam's shape: grids and save() equal
-    the sequential sub-batch seam's, save() equals the one-call seam's,
-    one dispatch per sub-batch; then changes/s of both in turns."""
-    import numpy as np
-    from automerge_tpu_torch.fleet import merge_kernel
-    from automerge_tpu_torch.fleet.tensor_doc import state_to_numpy
-    merge_kernel.reset_launches()
-    fleet, handles, dispatches = run_seam(per_doc, mode='pipelined')
-    launches = dict(merge_kernel.LAUNCHES)
-    if dispatches != SUB_BATCHES or fleet.metrics.turbo_calls != SUB_BATCHES:
-        fail(f'pipelined seam: {dispatches} dispatches, '
-             f'{fleet.metrics.turbo_calls} turbo calls (want {SUB_BATCHES})')
-    if launches['lww_merge'] < 1:
-        fail('the pipelined seam never launched lww_merge')
-    seq_fleet, seq_handles, _ = run_seam(per_doc, mode='sequential')
-    for name, a, b in zip(('winners', 'values', 'counters'),
-                          state_to_numpy(seq_fleet.state),
-                          state_to_numpy(fleet.state)):
-        if a.shape != b.shape or not np.array_equal(a[:, :-1], b[:, :-1]):
-            fail(f'pipelined seam {name} grid != the sequential seam\'s')
-    saves = [bytes(h['state'].save()) for h in handles]
-    if saves != [bytes(h['state'].save()) for h in seq_handles] or \
-            saves != [bytes(h['state'].save()) for h in seam_handles]:
-        fail('pipelined seam save() != the sequential / one-call seam\'s')
-    log(f'pipelined seam: {N_DOCS} docs x {N_CHANGES} changes in '
-        f'{SUB_BATCHES} sub-batches, {dispatches} dispatches, lww_merge '
-        f'launches {launches["lww_merge"]}; grids == sequential sub-batch '
-        f'seam, all {N_DOCS} save() == sequential and one-call seam')
-    rates = {'plain': [], 'pipelined': []}
-    for mode in ('plain', 'pipelined', 'pipelined', 'plain') * 3:
-        t0 = time.perf_counter()
-        run_seam(per_doc, mode=mode)
-        rates[mode].append(N_DOCS * N_CHANGES / (time.perf_counter() - t0))
-    for mode, reps in rates.items():
-        log(f'{mode} seam changes/s (median of {len(reps)}, in turns): '
-            f'{statistics.median(reps):.1f}  reps {[round(r) for r in reps]}')
 
 
 # ---- the exact seam ---------------------------------------------------------
@@ -6045,11 +5982,8 @@ def main():
     lap('sequence scan vs plain', t0)
     with CallCounter() as counter, InlineRecorder() as inline_all:
         t0 = time.perf_counter()
-        launches, grid_bytes, grid_shape, per_doc, seam_handles = \
-            main_path()
-        pipelined_path(per_doc, seam_handles)
-        del seam_handles
-        t0 = lap('seam and pipelined seam', t0)
+        launches, grid_bytes, grid_shape, per_doc = main_path()
+        t0 = lap('seam', t0)
         reg_launches, reg_saved, exact_batches = exact_path(per_doc)
         t0 = lap('exact seam', t0)
         text_launches, seq_input, seq_pools, text_batches, text_reg_saved = \
@@ -6102,7 +6036,6 @@ def main():
     seq_nums = seq_numbers(seq_input, seq_pools, base.get('seq'))
     del seq_input, seq_pools
     breakdown(per_doc)
-    breakdown(per_doc, 'pipelined')
     exact_breakdown(exact_batches)
     text_breakdown(text_batches)
     sync_breakdown(sync)

@@ -5,9 +5,9 @@ also runs on a machine without jax:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
 Each hand-written kernel is held against its plain torch version on the
-same inputs, and the seam, the pipelined seam, a sync round and an
-exact-device seam and a text seam (both device modes) on the card
-against the same on the CPU. Tolerance: none (exact int32 equality on
+same inputs, and the seam, a sync round and an exact-device seam and
+a text seam (both device modes) on the card against the same on the
+CPU. Tolerance: none (exact int32 equality on
 the merge's real key columns [:, :K], whose column K is the scratch
 column and holds garbage by contract; equal Bloom bytes and probe
 answers; equal hash-index membership and new-key counts, since the
@@ -381,23 +381,6 @@ def test_sync_round_on_the_card_matches_the_cpu(cuda):
     assert gpu_saves == cpu_saves
     assert not any(cpu_launched.values())
     assert all(gpu_launched.values()), gpu_launched
-
-
-def test_pipelined_seam_on_the_card_matches_the_cpu(cuda):
-    per_doc = _seam_batch(24, 12, seed=4)
-    results = {}
-    for dev in ('cpu', 'cuda'):
-        fleet = backend.DocFleet(doc_capacity=24, key_capacity=31,
-                                 device=dev)
-        handles = backend.init_docs(24, fleet)
-        handles, _ = backend.apply_changes_docs_pipelined(
-            handles, per_doc, sub_batches=4)
-        assert fleet.metrics.turbo_calls == 4
-        results[dev] = (backend.materialize_docs(handles),
-                        [bytes(h['state'].save()) for h in handles],
-                        fleet.state)
-    assert results['cuda'][:2] == results['cpu'][:2]
-    assert_grids_equal(results['cpu'][2], results['cuda'][2], 30)
 
 
 # ---- the register scan ------------------------------------------------------

@@ -839,22 +839,24 @@ def _seam_changes(n_docs, rounds, seed):
     return out
 
 
-def test_turbo_seam_journal_matches_plain_and_pipelined(tmp_path):
-    """The turbo seam's record_seam writes the reference's bytes, in the
-    plain seam and the pipelined one, over batches big enough for the
-    columnar batch frame and small enough for per-record frames."""
+def test_turbo_seam_journal_matches_plain_and_split_batches(tmp_path):
+    """The turbo seam's record_seam writes the reference's bytes, for
+    batches applied in one call and for one applied through sequential
+    calls over the thirds of each doc's changes (empty thirds skipped),
+    over batches big enough for the columnar batch frame and small
+    enough for per-record frames."""
     batches = _seam_changes(24, 3, seed=5)
 
     def run(P, path):
         mgr = P.durable(path)
         handles = mgr.init_docs(24)
         for k, per_doc in enumerate(batches):
-            if k == 1:
-                handles, _p = P.fb.apply_changes_docs_pipelined(
-                    handles, per_doc, sub_batches=3)
-            else:
-                handles, _p = P.fb.apply_changes_docs(handles, per_doc,
-                                                      mirror=False)
+            steps = [-(-len(c) // 3) if k == 1 else len(c) for c in per_doc]
+            for s in range(3 if k == 1 else 1):
+                split = [c[s * n:(s + 1) * n] for c, n in zip(per_doc, steps)]
+                if any(split):
+                    handles, _p = P.fb.apply_changes_docs(handles, split,
+                                                          mirror=False)
         few = [[] for _ in handles]
         few[0] = [_change('ee' * 16, 1, P.fb.get_heads(handles[0]), 5,
                           start=9, key='z')]

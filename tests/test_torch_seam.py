@@ -11,8 +11,6 @@ next step), odd docs a single-actor chain. Ops are overwriting sets
 deletes. A second batch adds keys past the grid's capacity (the grid
 grows) and an actor that sorts before the others (actors renumber)."""
 
-import threading
-
 import numpy as np
 import pytest
 import torch
@@ -253,69 +251,3 @@ def test_cpu_seam_launches_no_kernel():
     assert LAUNCHES['lww_merge'] == before
     assert tf.state.winners.device.type == 'cpu'
     assert tf.state.winners.dtype == torch.int32
-
-
-# ---- the pipelined seam ----------------------------------------------------
-
-def test_pipelined_matches_reference_and_sequential_sub_batches():
-    """apply_changes_docs_pipelined(sub_batches=4) against the
-    reference's pipelined call and against four sequential
-    apply_changes_docs calls over the same splits."""
-    jf, jh, tf, th = _fleets()
-    jh, jp = jax_backend.apply_changes_docs_pipelined(jh, BATCH1,
-                                                      sub_batches=4)
-    th, tp = torch_backend.apply_changes_docs_pipelined(th, BATCH1,
-                                                        sub_batches=4)
-    assert tp == jp
-    assert tf.metrics.turbo_calls == jf.metrics.turbo_calls == 4
-    _assert_same(jf, jh, tf, th)
-    _jf2, _jh2, sf, sh = _fleets()
-    steps = [-(-len(c) // 4) for c in BATCH1]    # each doc's split
-    for s in range(4):
-        sh, _ = torch_backend.apply_changes_docs(
-            sh, [c[s * k:(s + 1) * k] for c, k in zip(BATCH1, steps)],
-            mirror=False)
-    assert [bytes(h['state'].save()) for h in sh] == \
-        [bytes(h['state'].save()) for h in th]
-    for a, b in zip(state_to_numpy(sf.state), state_to_numpy(tf.state)):
-        np.testing.assert_array_equal(a[:, :-1], b[:, :-1])
-
-
-def test_pipelined_producer_failure_raises_in_the_caller(monkeypatch):
-    """A parse that fails on the producer thread is raised by the caller,
-    and the producer thread has ended by then."""
-    _jf, _jh, _tf, th = _fleets()
-    real = torch_native.ingest_changes
-    calls = []
-
-    def failing(*args, **kwargs):
-        calls.append(1)
-        if len(calls) == 2:
-            raise RuntimeError('parse failed on the producer')
-        return real(*args, **kwargs)
-
-    monkeypatch.setattr(torch_native, 'ingest_changes', failing)
-    before = set(threading.enumerate())
-    with pytest.raises(RuntimeError, match='producer'):
-        torch_backend.apply_changes_docs_pipelined(th, BATCH1, sub_batches=4)
-    assert set(threading.enumerate()) <= before    # the producer joined
-    assert len(calls) == 2
-
-
-def test_pipelined_with_mirror_takes_the_plain_call(monkeypatch):
-    jf, jh, tf, th = _fleets()
-    seen = []
-    real = torch_backend.apply_changes_docs
-
-    def spy(handles, per_doc, **kwargs):
-        seen.append(kwargs)
-        return real(handles, per_doc, **kwargs)
-
-    monkeypatch.setattr(torch_backend, 'apply_changes_docs', spy)
-    th, tp = torch_backend.apply_changes_docs_pipelined(
-        th, BATCH1, sub_batches=4, mirror=True)
-    jh, jp = jax_backend.apply_changes_docs_pipelined(
-        jh, BATCH1, sub_batches=4, mirror=True)
-    assert seen == [{'mirror': True}]               # one call, no parse
-    assert tp == jp
-    _assert_same(jf, jh, tf, th)

@@ -112,6 +112,11 @@ def _op_matrix(rows, lens, kind, ref, packed, value, preds, flag):
                      *lanes, flag], axis=1).astype(np.int64)
 
 
+# the exact flushes hand the dispatch their op tuples through
+# _SeqRuns.from_tuples: the sorting pack takes the tuples as they are
+_op_matrix.from_tuples = lambda seq_ops: seq_ops
+
+
 def _change(actor, seq, start, ops, deps=()):
     return encode_change({'actor': actor, 'seq': seq, 'startOp': start,
                           'time': 0, 'message': '', 'deps': sorted(deps),
